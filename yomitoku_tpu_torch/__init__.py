@@ -1,0 +1,27 @@
+"""yomitoku_tpu_torch — the PyTorch/CUDA port of yomitoku_tpu.
+
+The OCR path (DBNet text detection + PARSeq text recognition) in PyTorch,
+with hand-written Hopper kernels (``csrc/``) where the JAX package runs
+Pallas kernels.  The host layers (configs, schemas, data, postprocessors,
+native code) are the JAX package's own, imported, not copied.  This
+package imports ``torch`` and never ``jax`` or ``flax``.
+"""
+
+__version__ = "0.1.0"
+
+_LAZY = {
+    "OCR": ".ocr",
+    "TextDetector": ".text_detector",
+    "TextRecognizer": ".text_recognizer",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(_LAZY[name], __name__), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = list(_LAZY) + ["__version__"]

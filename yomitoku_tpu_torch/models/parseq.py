@@ -1,0 +1,321 @@
+"""PARSeq scene-text recognizer (counterpart of
+yomitoku_tpu/models/parseq.py).
+
+ViT encoder over 32xW line crops, a two-stream transformer decoder,
+greedy autoregressive decode with batch early exit and one cloze
+refinement pass, then the greedy reduction to (ids, probs) on the device.
+
+Where the JAX package runs the decode as one ``lax.while_loop`` program,
+the port runs a Python loop of fixed-shape steps: a static token buffer,
+content K/V caches written one row per step, the memory K/V projected
+once before the loop, and an exit as soon as every row holds an EOS (one
+device-to-host read of a flag per step).  On CUDA the depth-1 step is one
+CUDA graph, captured on the first batch of each size and replayed.
+
+Token ids follow the reference tokenizer: EOS=0, then the charset, then
+BOS=num_tokens-2, PAD=num_tokens-1; the head predicts num_tokens-2
+classes.  The JAX package's int8 memory-K/V cache (on by default on its
+accelerator) is not ported: the port decodes as the JAX package does with
+YOMITOKU_TPU_INT8_KV=0.
+"""
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from .base import TorchModel, trunc_normal_
+from .layers.two_stream import TwoStreamDecoder
+from .layers.vit import ViTEncoder
+
+
+class TokenEmbedding(nn.Module):
+    def __init__(self, num_tokens, embed_dim):
+        super().__init__()
+        self.embedding = nn.Embedding(num_tokens, embed_dim)
+        self.scale = math.sqrt(embed_dim)
+
+    def forward(self, tokens):
+        # content embeddings are scaled by sqrt(D), the scale first rounded
+        # to the compute dtype as the JAX package rounds it
+        w = self.embedding.weight
+        scale = torch.tensor(self.scale, dtype=torch.float32).to(w.dtype).item()
+        return self.embedding(tokens) * scale
+
+
+class _CachedARLoop:
+    """The depth-1 AR loop for one batch size: fixed-shape buffers (token
+    ids, content K/V caches, the memory K/V, the step counter and a
+    ``done`` flag) and one step over them.
+
+    A step reads its position from the device counter and gates every write
+    on ``done``, so it needs no host value: on CUDA it is captured once as
+    a CUDA graph, on the first batch of this size, and replayed for every
+    step of every later batch (the loop is otherwise bound by launching
+    ~120 small ops per step from Python).  Each batch resets the buffers in
+    place, so the graph's addresses stay valid; the graph also reads the
+    model's parameters in place (loading a state_dict copies into them).
+    The host reads ``done`` after each step to exit early; a step run after
+    ``done`` would change nothing."""
+
+    def __init__(self, model, B, L, causal):
+        self.model = model
+        self.layer = layer = model.decoder.layers[0]
+        self.L = L
+        H = layer.self_attn.num_heads
+        dh = layer.self_attn.embed_dim // H
+        dev = causal.device
+        self.causal = causal.clone()
+        self.tgt_in = torch.empty((B, L), dtype=torch.long, device=dev)
+        # The caches hold values of the compute dtype but are stored f32 and
+        # contiguous per (batch, head): every step's attention takes f32
+        # logits (as the JAX package's preferred_element_type does), and
+        # this layout spares a full copy of the 400-row memory K/V per step.
+        self.kc = torch.empty((B, H, L, dh), dtype=torch.float32, device=dev)
+        self.vc = torch.empty_like(self.kc)
+        self.km = self.vm = None  # (B, H, M, dh) f32, on the first batch
+        self.logits = None
+        if model.refine_iters == 0:
+            self.logits = torch.empty(
+                (B, L, model.num_tokens - 2), dtype=torch.float32, device=dev
+            )
+        self.pos_all = model.position_queries(B, L)
+        self.step_i = torch.empty(1, dtype=torch.long, device=dev)
+        self.done = torch.empty(1, dtype=torch.bool, device=dev)
+        self.graph = None
+
+    def _reset(self, memory):
+        m = self.model
+        km, vm = self.layer.memory_kv(memory)
+        if self.km is None:
+            self.km = torch.empty(km.shape, dtype=torch.float32, device=km.device)
+            self.vm = torch.empty_like(self.km)
+        self.km.copy_(km)
+        self.vm.copy_(vm)
+        self.tgt_in.fill_(m.pad_id)
+        self.tgt_in[:, 0] = m.bos_id
+        self.kc.zero_()
+        self.vc.zero_()
+        bos = self.tgt_in[:, :1]
+        kr, vr = self.layer.content_kv(m.content_embeddings(bos))
+        self.kc[:, :, :1], self.vc[:, :, :1] = kr, vr
+        if self.logits is not None:
+            self.logits.zero_()
+        self.step_i.zero_()
+        self.done.zero_()
+
+    def step(self):
+        m, L = self.model, self.L
+        i = self.step_i
+        j = (i + 1).clamp(max=L - 1)  # the row this step writes
+        live = ~self.done
+        p_i = m.head(m.decoder.ar_query_step(
+            self.pos_all.index_select(1, i), self.kc, self.vc, self.km,
+            self.vm, self.causal.index_select(0, i),
+        )).float()
+        if self.logits is not None:
+            self.logits.index_copy_(
+                1, i, torch.where(live, p_i, self.logits.index_select(1, i))
+            )
+        nxt = p_i[:, 0].argmax(-1)
+        write = live & (i + 1 < L)
+        tgt_in = self.tgt_in
+        tgt_in.index_copy_(
+            1, j, torch.where(write, nxt, tgt_in.index_select(1, j)[:, 0])[:, None]
+        )
+        row = m.pos_queries.index_select(1, j - 1) + m.text_embed(nxt[:, None])
+        kr, vr = self.layer.content_kv(row)
+        self.kc.index_copy_(2, j, kr.float())
+        self.vc.index_copy_(2, j, vr.float())
+        # early exit once every row has produced an EOS
+        self.done.logical_or_(write & (tgt_in == m.eos_id).any(-1).all())
+        self.step_i.add_(1)
+
+    def _capture(self):
+        """Run step 0 on a side stream (the warm-up graph capture needs),
+        then capture the step in a CUDA graph."""
+        dev = self.tgt_in.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.step()
+
+    def __call__(self, memory):
+        """memory (B, M, D) -> (tgt_in, logits or None), fresh tensors."""
+        self._reset(memory)
+        first = 0
+        if self.tgt_in.is_cuda and self.graph is None:
+            self._capture()  # ran step 0
+            first = 1
+        run = self.step if self.graph is None else self.graph.replay
+        for i in range(first, self.L):
+            if i and bool(self.done):
+                break
+            run()
+        logits = None if self.logits is None else self.logits.clone()
+        return self.tgt_in.clone(), logits
+
+
+class PARSeq(TorchModel):
+    #: stage label for utils.stagetrace accounting
+    trace_stage = "rec"
+
+    def __init__(self, cfg, device="cpu", dtype=None):
+        super().__init__(cfg, device, dtype)
+        self.max_label_length = cfg.max_label_length
+        self.decode_ar = bool(cfg.decode_ar)
+        self.refine_iters = int(cfg.refine_iters)
+        self.num_tokens = cfg.num_tokens
+        self.eos_id = 0
+        self.bos_id = cfg.num_tokens - 2
+        self.pad_id = cfg.num_tokens - 1
+        self.img_size = tuple(cfg.data.img_size)
+        self.dec_depth = cfg.decoder.depth
+        D = cfg.decoder.embed_dim
+        self.encoder = ViTEncoder(
+            self.img_size, tuple(cfg.encoder.patch_size),
+            cfg.encoder.embed_dim, cfg.encoder.depth, cfg.encoder.num_heads,
+            cfg.encoder.mlp_ratio,
+        )
+        self.decoder = TwoStreamDecoder(
+            D, cfg.decoder.num_heads, cfg.decoder.mlp_ratio, cfg.decoder.depth
+        )
+        self.head = nn.Linear(D, cfg.num_tokens - 2)
+        self.text_embed = TokenEmbedding(cfg.num_tokens, D)
+        # +1 for <eos>
+        self.pos_queries = nn.Parameter(torch.zeros(1, cfg.max_label_length + 1, D))
+        #: batch size -> _CachedARLoop (its buffers and its CUDA graph)
+        self._ar_loops = {}
+        self.finish_init()
+
+    def init_extra(self, gen):
+        trunc_normal_(self.encoder.pos_embed, 0.02, gen)
+        trunc_normal_(self.pos_queries, 0.02, gen)
+
+    # ------------------------------------------------------------ pieces
+
+    def content_embeddings(self, tgt_in):
+        """Content stream: [emb(BOS) | pos_q[i-1] + emb(tok_i)]."""
+        L = tgt_in.shape[1]
+        null_ctx = self.text_embed(tgt_in[:, :1])
+        rest = self.pos_queries[:, :L - 1] + self.text_embed(tgt_in[:, 1:])
+        return torch.cat([null_ctx, rest], dim=1)
+
+    def content_row(self, tokens, j):
+        """Content row j (>= 1) for tokens written at tgt_in[:, j]."""
+        return self.pos_queries[:, j - 1:j] + self.text_embed(tokens[:, None])
+
+    def position_queries(self, batch_size, num_steps):
+        return self.pos_queries[:, :num_steps].expand(batch_size, -1, -1)
+
+    def decode(self, tgt_query, content, memory, query_mask=None,
+               content_mask=None, padding_mask=None):
+        out = self.decoder(tgt_query, content, memory, query_mask,
+                           content_mask, padding_mask)
+        return self.head(out)
+
+    # ----------------------------------------------------- decode program
+
+    def _ar_cached(self, memory, B, L, causal):
+        """Depth-1 AR loop with K/V caches -> tgt_in and (if no refine
+        follows) the per-step logits, on the loop state kept for batch size
+        ``B`` (see ``_CachedARLoop``)."""
+        loop = self._ar_loops.get(B)
+        if loop is None:
+            loop = self._ar_loops[B] = _CachedARLoop(self, B, L, causal)
+        return loop(memory)
+
+    def _ar_uncached(self, memory, B, L, causal):
+        """AR loop re-decoding the whole content stream (depth > 1)."""
+        dev = memory.device
+        tgt_in = torch.full((B, L), self.pad_id, dtype=torch.long, device=dev)
+        tgt_in[:, 0] = self.bos_id
+        carry = self.refine_iters == 0
+        logits = torch.zeros(B, L, self.num_tokens - 2, device=dev) if carry else None
+        pos_all = self.position_queries(B, L)
+        for i in range(L):
+            content = self.content_embeddings(tgt_in)
+            p_i = self.decode(pos_all[:, i:i + 1], content, memory,
+                              causal[i:i + 1]).float()
+            if carry:
+                logits[:, i:i + 1] = p_i
+            if i + 1 >= L:
+                break
+            tgt_in[:, i + 1] = p_i[:, 0].argmax(-1)
+            if bool((tgt_in == self.eos_id).any(-1).all()):
+                break
+        return tgt_in, logits
+
+    @torch.no_grad()
+    def forward_logits(self, images):
+        """(B, H, W, 3) standardized float (or uint8, normalised on the
+        device) -> final logits (B, L, num_tokens - 2) float32."""
+        images = images.to(self.device)
+        if images.dtype == torch.uint8:
+            # device-side ToTensor + Normalize(0.5, 0.5)
+            images = images.to(self.dtype) * (1.0 / 127.5) - 1.0
+        memory = self.encoder(images.to(self.dtype))
+        B = images.shape[0]
+        L = self.max_label_length + 1
+        dev = memory.device
+        # True = masked.  Causal: query i sees content <= i.
+        causal = torch.triu(torch.ones(L, L, dtype=torch.bool, device=dev), 1)
+        if self.decode_ar:
+            ar = self._ar_cached if self.dec_depth == 1 else self._ar_uncached
+            tgt_in_final, logits = ar(memory, B, L, causal)
+        else:
+            bos = torch.full((B, 1), self.bos_id, dtype=torch.long, device=dev)
+            logits = self.decode(self.position_queries(B, L),
+                                 self.content_embeddings(bos), memory).float()
+        if self.refine_iters:
+            # Cloze mask: query i may not see content i+1 (its own target).
+            # The reference aliases the content mask to the same tensor, so
+            # the cloze mask applies to BOTH streams during refinement.
+            ones = torch.ones(L, L, dtype=torch.bool, device=dev)
+            cloze = torch.triu(ones, 1) & ~torch.triu(ones, 2)
+            bos = torch.full((B, 1), self.bos_id, dtype=torch.long, device=dev)
+            for it in range(self.refine_iters):
+                if it == 0 and self.decode_ar:
+                    # [BOS | AR argmax ids]; tails past each row's first
+                    # EOS hold PAD where the reference has argmax ids, but
+                    # the padding mask below hides them
+                    tgt_in = tgt_in_final
+                else:
+                    tgt_in = torch.cat([bos, logits[:, :-1].argmax(-1)], dim=1)
+                padding_mask = (tgt_in == self.eos_id).int().cumsum(-1) > 0
+                logits = self.decode(
+                    self.position_queries(B, L), self.content_embeddings(tgt_in),
+                    memory, cloze, cloze, padding_mask,
+                ).float()
+        return logits
+
+    @torch.no_grad()
+    def forward_probs(self, images):
+        """(B, H, W, 3) -> full softmax distributions (B, L, num_tokens-2)."""
+        return torch.softmax(self.forward_logits(images), dim=-1)
+
+    @torch.no_grad()
+    def forward_tokens_device(self, images):
+        """Greedy reduction on the device: ids (B, L) int32 and their
+        probabilities (B, L) float32, via logsumexp (no full softmax)."""
+        logits = self.forward_logits(images)
+        ids = logits.argmax(-1)
+        lse = torch.logsumexp(logits, dim=-1)
+        top = logits.gather(-1, ids[..., None])[..., 0]
+        return ids.int(), torch.exp(top - lse)
+
+    def forward_tokens(self, images: np.ndarray):
+        """Host entry: (B, H, W, 3) ndarray -> (ids, probs) ndarrays."""
+        from yomitoku_tpu.utils.stagetrace import segment
+
+        with segment(self.trace_stage, "dispatch", nbytes=images.nbytes):
+            ids, probs = self.forward_tokens_device(
+                torch.from_numpy(np.ascontiguousarray(images))
+            )
+        with segment(self.trace_stage, "sync"):
+            return ids.cpu().numpy(), probs.cpu().numpy()

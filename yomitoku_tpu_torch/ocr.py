@@ -1,0 +1,43 @@
+"""OCR pipeline: text detection -> line recognition -> word aggregation
+(counterpart of yomitoku_tpu/ocr.py)."""
+
+from yomitoku_tpu.schemas import OCRSchema
+
+from .text_detector import TextDetector
+from .text_recognizer import TextRecognizer
+
+
+def ocr_aggregate(det_outputs, rec_outputs):
+    """The JAX package's yomitoku_tpu.ocr.ocr_aggregate, repeated here
+    because that module imports the JAX detector."""
+    return [
+        {
+            "points": points,
+            "content": pred,
+            "direction": direction,
+            "det_score": det_score,
+            "rec_score": rec_score,
+        }
+        for points, det_score, pred, rec_score, direction in zip(
+            rec_outputs.points, det_outputs.scores, rec_outputs.contents,
+            rec_outputs.scores, rec_outputs.directions,
+        )
+    ]
+
+
+class OCR:
+    """Detector + recognizer.  Unlike the JAX package's OCR, no
+    visualisation yet: a call returns the schema alone."""
+
+    def __init__(self, configs=None, device="cuda"):
+        configs = configs or {}
+        if not isinstance(configs, dict):
+            raise ValueError("configs must be a dict.")
+        self.detector = TextDetector(device=device, **configs.get("text_detector", {}))
+        self.recognizer = TextRecognizer(device=device, **configs.get("text_recognizer", {}))
+
+    def __call__(self, img):
+        """Run OCR on a BGR image -> OCRSchema."""
+        det_outputs = self.detector(img)
+        rec_outputs = self.recognizer(img, det_outputs.points)
+        return OCRSchema(words=ocr_aggregate(det_outputs, rec_outputs))

@@ -1,0 +1,32 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch
+version (see ops/attention.py, ops/mlp.py and csrc/)."""
+
+from ._common import launches, layer_norm, reset_launches
+from .attention import (
+    fused_attention_block_ln,
+    fused_attention_block_ln_packed,
+    fused_attention_block_ln_reference,
+    fused_attention_heads,
+    fused_attention_heads_reference,
+)
+from .mlp import (
+    fused_mlp,
+    fused_mlp_ln,
+    fused_mlp_ln_reference,
+    fused_mlp_reference,
+)
+
+__all__ = [
+    "fused_attention_block_ln",
+    "fused_attention_block_ln_packed",
+    "fused_attention_block_ln_reference",
+    "fused_attention_heads",
+    "fused_attention_heads_reference",
+    "fused_mlp",
+    "fused_mlp_ln",
+    "fused_mlp_ln_reference",
+    "fused_mlp_reference",
+    "launches",
+    "layer_norm",
+    "reset_launches",
+]

@@ -1,0 +1,127 @@
+"""Build and load the port's CUDA kernels (``yomitoku_tpu_torch/csrc``).
+
+The ``.cu`` sources compile with ``nvcc`` into one shared library with a
+plain C interface, loaded through ``ctypes`` (no PyTorch headers, so the
+build takes seconds).  The library lands in ``build/yomitoku_tpu_torch/``
+at the repository root, named by a hash of the sources and flags: a
+changed source rebuilds, an unchanged one reuses the library.  A failed
+build raises with nvcc's output; nothing falls back to the plain version.
+
+Nothing here runs at import time: the first kernel launch builds.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "yomitoku_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-lineinfo",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+#: storage-type codes of the C interface (csrc/common.cuh)
+DTYPE_CODES = {"float32": 0, "bfloat16": 1}
+
+
+class KernelBuildError(RuntimeError):
+    pass
+
+
+class _Library:
+    """The loaded kernel library plus what its build reported."""
+
+    def __init__(self, path, seconds, log):
+        self.path = path
+        self.build_seconds = seconds  # 0.0 when an existing build was reused
+        self.build_log = log  # nvcc / ptxas output (registers, spills)
+        lib = ctypes.CDLL(str(path))
+        vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.yt_gemm.argtypes = [
+            i32, vp, i64, vp, i64, i32, vp, vp, i64, vp, i64,
+            i32, i32, i32, vp, vp, ctypes.c_float, i32, vp, vp,
+        ]
+        lib.yt_gemm.restype = i32
+        lib.yt_attention.argtypes = [
+            i32, vp, i64, i64, vp, i64, i64, vp, i64, i64, vp, i64, i64,
+            i32, i32, i32, i32, i32, ctypes.c_float, vp,
+        ]
+        lib.yt_attention.restype = i32
+        lib.yt_error_string.argtypes = [i32]
+        lib.yt_error_string.restype = ctypes.c_char_p
+        self.lib = lib
+
+    def check(self, code: int, what: str):
+        if code != 0:
+            msg = self.lib.yt_error_string(code).decode()
+            raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+_LOADED = None
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([Path(home) / "bin" / "nvcc"] if home else []) + [
+        Path("/usr/local/cuda/bin/nvcc")
+    ]:
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise KernelBuildError(
+        "nvcc not found (set CUDA_HOME): the CUDA kernels cannot be built"
+    )
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in cu + cuh:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> _Library:
+    """Compile (or reuse) the kernel library; raise on any failure."""
+    cu, _ = _sources()
+    if not cu:
+        raise KernelBuildError(f"no CUDA sources under {CSRC}")
+    out = BUILD_DIR / f"libyt_kernels_{source_hash()}.so"
+    if out.exists():
+        return _Library(out, 0.0, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise KernelBuildError(
+            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}"
+        )
+    os.replace(tmp, out)  # atomic: concurrent builders never see a torn file
+    return _Library(out, seconds, log)
+
+
+def library() -> _Library:
+    """The process's kernel library, built at first use."""
+    global _LOADED
+    if _LOADED is None:
+        _LOADED = build()
+    return _LOADED

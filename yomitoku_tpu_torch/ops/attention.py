@@ -1,0 +1,144 @@
+"""Attention kernels of the port (replacing
+``yomitoku_tpu/ops/pallas/flash_attention.py``).
+
+* ``fused_attention_heads``: head-packed softmax(q k^T s) v.  One launch
+  of the attention kernel (csrc/attention.cu).
+* ``fused_attention_block_ln``: the pre-LN self-attention sublayer
+  x + Wo.MHA(LN(x)Wq, LN(x)Wk, LN(x)Wv) + bo.  Three launches: the GEMM
+  kernel with the LayerNorm prologue writes the packed (B*L, 3D) QKV
+  buffer, the attention kernel reads Q, K and V as column slices of it
+  and the GEMM kernel adds the out-projection, its bias and the residual.
+  ``fused_attention_block_ln_packed`` is the same sublayer with the three
+  input projections given as one packed weight, as the models hold them.
+  The Pallas kernel did all of it for one batch item in VMEM, with the four
+  D x D weights resident; an SM holds neither, so the sublayer is split
+  at the two places where a (B*L, D)-sized activation must be complete.
+
+Each function keeps the JAX function's name and argument order, with
+weights in the JAX (in, out) layout.  On CPU tensors it runs its plain
+``*_reference`` version; on CUDA tensors it launches the kernels or
+raises.  Numerics follow the Pallas kernels: f32 LayerNorm statistics,
+f32 logits and accumulation, projections rounded to the input dtype.
+"""
+
+import torch
+
+from ._common import (
+    attention,
+    gemm,
+    launches,
+    layer_norm,
+    on_cpu,
+    require_cuda,
+    vector,
+)
+
+
+def fused_attention_heads_reference(q, k, v, num_heads, scale=None):
+    """Plain PyTorch version of ``fused_attention_heads``."""
+    B, Lq, D = q.shape
+    Lk = k.shape[1]
+    H = num_heads
+    Dh = D // H
+    if scale is None:
+        scale = Dh ** -0.5
+    qh = q.reshape(B, Lq, H, Dh).transpose(1, 2).float()
+    kh = k.reshape(B, Lk, H, Dh).transpose(1, 2).float()
+    vh = v.reshape(B, Lk, H, Dh).transpose(1, 2)
+    logits = torch.matmul(qh, kh.transpose(-1, -2)) * scale
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.matmul(w.float(), vh.float())
+    return out.transpose(1, 2).reshape(B, Lq, D).to(q.dtype)
+
+
+def fused_attention_heads(q, k, v, num_heads, scale=None):
+    """Attention on head-packed rows: q (B, Lq, H*Dh), k/v (B, Lk, H*Dh)
+    -> (B, Lq, H*Dh).  Any Lq and Lk: the kernel masks ragged edges."""
+    B, Lq, D = q.shape
+    if scale is None:
+        scale = (D // num_heads) ** -0.5
+    if on_cpu(q, k, v):
+        return fused_attention_heads_reference(q, k, v, num_heads, scale)
+    require_cuda("fused_attention_heads", q, k, v)
+    out = torch.empty((B, Lq, D), dtype=q.dtype, device=q.device)
+    attention(q, k, v, out, num_heads, scale)
+    launches["fused_attention_heads"] += 1
+    return out
+
+
+def fused_attention_block_ln_reference(
+    x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, num_heads,
+    scale=None, eps=1e-6,
+):
+    """Plain PyTorch version of ``fused_attention_block_ln``."""
+    dt = x.dtype
+    h = layer_norm(x, ln_scale, ln_bias, eps, dt).float()
+
+    def proj(w, b):
+        return (torch.matmul(h, w.float()) + b.float()).to(dt)
+
+    q, k, v = proj(wq, bq), proj(wk, bk), proj(wv, bv)
+    attn = fused_attention_heads_reference(q, k, v, num_heads, scale)
+    out = torch.matmul(attn.float(), wo.float()) + bo.float()
+    return (x.float() + out).to(dt)
+
+
+def fused_attention_block_ln(
+    x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, num_heads,
+    scale=None, eps=1e-6,
+):
+    """Pre-LN self-attention sublayer x + attn_block(LayerNorm(x)).
+
+    x (B, L, D) contiguous; ln_scale, ln_bias and the biases (D,); the
+    four weights (D, D) in the (in, out) layout, each row-major or the
+    transpose of a row-major tensor.  The three input projections are
+    packed into one (D, 3D) weight per call;
+    ``fused_attention_block_ln_packed`` takes them packed already."""
+    args = (x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo)
+    if on_cpu(*args):
+        return fused_attention_block_ln_reference(
+            *args, num_heads, scale=scale, eps=eps
+        )
+    return fused_attention_block_ln_packed(
+        x, ln_scale, ln_bias, torch.cat([wq, wk, wv], dim=1),
+        torch.cat([bq, bk, bv]), wo, bo, num_heads, scale=scale, eps=eps,
+    )
+
+
+def fused_attention_block_ln_packed(
+    x, ln_scale, ln_bias, w_qkv, b_qkv, wo, bo, num_heads, scale=None,
+    eps=1e-6,
+):
+    """``fused_attention_block_ln`` with the input projections packed:
+    w_qkv (D, 3D) = [wq | wk | wv] and b_qkv (3D,).  A torch
+    ``in_proj_weight.t()`` (or a timm ``qkv.weight.t()``) and its bias pass
+    as they are, so the models hand over their parameters without a copy."""
+    B, L, D = x.shape
+    if scale is None:
+        scale = (D // num_heads) ** -0.5
+    args = (x, ln_scale, ln_bias, w_qkv, b_qkv, wo, bo)
+    if on_cpu(*args):
+        return fused_attention_block_ln_reference(
+            x, ln_scale, ln_bias,
+            w_qkv[:, :D], b_qkv[:D], w_qkv[:, D:2 * D], b_qkv[D:2 * D],
+            w_qkv[:, 2 * D:], b_qkv[2 * D:], wo, bo, num_heads,
+            scale=scale, eps=eps,
+        )
+    name = "fused_attention_block_ln"
+    require_cuda(name, x, w_qkv, wo)
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous")
+    dt = x.dtype
+    x2 = x.view(B * L, D)
+    ln = (vector(ln_scale, D, x, name), vector(ln_bias, D, x, name), eps)
+    qkv = torch.empty((B * L, 3 * D), dtype=dt, device=x.device)
+    gemm(x2, w_qkv, vector(b_qkv, 3 * D, x, name), qkv, ln=ln)
+    q3 = qkv.view(B, L, 3 * D)
+    attn = torch.empty((B, L, D), dtype=dt, device=x.device)
+    attention(
+        q3[..., :D], q3[..., D:2 * D], q3[..., 2 * D:], attn, num_heads, scale
+    )
+    out = torch.empty_like(x2)
+    gemm(attn.view(B * L, D), wo, vector(bo, D, x, name), out, res=x2)
+    launches[name] += 1
+    return out.view(B, L, D)

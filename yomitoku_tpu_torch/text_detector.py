@@ -1,0 +1,64 @@
+"""TextDetector task module, DBNet (counterpart of
+yomitoku_tpu/text_detector.py): resize the uint8 page on the host
+(shortest edge 1280, limit 1600, /32-snapped), standardise and run DBNet
+on the device, bring back the uint8 probability map, and extract quads
+with the JAX package's postprocessor (native C++ contours and unclip)."""
+
+from yomitoku_tpu.configs import (
+    TextDetectorDBNetConfig,
+    TextDetectorDBNetV2_1Config,
+    TextDetectorDBNetV2_1LiteConfig,
+    TextDetectorDBNetV2Config,
+)
+from yomitoku_tpu.data.functions import resize_shortest_edge
+from yomitoku_tpu.postprocessor.dbnet_postprocessor import DBnetPostProcessor
+from yomitoku_tpu.schemas import TextDetectorSchema
+from yomitoku_tpu.utils.stagetrace import segment
+
+from .base import BaseModelCatalog, BaseModule
+from .models.dbnet import DBNet
+
+
+class TextDetectorModelCatalog(BaseModelCatalog):
+    def __init__(self):
+        super().__init__()
+        self.register("dbnet", TextDetectorDBNetConfig, DBNet)
+        self.register("dbnetv2", TextDetectorDBNetV2Config, DBNet)
+        self.register("dbnetv2_1", TextDetectorDBNetV2_1Config, DBNet)
+        self.register("dbnetv2_1-lite", TextDetectorDBNetV2_1LiteConfig, DBNet)
+
+
+class TextDetector(BaseModule):
+    model_catalog = TextDetectorModelCatalog()
+
+    def __init__(
+        self,
+        model_name="dbnetv2_1",
+        path_cfg=None,
+        device="cuda",
+        from_pretrained=True,
+        dtype=None,
+    ):
+        super().__init__()
+        self.load_model(model_name, path_cfg, device=device,
+                        from_pretrained=from_pretrained, dtype=dtype)
+        self.post_processor = DBnetPostProcessor(**self._cfg.post_process)
+
+    def preprocess_u8(self, img):
+        """Resize the uint8 BGR page on the host; the standardisation runs
+        on the device (DBNet.forward_u8)."""
+        resized = resize_shortest_edge(
+            img, self._cfg.data.shortest_size, self._cfg.data.limit_size
+        )
+        return resized[None, ...]
+
+    def postprocess(self, preds, image_size):
+        return self.post_processor(preds, image_size)
+
+    def __call__(self, img):
+        """Detect text quads in a BGR image -> TextDetectorSchema."""
+        ori_h, ori_w = img.shape[:2]
+        binary = self.model.forward_binary_u8(self.preprocess_u8(img))
+        with segment("det", "contours"):
+            quads, scores = self.postprocess({"binary": binary}, (ori_h, ori_w))
+        return TextDetectorSchema(points=quads, scores=scores)

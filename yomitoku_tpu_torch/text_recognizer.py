@@ -1,0 +1,118 @@
+"""TextRecognizer task module, PARSeq (counterpart of
+yomitoku_tpu/text_recognizer.py).
+
+The host-crop route: ``ParseqDataset`` cuts, rotates and pads each line
+quad on the host; batches are padded to the buckets (1, 8, 32, 128) and
+decoded on the device; only the greedy (ids, probs) come back; strings
+are NFKC-normalised.  This is the route the JAX package takes wherever its
+device crops are off.  Not ported yet: device crops, width buckets, the
+180-degree orientation fallback and visualisation.
+"""
+
+import unicodedata
+
+import numpy as np
+
+from yomitoku_tpu.configs import (
+    TextRecognizerPARSeqConfig,
+    TextRecognizerPARSeqLargeV41Config,
+    TextRecognizerPARSeqSmallConfig,
+    TextRecognizerPARSeqTinyConfig,
+    TextRecognizerPARSeqV2Config,
+)
+from yomitoku_tpu.data.dataset import ParseqDataset
+from yomitoku_tpu.postprocessor.parseq_tokenizer import ParseqTokenizer
+from yomitoku_tpu.schemas import TextRecognizerSchema
+from yomitoku_tpu.utils.misc import load_charset
+
+from .base import BaseModelCatalog, BaseModule
+from .models.parseq import PARSeq
+
+#: Batch-size buckets (padded), as in the JAX package
+BATCH_BUCKETS = (1, 8, 32, 128)
+
+
+def bucket_batch_size(n: int, max_batch: int) -> int:
+    for b in BATCH_BUCKETS:
+        if n <= b and b <= max_batch:
+            return b
+    return max_batch
+
+
+class TextRecognizerModelCatalog(BaseModelCatalog):
+    def __init__(self):
+        super().__init__()
+        self.register("parseq", TextRecognizerPARSeqConfig, PARSeq)
+        self.register("parseqv2", TextRecognizerPARSeqV2Config, PARSeq)
+        self.register("parseq-small", TextRecognizerPARSeqSmallConfig, PARSeq)
+        self.register("parseq-tiny", TextRecognizerPARSeqTinyConfig, PARSeq)
+        self.register("parseq-large-v4_1", TextRecognizerPARSeqLargeV41Config, PARSeq)
+
+
+class TextRecognizer(BaseModule):
+    model_catalog = TextRecognizerModelCatalog()
+
+    def __init__(
+        self,
+        model_name="parseq-large-v4_1",
+        path_cfg=None,
+        device="cuda",
+        from_pretrained=True,
+        dtype=None,
+    ):
+        super().__init__()
+        self.load_model(model_name, path_cfg, device=device,
+                        from_pretrained=from_pretrained, dtype=dtype)
+        self.charset = load_charset(self._cfg.charset)
+        self.tokenizer = ParseqTokenizer(self.charset)
+
+    def preprocess(self, img, polygons):
+        if polygons is None:
+            h, w = img.shape[:2]
+            polygons = [[[0, 0], [w, 0], [w, h], [0, h]]]
+        return ParseqDataset(self._cfg, img, polygons), polygons
+
+    def _infer_padded(self, chunk: np.ndarray):
+        """Pad a chunk to its batch bucket, decode, strip the padding."""
+        n = len(chunk)
+        target = bucket_batch_size(n, self._cfg.data.batch_size)
+        if n < target:
+            pad = np.zeros((target - n,) + chunk.shape[1:], chunk.dtype)
+            chunk = np.concatenate([chunk, pad], axis=0)
+        ids, probs = self.model.forward_tokens(chunk)
+        return ids[:n], probs[:n]
+
+    def postprocess(self, ids_probs, points):
+        preds, scores = self.tokenizer.decode_ids(*ids_probs)
+        preds = [unicodedata.normalize("NFKC", x) for x in preds]
+        directions = []
+        for point in points:
+            point = np.array(point)
+            w = np.linalg.norm(point[0] - point[1])
+            h = np.linalg.norm(point[1] - point[2])
+            directions.append("vertical" if h > w * 2 else "horizontal")
+        return preds, scores, directions
+
+    def _run_batch_inference(self, batch: np.ndarray, points):
+        preds, scores, directions = [], [], []
+        bs = self._cfg.data.batch_size
+        for i in range(0, len(batch), bs):
+            p, s, d = self.postprocess(
+                self._infer_padded(batch[i:i + bs]), points[i:i + bs]
+            )
+            preds.extend(p)
+            scores.extend(s)
+            directions.extend(d)
+        return preds, scores, directions
+
+    def __call__(self, img, points=None):
+        """Recognize text lines in ``img`` (BGR) at the given quads."""
+        dataset, _ = self.preprocess(img, points)
+        valid_points = dataset.valid_quads
+        preds, scores, directions = self._run_batch_inference(
+            dataset.as_u8_array(), valid_points
+        )
+        return TextRecognizerSchema(
+            contents=preds, scores=scores, points=valid_points,
+            directions=directions,
+        )
