@@ -7,24 +7,42 @@ Phases, each printed as it runs; any failure exits non-zero:
 
 1. Card: name and power limit (nvidia-smi), and the kernel build time
    (the CUDA sources under yomitoku_tpu_torch/csrc compile here).
-2. Kernels: each of the four kernels at the recognizer's shapes against its
-   plain PyTorch version on the same CUDA inputs (f32 kernel vs f32
-   reference at max|d| <= 1e-4 max|ref| + 1e-5 with TF32 off; bf16 kernel
-   vs f32 reference at max|d| <= 2e-2 max|ref|; for the two residual
-   sublayers also against the scale of their own delta ref - x), with the
-   weights as the models pass them (torch Linear weights ``.t()``) and as
-   row-major (in, out) tensors, then the median time of the kernel and of
-   the plain version over 10 runs after warm-up.
-3. The slice: ``OCR(device="cuda")`` (DBNet dbnetv2_1 + PARSeq
+2. Kernels: each of the four OCR kernels at the recognizer's shapes
+   against its plain PyTorch version on the same CUDA inputs (f32 kernel
+   vs f32 reference at max|d| <= 1e-4 max|ref| + 1e-5 with TF32 off; bf16
+   kernel vs f32 reference at max|d| <= 2e-2 max|ref|; for the two
+   residual sublayers also against the scale of their own delta ref - x),
+   with the weights as the models pass them (torch Linear weights ``.t()``)
+   and as row-major (in, out) tensors, then the median time of the kernel,
+   of the plain version and of the stock bf16 torch op over 10 runs after
+   warm-up.  The same for the layout kernels at RT-DETR's shapes:
+   ``ms_deformable_attention`` at the layout decoder's (B=1, Lq=300), the
+   table recognizer's (B=4, Lq=300) and the cell detector's Lq=2500 (stock:
+   ``F.grid_sample`` per level), and ``fused_attention_heads`` at the AIFI
+   (L=400) and decoder (L=300) self-attention, 8 heads of 32, at B=1 and
+   B=4 (stock: SDPA).
+3. The OCR path: ``OCR(device="cuda")`` (DBNet dbnetv2_1 + PARSeq
    parseq-large-v4_1, seed-0 random weights) on demo/sample_text.png, its
    recognizer on a synthetic page of 128+ lines (a full batch of 128), the
    four launch counters of that run, and two 16-line f32 recognizer runs
    on the card (the first captures the AR step's CUDA graph, the second
    replays it) against the same weights on the CPU (plain path).
+4. The layout path: ``LayoutAnalyzer(device="cuda")`` (RT-DETRv2
+   rtdetrv2v2 layout parser + rtdetrv2 table structure recognizer, 640x640,
+   300 queries, seed-0 random weights) on demo/sample_table.png, then its
+   recognizer batched over 4 fixed table boxes of that page, the launch
+   counters of that run, ms/page, a torch.profiler window over the layout
+   parser and the recognizer (device busy time, idle share, device
+   operations per call), and an f32 RT-DETRv2 on the card against the
+   same weights on the CPU (selected-query sets, logits and boxes).
 
-Then one JSON line with the kernels, and the last line
+The layout kernels' times are taken twice: CUDA events around one Python
+call (host dispatch included) and the device time of the call's CUDA
+kernels from torch.profiler.  Then one JSON line with the kernels, and
+the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Long outputs (the nvcc log, the OCR schema) go to build/chip_smoke/.
+Long outputs (the nvcc log, the OCR and layout schemas, the layout
+profile) go to build/chip_smoke/.
 """
 
 import json
@@ -51,10 +69,34 @@ KERNELS = [
      "yomitoku_tpu/ops/pallas/flash_attention.py:117"),
     ("fused_mlp", "cuda", "yomitoku_tpu_torch/csrc/gemm.cu", [],
      "yomitoku_tpu/ops/pallas/fused_mlp.py:80"),
+    ("ms_deformable_attention", "cuda",
+     "yomitoku_tpu_torch/csrc/deformable_attention.cu", [],
+     "yomitoku_tpu/ops/pallas/deformable_attention.py:100"),
 ]
 
 # Recognizer shapes (parseq-large-v4_1, batch 128, 32x800 canvas)
 B, L, D, HEADS, HIDDEN, STEPS = 128, 400, 768, 8, 3072, 101
+#: the kernels each path runs
+OCR_KERNELS = ("fused_attention_block_ln", "fused_mlp_ln",
+               "fused_attention_heads", "fused_mlp")
+LAYOUT_KERNELS = ("fused_attention_heads", "ms_deformable_attention")
+# RT-DETRv2 shapes at 640x640: the pyramid's levels, hidden 256, 8 heads of
+# 32, points (4, 4, 4); queries of the layout decoder and the cell detector
+LEVELS, D_DETR, POINTS = ((80, 80), (40, 40), (20, 20)), 256, (4, 4, 4)
+#: (batch, Lq): the layout parser's page, the table recognizer's batch of
+#: TABLE_BOXES crops, and the cell detector's queries
+DEFORM_QUERIES = {"lq300": (1, 300), "b4_lq300": (4, 300), "lq2500": (1, 2500)}
+#: fused_attention_heads at RT-DETR's self-attention: (batch, L of q, k and
+#: v), the page and the table recognizer's batch
+RTDETR_ATTENTION = {"aifi": (1, 400), "decoder": (1, 300),
+                    "aifi_b4": (4, 400), "decoder_b4": (4, 300)}
+#: CUDA kernel names (as the profiler shows them) of each wrapper
+DEVICE_NAMES = {"ms_deformable_attention": "deform_kernel",
+                "fused_attention_heads": "attention"}
+#: fixed table boxes of demo/sample_table.png (960x1280) for the batched
+#: table structure recognizer, whatever the random layout parser finds
+TABLE_BOXES = [[40, 120, 920, 560], [40, 600, 920, 1180], [0, 0, 480, 640],
+               [480, 640, 960, 1280]]
 
 
 class SmokeFailure(RuntimeError):
@@ -111,6 +153,16 @@ def phase_card():
 LAYOUTS = ("out_in.t", "in_out")
 
 
+def stock_attn_heads(q, k, v, h):
+    """SDPA on head-packed rows."""
+    import torch.nn.functional as F
+
+    b, lq, d = q.shape
+    split = lambda t: t.reshape(b, -1, h, d // h).transpose(1, 2)
+    o = F.scaled_dot_product_attention(split(q), split(k), split(v))
+    return o.transpose(1, 2).reshape(b, lq, d)
+
+
 def _kernel_cases(rng):
     """name -> (plain version, stock bf16 torch ops, inputs): numpy args in
     the (in, out) layout, the indices of the weights among them, and the
@@ -147,12 +199,6 @@ def _kernel_cases(rng):
               nrm((HIDDEN, D), HIDDEN ** -0.5), vec(D)],
         weights={1, 3}, tail=(),
     )
-
-    def stock_attn_heads(q, k, v, h):
-        b, lq, d = q.shape
-        split = lambda t: t.reshape(b, -1, h, d // h).transpose(1, 2)
-        o = F.scaled_dot_product_attention(split(q), split(k), split(v))
-        return o.transpose(1, 2).reshape(b, lq, d)
 
     def stock_block(x, g, bn, wq, bq, wk, bk, wv, bv, wo, bo, h):
         y = F.layer_norm(x, (x.shape[-1],), g, bn, 1e-6)
@@ -243,6 +289,40 @@ def median_ms(fn, runs=10, warmup=3):
     return statistics.median(times)
 
 
+def profiled(fn, runs=10):
+    """torch.profiler over ``runs`` calls of ``fn`` after one warm-up ->
+    (wall ms per call, {kernel name: device ms per call}, device kernels
+    per call).  Device times are the CUDA kernels' own (CUPTI); the wall
+    time ends in a sync."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / runs
+    device, count = {}, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            device[e.key] = (device.get(e.key, 0.0)
+                             + e.self_device_time_total / 1e3 / runs)
+            count += e.count
+    return wall, device, count / runs
+
+
+def device_ms(fn, kernel=""):
+    """Device time per call of the CUDA kernels (those whose name holds
+    ``kernel``, where given), or None where the profiler saw none."""
+    _, device, _ = profiled(fn)
+    ms = sum(v for k, v in device.items() if kernel in k)
+    return ms or None
+
+
 def phase_kernels():
     import numpy as np
     import torch
@@ -291,6 +371,107 @@ def phase_kernels():
             del f32, bf, args32, args16, x32, xb
             torch.cuda.empty_cache()
         results[name] = res
+    ops.reset_launches()
+    return results
+
+
+def _stock_deformable(value, loc, att, shapes, points):
+    """The reference torch formulation: F.grid_sample per level (bilinear,
+    zeros padding, align_corners=False) at 2 * loc - 1."""
+    import torch.nn.functional as F
+
+    B, _, nh, c = value.shape
+    Lq = loc.shape[1]
+    out, start, p0 = 0, 0, 0
+    for (h, w), P in zip(shapes, points):
+        v = value[:, start:start + h * w].permute(0, 2, 3, 1).reshape(B * nh, c, h, w)
+        grid = (2 * loc[:, :, :, p0:p0 + P] - 1).permute(0, 2, 1, 3, 4)
+        s = F.grid_sample(v, grid.reshape(B * nh, Lq, P, 2), mode="bilinear",
+                          padding_mode="zeros", align_corners=False)
+        a = att[:, :, :, p0:p0 + P].permute(0, 2, 1, 3).reshape(B * nh, 1, Lq, P)
+        out = out + (s * a).sum(-1)  # (B * nh, c, Lq)
+        start, p0 = start + h * w, p0 + P
+    return out.reshape(B, nh * c, Lq).transpose(1, 2)
+
+
+def _layout_kernel_cases(rng):
+    """(kernel, label) -> (plain version, stock torch op, numpy args,
+    trailing non-tensor args)."""
+    from yomitoku_tpu_torch import ops
+
+    cases = {}
+    nh, c = 8, D_DETR // 8
+    len_v = sum(h * w for h, w in LEVELS)
+    for label, (b, lq) in DEFORM_QUERIES.items():
+        att = rng.random((b, lq, nh, sum(POINTS))).astype("float32")
+        cases[("ms_deformable_attention", label)] = (
+            ops.ms_deformable_attention_reference, _stock_deformable,
+            [rng.standard_normal((b, len_v, nh, c)).astype("float32"),
+             # some taps off the map, as the decoder's offsets give
+             (rng.random((b, lq, nh, sum(POINTS), 2)) * 1.3 - 0.15).astype("float32"),
+             att / att.sum(-1, keepdims=True)],
+            (LEVELS, POINTS))
+    for label, (b, n) in RTDETR_ATTENTION.items():
+        cases[("fused_attention_heads", label)] = (
+            ops.fused_attention_heads_reference, stock_attn_heads,
+            [rng.standard_normal((b, n, D_DETR)).astype("float32")
+             for _ in range(3)], (HEADS,))
+    return cases
+
+
+def phase_layout_kernels():
+    """The layout path's kernels at RT-DETR's shapes -> {kernel: {label:
+    numbers}}.  The stock op is also held to the plain version in f32, as
+    an independent check of the plain version's semantics."""
+    import numpy as np
+    import torch
+
+    from yomitoku_tpu_torch import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    for (name, label), (ref, stock, args, tail) in _layout_kernel_cases(
+            np.random.default_rng(1)).items():
+        kern = getattr(ops, name)
+        f32 = [torch.from_numpy(a).cuda() for a in args]
+        bf = [a.to(torch.bfloat16) for a in f32]
+        with torch.no_grad():
+            want32 = ref(*f32, *tail)
+            err32, ok32, text32 = _held(kern(*f32, *tail), want32, None,
+                                        1e-4, 1e-5, 0.0)
+            err16, ok16, text16 = _held(kern(*bf, *tail),
+                                        ref(*[a.float() for a in bf], *tail),
+                                        None, 2e-2, 0.0, 0.0)
+            _, oks, texts = _held(stock(*f32, *tail), want32, None, 1e-4,
+                                  1e-5, 0.0)
+        torch.cuda.synchronize()
+        log(f"kernel {name} [{label}]: f32 {text32} {'ok' if ok32 else 'FAIL'}; "
+            f"bf16 {text16} {'ok' if ok16 else 'FAIL'}; stock f32 vs plain "
+            f"{texts} {'ok' if oks else 'FAIL'}")
+        check(ok32 and ok16 and oks, f"{name} [{label}] disagrees with its plain version")
+        with torch.no_grad():
+            res = dict(
+                max_abs_err=err16, max_abs_err_f32=err32,
+                ms=median_ms(lambda: kern(*bf, *tail)),
+                plain_ms=median_ms(lambda: ref(*bf, *tail)),
+                stock_ms=median_ms(lambda: stock(*bf, *tail)),
+                device_ms=device_ms(lambda: kern(*bf, *tail), DEVICE_NAMES[name]),
+                plain_device_ms=device_ms(lambda: ref(*bf, *tail)),
+                stock_device_ms=device_ms(lambda: stock(*bf, *tail)),
+            )
+
+        def ms(key):
+            return "not measured" if res[key] is None else f"{res[key]:.4f} ms"
+
+        log(f"kernel {name} [{label}]: per call (CUDA events, median of 10): "
+            f"bf16 {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, stock "
+            f"bf16 torch {res['stock_ms']:.4f} ms; on the device (profiler, all "
+            f"kernels of the call): {ms('device_ms')}, plain "
+            f"{ms('plain_device_ms')}, stock {ms('stock_device_ms')}")
+        results.setdefault(name, {})[label] = res
+        del f32, bf
+        torch.cuda.empty_cache()
     ops.reset_launches()
     return results
 
@@ -368,8 +549,8 @@ def phase_slice(card):
     torch.cuda.synchronize()
     launches = dict(ops.launches)
     log(f"slice: launches {launches}")
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel of the path was never launched: {launches}")
+    check(all(launches[k] > 0 for k in OCR_KERNELS),
+          f"a kernel of the OCR path was never launched: {launches}")
     check(len(result.words) > 0, "OCR schema holds no words")
     for w in result.words:
         check(np.isfinite([w.det_score, w.rec_score]).all(), "OCR score not finite")
@@ -413,7 +594,7 @@ def phase_slice(card):
         x = torch.from_numpy(x)
         n0 = dict(ops.launches)
         got = rec32.model.forward_logits(x).cpu()
-        check(all(ops.launches[k] > n0[k] for k in n0),
+        check(all(ops.launches[k] > n0[k] for k in OCR_KERNELS),
               f"f32 run missed a kernel: {n0} -> {ops.launches}")
         want = cpu32.model.forward_logits(x)
         check(torch.isfinite(got).all().item(), "f32 card logits not finite")
@@ -437,6 +618,153 @@ def phase_slice(card):
     return launches
 
 
+# ------------------------------------------------------------------ phase 4
+
+
+def _in_page(schema, w, h, what):
+    for el in list(schema.paragraphs) + list(schema.figures):
+        x1, y1, x2, y2 = el.box
+        check(0 <= x1 <= x2 <= w and 0 <= y1 <= y2 <= h and math.isfinite(el.score),
+              f"{what}: box {el.box} / score {el.score} off the page")
+
+
+def _rtdetr_f32_vs_cpu(cfg, images):
+    """One RT-DETRv2 in f32 on the card and on the CPU, seed-0 weights on
+    both: the same top-k selected queries outside near-ties (scores within
+    1e-3 of the k-th's magnitude), then, over the queries both sides
+    selected (at least 90% of k), logits within 1e-3 of the largest and
+    boxes within 1e-3, matched by query index."""
+    import numpy as np
+    import torch
+
+    from yomitoku_tpu_torch import ops
+    from yomitoku_tpu_torch.models.rtdetr import RTDETRv2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    outs, scores = [], []
+    for device in ("cuda", "cpu"):
+        model = RTDETRv2(cfg, device=device, dtype=torch.float32)
+        seen = {}
+        hook = model.decoder.enc_score_head.register_forward_hook(
+            lambda m, i, o: seen.__setitem__("s", o.float().amax(-1)[0].cpu().numpy()))
+        n0 = dict(ops.launches)
+        out = model(images)
+        hook.remove()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            check(all(ops.launches[k] > n0[k] for k in LAYOUT_KERNELS),
+                  f"f32 RT-DETR run missed a kernel: {n0} -> {ops.launches}")
+        outs.append({k: v[0].cpu().numpy() for k, v in out.items()})
+        scores.append(seen["s"])
+        del model
+    k = cfg.RTDETRTransformerv2.num_queries
+    (got, want), (s_g, s_c) = outs, scores
+    order_g = np.argsort(-s_g, kind="stable")
+    order_c = np.argsort(-s_c, kind="stable")
+    kth = s_c[order_c[k - 1]]
+    tie = 1e-3 * abs(kth)
+    differ = set(order_g[:k]) ^ set(order_c[:k])
+    near = [i for i in differ if abs(s_c[i] - kth) <= tie]
+    d_score = float(np.abs(s_g - s_c).max())
+    check(len(near) == len(differ),
+          f"f32 selected queries differ outside near-ties: {sorted(differ)}")
+    row_g = {q: r for r, q in enumerate(order_g[:k])}
+    row_c = {q: r for r, q in enumerate(order_c[:k])}
+    common = sorted(set(row_g) & set(row_c))
+    check(len(common) >= 0.9 * k,
+          f"f32 card and CPU share only {len(common)} of {k} selected queries")
+    rg, rc = [row_g[q] for q in common], [row_c[q] for q in common]
+    d_logit = float(np.abs(got["pred_logits"][rg] - want["pred_logits"][rc]).max())
+    d_box = float(np.abs(got["pred_boxes"][rg] - want["pred_boxes"][rc]).max())
+    limit = 1e-3 * float(np.abs(want["pred_logits"]).max())
+    log(f"layout: f32 card vs CPU at {images.shape[1]}x{images.shape[2]}: "
+        f"selection score max|d| {d_score:.3e}; k-th/(k+1)-th gap "
+        f"{kth - s_c[order_c[k]]:.3e}; {len(differ)} selected queries differ"
+        f"{' (all near-ties)' if differ else ''}; over the {len(common)} "
+        f"shared: max|d logit| {d_logit:.3e} (limit {limit:.3e}), max|d box| "
+        f"{d_box:.3e} (limit 1e-3)")
+    check(d_logit <= limit and d_box <= 1e-3, "f32 RT-DETR card vs CPU disagree")
+
+
+def phase_layout(card):
+    import cv2
+    import numpy as np
+    import torch
+
+    from yomitoku_tpu_torch import ops
+    from yomitoku_tpu_torch.layout_analyzer import LayoutAnalyzer
+
+    t0 = time.perf_counter()
+    la = LayoutAnalyzer(device="cuda")  # rtdetrv2v2 + rtdetrv2, seed-0 weights
+    lp, tsr = la.layout_parser, la.table_structure_recognizer
+    log(f"layout: LayoutAnalyzer(device='cuda') built in "
+        f"{time.perf_counter() - t0:.1f} s: RT-DETRv2 {lp.model.param_count():,} "
+        f"+ {tsr.model.param_count():,} params, {lp.model.dtype}, weights "
+        f"{lp.model.pretrained_source or 'seed-0 random'}")
+    page = cv2.imread(str(ROOT / "demo" / "sample_table.png"))
+    check(page is not None, "demo/sample_table.png missing")
+    h, w = page.shape[:2]
+
+    # the main path, counted: the analyzer on the page, then the table
+    # recognizer batched over the fixed boxes
+    ops.reset_launches()
+    result, _ = la(page)
+    tables, _ = tsr(page, TABLE_BOXES)
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    log(f"layout: launches {launches}")
+    check(all(launches[k] > 0 for k in LAYOUT_KERNELS),
+          f"a kernel of the layout path was never launched: {launches}")
+    _in_page(result, w, h, "layout")
+    data = tsr.preprocess(page, TABLE_BOXES)
+    preds = tsr.model(np.stack([d["array"] for d in data]))
+    n_q = tsr._cfg.RTDETRTransformerv2.num_queries
+    check(tuple(preds["pred_logits"].shape) == (len(TABLE_BOXES), n_q, 3)
+          and tuple(preds["pred_boxes"].shape) == (len(TABLE_BOXES), n_q, 4),
+          "table recognizer output shape")
+    boxes = preds["pred_boxes"]
+    check(bool(torch.isfinite(preds["pred_logits"]).all())
+          and bool(((boxes >= 0) & (boxes <= 1)).all()),
+          "table recognizer logits not finite or boxes off [0, 1]")
+    log(f"layout: on sample_table.png {w}x{h}: {len(result.paragraphs)} "
+        f"paragraphs, {len(result.figures)} figures, {len(result.tables)} "
+        f"tables; the recognizer on {len(TABLE_BOXES)} fixed boxes: "
+        f"{len(tables)} tables with rows and columns, "
+        f"{sum(len(t.cells) for t in tables)} cells")
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "layout_sample.json").write_text(result.model_dump_json(indent=1))
+
+    # throughput (reported, not gated)
+    times = {
+        "layout_parser": host_timed(lambda: lp(page)),
+        "tsr_4_tables": host_timed(lambda: tsr(page, TABLE_BOXES)),
+        "layout_analyzer": host_timed(lambda: la(page)),
+    }
+    log("layout: " + ", ".join(f"{k} {v * 1e3:.1f} ms/page" for k, v in times.items())
+        + f" on sample_table.png, bf16, median of 3; card {card}")
+    profile = {}
+    for what, fn in (("layout_parser", lambda: lp(page)),
+                     ("tsr_4_tables", lambda: tsr(page, TABLE_BOXES))):
+        wall, device, n = profiled(fn, runs=5)
+        busy = sum(device.values())
+        top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
+        profile[what] = dict(wall_ms=wall, device_busy_ms=busy,
+                             idle_share=1 - busy / wall,
+                             device_ops_per_call=n, top_kernels=top)
+        log(f"layout: {what} profiled: {wall:.1f} ms/call wall, device busy "
+            f"{busy:.1f} ms (idle share {1 - busy / wall:.2f}), {n:.0f} device "
+            "ops per call; top: " + "; ".join(f"{k[:60]} {v:.2f} ms" for k, v in top))
+    (OUT / "layout_profile.json").write_text(json.dumps(profile, indent=1))
+    cfg = lp._cfg
+    del la, lp, tsr, preds, boxes
+    torch.cuda.empty_cache()
+    _rtdetr_f32_vs_cpu(cfg, np.ascontiguousarray(
+        cv2.resize(cv2.cvtColor(page, cv2.COLOR_BGR2RGB), (640, 640),
+                   interpolation=cv2.INTER_AREA))[None])
+    return launches
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -456,16 +784,24 @@ def main():
     try:
         card = phase_card()
         kernels = phase_kernels()
-        launches = phase_slice(card)
+        layout_kernels = phase_layout_kernels()
+        paths = {"ocr": phase_slice(card), "layout": phase_layout(card)}
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1
     log(card)  # as nvidia-smi prints it: name, power limit
+    main_shape = {"ms_deformable_attention": "lq300"}
     rows = []
     for name, route, src, more, replaces in KERNELS:
+        by_path = {p: n[name] for p, n in paths.items() if n[name]}
+        numbers = dict(kernels.get(name, {}))
+        if name in main_shape:
+            numbers.update(layout_kernels[name][main_shape[name]])
         rows.append(dict(
             name=name, route=route, source=src, sources=[src] + more,
-            replaces=replaces, launches=launches[name], **kernels[name],
+            replaces=replaces, launches=sum(by_path.values()),
+            launches_by_path=by_path, **numbers,
+            at=layout_kernels.get(name, {}),
         ))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

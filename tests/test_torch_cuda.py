@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
-versions.  Every test here needs a GPU and skips without one.  The module
+versions, and small models in f32 on the card against the CPU.  Every test here needs a GPU and skips without one.  The module
 imports neither JAX nor the JAX package's models, so it runs where only
 PyTorch is installed:
 
@@ -117,3 +117,79 @@ def test_small_recognizer_f32_matches_cpu():
         ids_c, p_c = cpu.forward_tokens(x)
         np.testing.assert_array_equal(ids_g, ids_c)
         np.testing.assert_allclose(p_g, p_c, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,lq,points", [
+    (1, 300, (4, 4, 4)), (1, 2500, (4, 4, 4)), (1, 37, (4, 2, 1)),
+    (4, 300, (4, 4, 4)), (3, 37, (4, 2, 1))])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_deformable_kernel_matches_plain_version(dtype, batch, lq, points):
+    """ms_deformable_attention at RT-DETR's 640x640 pyramid (80, 40, 20), 8
+    heads of 32, some locations off the map: the layout decoder's 300
+    queries, the cell detector's 2500, uneven points at a ragged Lq, and
+    the table recognizer's batch of 4 crops (each image its own value)."""
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    shapes = ((80, 80), (40, 40), (20, 20))
+    rng = np.random.default_rng(11)
+    P = sum(points)
+    att = rng.random((batch, lq, 8, P))
+    args = [rng.standard_normal((batch, 8400, 8, 32)),
+            rng.random((batch, lq, 8, P, 2)) * 1.3 - 0.15,
+            att / att.sum(-1, keepdims=True)]
+    args = [torch.from_numpy(a.astype(np.float32)).to("cuda", dt) for a in args]
+    n0 = ops.launches["ms_deformable_attention"]
+    got = ops.ms_deformable_attention(*args, shapes, points).float()
+    want = ops.ms_deformable_attention_reference(*[a.float() for a in args],
+                                                 shapes, points)
+    torch.cuda.synchronize()
+    assert ops.launches["ms_deformable_attention"] == n0 + 1
+    rel, add = (1e-4, 1e-5) if dtype == "float32" else (2e-2, 0.0)
+    limit = rel * want.abs().max().item() + add
+    assert (got - want).abs().max().item() <= limit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,lq,lk", [(1, 400, 400), (4, 300, 300), (2, 300, 400)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_heads_at_rtdetr_shapes(dtype, batch, lq, lk):
+    """fused_attention_heads with 8 heads of 32 (the bf16 tensor-core path
+    needs Dh % 16 == 0): AIFI's L=400, the decoder's 300 queries (ragged
+    against the 64-key tiles) and a cross shape."""
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(3)
+    q, k, v = [torch.randn(batch, n, 256, generator=g).to("cuda", dt)
+               for n in (lq, lk, lk)]
+    got = ops.fused_attention_heads(q, k, v, 8).float()
+    want = ops.fused_attention_heads_reference(q.float(), k.float(), v.float(), 8)
+    torch.cuda.synchronize()
+    rel, add = (1e-4, 1e-5) if dtype == "float32" else (2e-2, 0.0)
+    assert (got - want).abs().max().item() <= rel * want.abs().max().item() + add
+
+
+@pytest.mark.cuda
+def test_small_rtdetr_f32_matches_cpu():
+    """The layout parser of tests/yaml/layout_small.yaml in f32 on the card
+    and on the CPU from the same seed: logits within 1e-3 of the largest,
+    boxes within 1e-3, query by query.  On input seed 2 the gaps between
+    the 20th and 21st selection scores are 0.023 and 0.032 (measured on
+    the CPU), far above f32 differences, so both sides select alike."""
+    _require_cuda()
+    from pathlib import Path
+
+    from yomitoku_tpu_torch.layout_parser import LayoutParser
+
+    cfg = str(Path(__file__).parent / "yaml" / "layout_small.yaml")
+    gpu = LayoutParser(path_cfg=cfg, device="cuda", dtype=torch.float32,
+                       from_pretrained=False).model
+    cpu = LayoutParser(path_cfg=cfg, device="cpu", from_pretrained=False).model
+    x = np.random.default_rng(2).integers(0, 256, (2, 128, 128, 3), dtype=np.uint8)
+    n0 = ops.launches["ms_deformable_attention"]
+    got = {k: v.cpu() for k, v in gpu(x).items()}
+    assert ops.launches["ms_deformable_attention"] > n0
+    want = cpu(x)
+    limit = 1e-3 * want["pred_logits"].abs().max().item()
+    assert (got["pred_logits"] - want["pred_logits"]).abs().max().item() <= limit
+    assert (got["pred_boxes"] - want["pred_boxes"]).abs().max().item() <= 1e-3

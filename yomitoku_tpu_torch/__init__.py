@@ -1,8 +1,9 @@
 """yomitoku_tpu_torch — the PyTorch/CUDA port of yomitoku_tpu.
 
-The OCR path (DBNet text detection + PARSeq text recognition) in PyTorch,
-with hand-written Hopper kernels (``csrc/``) where the JAX package runs
-Pallas kernels.  The host layers (configs, schemas, data, postprocessors,
+The OCR path (DBNet text detection + PARSeq text recognition) and layout
+analysis (RT-DETRv2 layout parsing + table structure recognition) in
+PyTorch, with hand-written Hopper kernels (``csrc/``) where the JAX
+package runs Pallas kernels.  The host layers (configs, schemas, data, postprocessors,
 native code) are the JAX package's own, imported, not copied.  This
 package imports ``torch`` and never ``jax`` or ``flax``.
 """
@@ -10,7 +11,10 @@ package imports ``torch`` and never ``jax`` or ``flax``.
 __version__ = "0.1.0"
 
 _LAZY = {
+    "LayoutAnalyzer": ".layout_analyzer",
+    "LayoutParser": ".layout_parser",
     "OCR": ".ocr",
+    "TableStructureRecognizer": ".table_structure_recognizer",
     "TextDetector": ".text_detector",
     "TextRecognizer": ".text_recognizer",
 }

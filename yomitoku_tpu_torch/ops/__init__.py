@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version (see ops/attention.py, ops/mlp.py and csrc/)."""
+version (see ops/attention.py, ops/mlp.py, ops/deformable_attention.py
+and csrc/)."""
 
 from ._common import launches, layer_norm, reset_launches
 from .attention import (
@@ -8,6 +9,10 @@ from .attention import (
     fused_attention_block_ln_reference,
     fused_attention_heads,
     fused_attention_heads_reference,
+)
+from .deformable_attention import (
+    ms_deformable_attention,
+    ms_deformable_attention_reference,
 )
 from .mlp import (
     fused_mlp,
@@ -28,5 +33,7 @@ __all__ = [
     "fused_mlp_reference",
     "launches",
     "layer_norm",
+    "ms_deformable_attention",
+    "ms_deformable_attention_reference",
     "reset_launches",
 ]

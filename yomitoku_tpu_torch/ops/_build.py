@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``yomitoku_tpu_torch/csrc``).
 
-The ``.cu`` sources compile with ``nvcc`` into one shared library with a
-plain C interface, loaded through ``ctypes`` (no PyTorch headers, so the
-build takes seconds).  The library lands in ``build/yomitoku_tpu_torch/``
+Each ``.cu`` source compiles with its own ``nvcc`` process, all started
+together, and the objects link into one shared library with a plain C
+interface, loaded through ``ctypes`` (no PyTorch headers, so the build
+takes seconds).  The library lands in ``build/yomitoku_tpu_torch/``
 at the repository root, named by a hash of the sources and flags: a
 changed source rebuilds, an unchanged one reuses the library.  A failed
 build raises with nvcc's output; nothing falls back to the plain version.
@@ -20,10 +21,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "yomitoku_tpu_torch"
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-lineinfo",
-    "-shared", "-Xcompiler", "-fPIC",
+    *GENCODE, "-std=c++17", "-O3", "-lineinfo",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -54,6 +55,11 @@ class _Library:
             i32, i32, i32, i32, i32, ctypes.c_float, vp,
         ]
         lib.yt_attention.restype = i32
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.yt_ms_deformable_attention.argtypes = [
+            i32, vp, vp, vp, vp, i32, i64, i32, i32, i32, i32, ip, ip, vp,
+        ]
+        lib.yt_ms_deformable_attention.restype = i32
         lib.yt_error_string.argtypes = [i32]
         lib.yt_error_string.restype = ctypes.c_char_p
         self.lib = lib
@@ -95,6 +101,14 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Start every command at once -> [(command, output, exit code)]."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    return [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in procs]
+
+
 def build() -> _Library:
     """Compile (or reuse) the kernel library; raise on any failure."""
     cu, _ = _sources()
@@ -105,16 +119,23 @@ def build() -> _Library:
         return _Library(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    objs = [tmp.with_name(f"{tmp.stem}.{f.stem}.o") for f in cu]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    results = _run_all([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(f)]
+                       for f, o in zip(cu, objs))
+    if all(rc == 0 for _, _, rc in results):
+        results += _run_all(
+            [[nvcc, "-shared", *GENCODE, "-o", str(tmp), *map(str, objs)]])
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}"
-        )
+    for o in objs:
+        o.unlink(missing_ok=True)
+    log = "".join(text for _, text, _ in results)
+    for cmd, text, rc in results:
+        if rc != 0:
+            tmp.unlink(missing_ok=True)
+            raise KernelBuildError(
+                f"nvcc failed (exit {rc}): {' '.join(cmd)}\n{text}")
     os.replace(tmp, out)  # atomic: concurrent builders never see a torn file
     return _Library(out, seconds, log)
 

@@ -13,6 +13,7 @@ launches = {
     "fused_mlp_ln": 0,
     "fused_attention_heads": 0,
     "fused_mlp": 0,
+    "ms_deformable_attention": 0,
 }
 
 

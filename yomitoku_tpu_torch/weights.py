@@ -8,8 +8,9 @@ yomitoku_tpu/models/weights_convert.py).
   package's loud warning.
 * ``state_dict_from_jax``: the JAX package's parameters (numpy arrays) as
   the port's ``state_dict``: the inverse of ``convert_parseq`` /
-  ``convert_dbnet``.  HWIO -> OIHW, (in, out) -> (out, in), q/k/v packed
-  back into one (3D, D) projection; FrozenBN statistics map unchanged.
+  ``convert_dbnet`` / ``convert_rtdetr``.  HWIO -> OIHW, (in, out) ->
+  (out, in), q/k/v packed back into one (3D, D) projection; FrozenBN
+  statistics map unchanged.
 """
 
 import numpy as np
@@ -161,15 +162,104 @@ def _dbnet_state_dict(params, model):
     return w.sd
 
 
+def _rtdetr_state_dict(params, model):
+    """Inverse of ``convert_rtdetr``.  The JAX decoder holds only the score
+    head of ``eval_idx``; the reference checkpoints (and the port, so that
+    they load strictly) hold one per layer: the others keep ``model``'s own
+    values."""
+    w = _Writer()
+
+    def conv_norm(prefix, p):
+        w.conv(f"{prefix}.conv", p["conv"])
+        w.bn(f"{prefix}.norm", p["norm"])
+
+    def mlp(prefix, p):
+        for j in range(len(p)):
+            w.linear(f"{prefix}.layers.{j}", p[f"layers_{j}"])
+
+    def csp(prefix, p):
+        for name in ("conv1", "conv2", "conv3"):
+            if name in p:
+                conv_norm(f"{prefix}.{name}", p[name])
+        for j in range(sum(k.startswith("bottlenecks_") for k in p)):
+            for name in ("conv1", "conv2"):
+                conv_norm(f"{prefix}.bottlenecks.{j}.{name}",
+                          p[f"bottlenecks_{j}"][name])
+
+    bb = params["backbone"]
+    for name in ("conv1_1", "conv1_2", "conv1_3"):
+        conv_norm(f"backbone.conv1.{name}", bb[name])
+    for si, layer in enumerate(model.backbone.res_layers):
+        for bi in range(len(layer.blocks)):
+            p, b = f"backbone.res_layers.{si}.blocks.{bi}", bb[f"stage{si}_{bi}"]
+            for name in ("branch2a", "branch2b", "branch2c"):
+                conv_norm(f"{p}.{name}", b[name])
+            if "short_conv" in b:
+                # variant d: stride-2 shortcuts are (pool, conv)
+                conv_norm(f"{p}.short.conv" if si else f"{p}.short", b["short_conv"])
+
+    enc, E = params["encoder"], model.encoder
+    for i in range(len(E.input_proj)):
+        w.conv(f"encoder.input_proj.{i}.conv", enc[f"input_proj_{i}_conv"])
+        w.bn(f"encoder.input_proj.{i}.norm", enc[f"input_proj_{i}_norm"])
+    for k, e in enumerate(E.encoder):
+        for li in range(len(e.layers)):
+            p, lp = f"encoder.encoder.{k}.layers.{li}", enc[f"encoder_{k}_layer_{li}"]
+            w.packed(f"{p}.self_attn", lp["self_attn"], "in_proj_weight",
+                     "in_proj_bias", "out_proj")
+            for name in ("linear1", "linear2"):
+                w.linear(f"{p}.{name}", lp[name])
+            for name in ("norm1", "norm2"):
+                w.layernorm(f"{p}.{name}", lp[name])
+    for i in range(len(E.lateral_convs)):
+        conv_norm(f"encoder.lateral_convs.{i}", enc[f"lateral_convs_{i}"])
+        csp(f"encoder.fpn_blocks.{i}", enc[f"fpn_blocks_{i}"])
+        conv_norm(f"encoder.downsample_convs.{i}", enc[f"downsample_convs_{i}"])
+        csp(f"encoder.pan_blocks.{i}", enc[f"pan_blocks_{i}"])
+
+    dec, D = params["decoder"], model.decoder
+    for i in range(len(D.input_proj)):
+        w.conv(f"decoder.input_proj.{i}.conv", dec[f"input_proj_{i}_conv"])
+        w.bn(f"decoder.input_proj.{i}.norm", dec[f"input_proj_{i}_norm"])
+    w.linear("decoder.enc_output.proj", dec["enc_output_proj"])
+    w.layernorm("decoder.enc_output.norm", dec["enc_output_norm"])
+    w.linear("decoder.enc_score_head", dec["enc_score_head"])
+    mlp("decoder.enc_bbox_head", dec["enc_bbox_head"])
+    mlp("decoder.query_pos_head", dec["query_pos_head"])
+    for i in range(D.num_layers):
+        p, lp = f"decoder.decoder.layers.{i}", dec[f"layers_{i}"]
+        w.packed(f"{p}.self_attn", lp["self_attn"], "in_proj_weight",
+                 "in_proj_bias", "out_proj")
+        for name in ("sampling_offsets", "attention_weights", "value_proj",
+                     "output_proj"):
+            w.linear(f"{p}.cross_attn.{name}", lp["cross_attn"][name])
+        for name in ("linear1", "linear2"):
+            w.linear(f"{p}.{name}", lp[name])
+        for name in ("norm1", "norm2", "norm3"):
+            w.layernorm(f"{p}.{name}", lp[name])
+        mlp(f"decoder.dec_bbox_head.{i}", dec[f"dec_bbox_head_{i}"])
+        if f"dec_score_head_{i}" in dec:
+            w.linear(f"decoder.dec_score_head.{i}", dec[f"dec_score_head_{i}"])
+        else:
+            head = D.dec_score_head[i]
+            w.put(f"decoder.dec_score_head.{i}.weight", head.weight.float().cpu())
+            w.put(f"decoder.dec_score_head.{i}.bias", head.bias.float().cpu())
+    return w.sd
+
+
 def state_dict_from_jax(params, model) -> dict:
     """The JAX package's parameter pytree ({"params": ...} of numpy arrays)
-    as a state_dict for the port's ``model`` (a PARSeq or a DBNet)."""
+    as a state_dict for the port's ``model`` (a PARSeq, a DBNet or an
+    RTDETRv2)."""
     from .models.dbnet import DBNet
     from .models.parseq import PARSeq
+    from .models.rtdetr import RTDETRv2
 
     params = params.get("params", params)
     if isinstance(model, PARSeq):
         return _parseq_state_dict(params, model)
     if isinstance(model, DBNet):
         return _dbnet_state_dict(params, model)
+    if isinstance(model, RTDETRv2):
+        return _rtdetr_state_dict(params, model)
     raise TypeError(f"no JAX parameter mapping for {type(model).__name__}")
