@@ -35,18 +35,42 @@ Phases, each printed as it runs; any failure exits non-zero:
    parser and the recognizer (device busy time, idle share, device
    operations per call), and an f32 RT-DETRv2 on the card against the
    same weights on the CPU (selected-query sets, logits and boxes).
+5. The int8 kernels: ``fused_attention_block_ln_int8`` and
+   ``fused_mlp_ln_int8`` at the recognizer's shapes (x (128, 400, 768),
+   hidden 3072 in chunks of 1024, 8 heads) against their plain versions
+   (bf16 within 2e-2 of the largest value; f32 within 1e-4 of it plus 1e-5
+   on all rows but those where a code moved by one step at a rounding tie,
+   at most 1%, which stay within 2e-2), then the times of the kernel, the
+   plain version and the stock composition (LayerNorm, row quantize,
+   ``torch._int_mm``, dequantize), per call and on the device (profiler).
+6. The int8 recognizer path: ``TextRecognizer(device="cuda")`` with
+   YOMITOKU_TPU_INT8_ENCODER=1 and the int8 memory-K/V cache at its CUDA
+   default, on the synthetic page: the launch counters of that run (and of
+   one batch of 128), lines/s end to end and device decode, the share of
+   greedy ids equal to the bf16 path's (phase 3, full K/V cache), the
+   int8-K/V audit's result, and the f32 int8 recognizer on the card against
+   the same weights on the CPU (plain int8 path) on 8 lines, in two hops:
+   the encoder's memory, then the decoder with the int8 K/V cache on the
+   CPU's memory (greedy ids equal; a line may part at a near-tie).
 
-The layout kernels' times are taken twice: CUDA events around one Python
+Phase 3 pins YOMITOKU_TPU_INT8_KV=0 (the full cache, which its f32
+card-vs-CPU check compares with the CPU's), phase 6 leaves it at its
+default.  The layout kernels' times are taken twice: CUDA events around one Python
 call (host dispatch included) and the device time of the call's CUDA
-kernels from torch.profiler.  Then one JSON line with the kernels, and
-the last line
+kernels from torch.profiler.  Then one JSON line with the kernels (each with
+its launches on the main paths, its bound: the larger of the bytes it must
+move over 3.35 TB/s and its operations over 989 TFLOP/s bf16 or 1,979
+TOP/s int8, and the time of one PyTorch call computing the same function
+where there is one), and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Long outputs (the nvcc log, the OCR and layout schemas, the layout
 profile) go to build/chip_smoke/.
 """
 
+import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -72,6 +96,12 @@ KERNELS = [
     ("ms_deformable_attention", "cuda",
      "yomitoku_tpu_torch/csrc/deformable_attention.cu", [],
      "yomitoku_tpu/ops/pallas/deformable_attention.py:100"),
+    ("fused_attention_block_ln_int8", "cuda",
+     "yomitoku_tpu_torch/csrc/gemm_int8.cu",
+     ["yomitoku_tpu_torch/csrc/attention.cu"],
+     "yomitoku_tpu/ops/pallas/flash_attention.py:436"),
+    ("fused_mlp_ln_int8", "cuda", "yomitoku_tpu_torch/csrc/gemm_int8.cu", [],
+     "yomitoku_tpu/ops/pallas/fused_mlp.py:264"),
 ]
 
 # Recognizer shapes (parseq-large-v4_1, batch 128, 32x800 canvas)
@@ -80,6 +110,10 @@ B, L, D, HEADS, HIDDEN, STEPS = 128, 400, 768, 8, 3072, 101
 OCR_KERNELS = ("fused_attention_block_ln", "fused_mlp_ln",
                "fused_attention_heads", "fused_mlp")
 LAYOUT_KERNELS = ("fused_attention_heads", "ms_deformable_attention")
+INT8_KERNELS = ("fused_attention_block_ln_int8", "fused_mlp_ln_int8",
+                "fused_attention_heads", "fused_mlp")
+#: the card's published peaks (H100 SXM, dense; NVIDIA's H100 datasheet)
+HBM_BYTES_S, BF16_FLOP_S, INT8_OP_S, F32_FLOP_S = 3.35e12, 989e12, 1979e12, 67e12
 # RT-DETRv2 shapes at 640x640: the pyramid's levels, hidden 256, 8 heads of
 # 32, points (4, 4, 4); queries of the layout decoder and the cell detector
 LEVELS, D_DETR, POINTS = ((80, 80), (40, 40), (20, 20)), 256, (4, 4, 4)
@@ -101,6 +135,39 @@ TABLE_BOXES = [[40, 120, 920, 560], [40, 600, 920, 1180], [0, 0, 480, 640],
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Set (or, with None, unset) environment variables for the block."""
+    old = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def bound(tensors, outputs, ops):
+    """The least time the card could take: the larger of the bytes of
+    ``tensors`` (read once) and ``outputs`` (written once) over the memory
+    rate, and ``ops`` = {"bf16" | "int8" | "f32": count} over the peak
+    rates, the parts of a mixed kernel added.  -> (ms, "bytes" or
+    "operations")."""
+    nbytes = sum(t.numel() * t.element_size() for t in list(tensors) + list(outputs)
+                 if hasattr(t, "element_size"))
+    t_bytes = nbytes / HBM_BYTES_S
+    rate = {"bf16": BF16_FLOP_S, "int8": INT8_OP_S, "f32": F32_FLOP_S}
+    t_ops = sum(n / rate[k] for k, n in ops.items())
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def check(cond, msg):
@@ -272,6 +339,41 @@ def _held(got, want, x, rel, add, unit):
     return err, ok and math.isfinite(err), text
 
 
+def kernel_ops(name, args, tail):
+    """Operations of one call at these inputs, by type (multiply-adds as
+    two): the projections' and MLPs' products, and attention's QK^T and PV
+    (2 B H Lq Lk Dh each)."""
+    if name in ("fused_attention_block_ln", "fused_attention_block_ln_int8"):
+        B, L, D = args[0].shape
+        proj, attn = 8 * B * L * D * D, 4 * B * L * L * D
+        if name.endswith("_int8"):
+            return {"int8": proj, "bf16": attn}
+        return {"bf16": proj + attn}
+    if name in ("fused_mlp_ln", "fused_mlp", "fused_mlp_ln_int8"):
+        M, D = args[0].shape
+        hidden = args[4].shape[0] if name.endswith("_int8") else args[-2].shape[0]
+        return {"int8" if name.endswith("_int8") else "bf16": 4 * M * D * hidden}
+    if name == "fused_attention_heads":
+        B, Lq, D = args[0].shape
+        return {"bf16": 4 * B * Lq * args[1].shape[1] * D}
+    if name == "ms_deformable_attention":
+        value, loc = args[0], args[1]
+        B, Lq, nh, P = loc.shape[:4]
+        return {"f32": B * Lq * nh * P * 4 * value.shape[-1] * 2}
+    raise KeyError(name)
+
+
+def sdpa_call(q, k, v, h):
+    """One scaled_dot_product_attention call on head-split views of the
+    head-packed rows (the views cost nothing), and its output."""
+    import torch.nn.functional as F
+
+    b, lq, d = q.shape
+    split = lambda t: t.view(b, -1, h, d // h).transpose(1, 2)  # noqa: E731
+    qs, ks, vs = split(q), split(k), split(v)
+    return lambda: F.scaled_dot_product_attention(qs, ks, vs)
+
+
 def median_ms(fn, runs=10, warmup=3):
     import torch
 
@@ -362,12 +464,22 @@ def phase_kernels():
             res["max_abs_err_f32" + suffix] = err32
             if layout == LAYOUTS[0]:  # timed in the main path's layout
                 with torch.no_grad():
+                    out16 = kern(*args16, *tail)
                     res["ms"] = median_ms(lambda: kern(*args16, *tail))
                     res["plain_ms"] = median_ms(lambda: ref(*bf, *tail))
                     res["stock_ms"] = median_ms(lambda: stock(*bf, *tail))
+                    res["library_ms"] = (
+                        median_ms(sdpa_call(*bf, *tail))
+                        if name == "fused_attention_heads" else None)
+                res["bound_ms"], res["bound_by"] = bound(
+                    bf, [out16], kernel_ops(name, bf, tail))
                 log(f"kernel {name}: bf16 {res['ms']:.3f} ms, plain "
                     f"{res['plain_ms']:.3f} ms, stock bf16 torch "
-                    f"{res['stock_ms']:.3f} ms (median of 10)")
+                    f"{res['stock_ms']:.3f} ms, one library call "
+                    f"{res['library_ms'] if res['library_ms'] is None else round(res['library_ms'], 4)} ms "
+                    f"(median of 10); bound {res['bound_ms']:.4f} ms "
+                    f"({res['bound_by']})")
+                del out16
             del f32, bf, args32, args16, x32, xb
             torch.cuda.empty_cache()
         results[name] = res
@@ -451,8 +563,13 @@ def phase_layout_kernels():
             f"{texts} {'ok' if oks else 'FAIL'}")
         check(ok32 and ok16 and oks, f"{name} [{label}] disagrees with its plain version")
         with torch.no_grad():
+            out16 = kern(*bf, *tail)
+            bound_ms, bound_by = bound(bf, [out16], kernel_ops(name, bf, tail))
             res = dict(
                 max_abs_err=err16, max_abs_err_f32=err32,
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=(median_ms(sdpa_call(*bf, *tail))
+                            if name == "fused_attention_heads" else None),
                 ms=median_ms(lambda: kern(*bf, *tail)),
                 plain_ms=median_ms(lambda: ref(*bf, *tail)),
                 stock_ms=median_ms(lambda: stock(*bf, *tail)),
@@ -521,12 +638,19 @@ def _finite_schema(schema, what):
 
 
 def phase_slice(card):
+    """The OCR path with the full memory-K/V cache -> (launches, the
+    synthetic page, its quads, 128 crops and their bf16 greedy ids)."""
+    with _env(YOMITOKU_TPU_INT8_KV="0", YOMITOKU_TPU_INT8_ENCODER=None):
+        return _phase_slice(card)
+
+
+def _phase_slice(card):
     import cv2
     import numpy as np
     import torch
 
-    from yomitoku_tpu.data.dataset import ParseqDataset
     from yomitoku_tpu_torch import ops
+    from yomitoku_tpu_torch.data.dataset import ParseqDataset
     from yomitoku_tpu_torch.ocr import OCR
     from yomitoku_tpu_torch.text_recognizer import TextRecognizer
 
@@ -574,6 +698,7 @@ def phase_slice(card):
     crops = crop()
     rec._ar_loops.clear()  # the next call builds the batch-128 AR state anew
     first_s = host_timed(lambda: rec.forward_tokens(crops), runs=1)
+    ids_bf16, _ = rec.forward_tokens(crops)
     model_s = host_timed(lambda: rec.forward_tokens(crops))
     log(f"slice: OCR {page_s * 1e3:.1f} ms/page (detector {det_s * 1e3:.1f} ms) "
         f"on sample_text.png; recognizer bf16 batch 128: {128 / rec_s:.1f} "
@@ -615,7 +740,8 @@ def phase_slice(card):
             f"near-tie positions (top-2 gap < 1e-4) exempt, "
             f"{int(differ.sum())} differ; max|d prob| {dp:.3e}; max|d logit| "
             f"{(got - want).abs().max().item():.3e}")
-    return launches
+    return launches, dict(page=lines_page, quads=quads, crops=crops,
+                          ids_bf16=ids_bf16)
 
 
 # ------------------------------------------------------------------ phase 4
@@ -765,6 +891,289 @@ def phase_layout(card):
     return launches
 
 
+# ------------------------------------------------------------------ phase 5
+
+
+def _int8_cases(rng):
+    """name -> (numpy args as (value, kind), trailing args): kind "x" is the
+    activation (the dtype under test), "w" a float weight to quantize, "v"
+    a float32 vector."""
+    ws = D ** -0.5
+    nrm = lambda shape, std=1.0: (rng.standard_normal(shape) * std).astype("float32")  # noqa: E731
+    vec = lambda n, c=0.0, std=0.02: (c + rng.standard_normal(n) * std).astype("float32")  # noqa: E731
+    block = [(nrm((B, L, D)), "x"), (vec(D, 1.0, 0.1), "v"), (vec(D), "v")]
+    for _ in range(4):
+        block += [(nrm((D, D), ws), "w"), (vec(D), "v")]
+    mlp = [(nrm((B * L, D)), "x"), (vec(D, 1.0, 0.1), "v"), (vec(D), "v"),
+           (nrm((D, HIDDEN), ws), "w"), (vec(HIDDEN), "v"),
+           (nrm((HIDDEN, D), HIDDEN ** -0.5), "w"), (vec(D), "v")]
+    return {"fused_attention_block_ln_int8": (block, (HEADS,)),
+            "fused_mlp_ln_int8": (mlp, ())}
+
+
+def _int8_args(case, dtype):
+    """The case on the card: x in ``dtype``, each weight as its int8 codes
+    (the transpose of a row-major (out, in) tensor) and f32 scales."""
+    import torch
+
+    from yomitoku_tpu_torch import ops
+
+    out = []
+    for a, kind in case:
+        t = torch.from_numpy(a).cuda()
+        if kind == "x":
+            out.append(t.to(dtype))
+        elif kind == "w":
+            out += list(ops.quantize_weight_int8(t))
+        else:
+            out.append(t)
+    return out
+
+
+def _held_int8(got, want):
+    """f32: within 1e-4 of the largest value plus 1e-5 on all rows but those
+    where a code moved by one step at a rounding tie (at most 1%), which
+    stay within 2e-2 -> (max|d|, share of rows past 1e-4, ok, text)."""
+    d = (got.float() - want).abs().reshape(-1, want.shape[-1]).amax(-1)
+    top = want.abs().max().item()
+    share = (d > 1e-4 * top + 1e-5).float().mean().item()
+    err = d.max().item()
+    ok = share <= 1e-2 and err <= 2e-2 * top and math.isfinite(err)
+    return err, share, ok, (f"max|d| {err:.3e}, rows past 1e-4 of max "
+                            f"{share:.2e} (limit 1e-2; max limit {2e-2 * top:.3e})")
+
+
+def _stock_int8(name, args, tail):
+    """The stock composition: F.layer_norm, row quantize (torch ops),
+    torch._int_mm (cuBLASLt int8), dequantize; for the attention block
+    SDPA between (on the bf16 projections, its output quantized in f32)."""
+    import torch
+    import torch.nn.functional as F
+
+    from yomitoku_tpu_torch import ops
+
+    def mm(a, w, s_row, s_col, bias):
+        return torch._int_mm(a, w).float() * s_row * s_col + bias
+
+    if name == "fused_mlp_ln_int8":
+        x, g, b, w1, s1, b1, w2, s2, b2 = args
+        xq, sx = ops.quantize_rows_reference(F.layer_norm(x.float(), (D,), g, b, 1e-6))
+        chunk = ops.hidden_chunk(w1.shape[1])
+        gq, sg = ops.quantize_rows_reference(F.gelu(mm(xq, w1, sx, s1, b1)), chunk)
+        acc = 0
+        for c in range(sg.shape[1]):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            acc = acc + torch._int_mm(gq[:, sl].contiguous(), w2[sl]).float() * sg[:, c:c + 1] * s2
+        return (x.float() + acc + b2).to(x.dtype)
+    x, g, b, wq, sq, bq, wk, sk, bk, wv, sv, bv, wo, so, bo = args
+    (h,) = tail
+    Bx, Lx, Dx = x.shape
+    hq, sh = ops.quantize_rows_reference(
+        F.layer_norm(x.float(), (Dx,), g, b, 1e-6).reshape(-1, Dx))
+    q, k, v = (mm(hq, w, sh, s, bias).to(x.dtype).view(Bx, Lx, h, Dx // h).transpose(1, 2)
+               for w, s, bias in ((wq, sq, bq), (wk, sk, bk), (wv, sv, bv)))
+    attn = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(-1, Dx)
+    aq, sa = ops.quantize_rows_reference(attn.float())
+    return (x.float() + mm(aq, wo, sa, so, bo).view(Bx, Lx, Dx)).to(x.dtype)
+
+
+def _ms(v):
+    return "not measured" if v is None else f"{v:.4f} ms"
+
+
+def phase_int8_kernels():
+    """The int8 kernels at the recognizer's shapes -> {kernel: numbers}."""
+    import numpy as np
+    import torch
+
+    from yomitoku_tpu_torch import ops
+
+    results = {}
+    for name, (case, tail) in _int8_cases(np.random.default_rng(2)).items():
+        kern = getattr(ops, name)
+        ref = getattr(ops, name + "_reference")
+        with torch.no_grad():
+            f32 = _int8_args(case, torch.float32)
+            err32, share32, ok32, text32 = _held_int8(kern(*f32, *tail), ref(*f32, *tail))
+            del f32
+            bf = _int8_args(case, torch.bfloat16)
+            out16 = kern(*bf, *tail)
+            want = ref(*[a.float() if a.dtype == torch.bfloat16 else a for a in bf], *tail)
+            err16, ok16, text16 = _held(out16, want, None, 2e-2, 0.0, 0.0)
+            stock_err = (_stock_int8(name, bf, tail).float() - want).abs().max().item()
+            del want
+        torch.cuda.synchronize()
+        log(f"kernel {name}: f32 {text32} {'ok' if ok32 else 'FAIL'}; bf16 "
+            f"{text16} {'ok' if ok16 else 'FAIL'}; stock composition vs plain "
+            f"(bf16) max|d| {stock_err:.3e}")
+        check(ok32 and ok16, f"{name} disagrees with its plain version")
+        bound_ms, bound_by = bound(bf, [out16], kernel_ops(name, bf, tail))
+        del out16
+        with torch.no_grad():
+            res = dict(
+                max_abs_err=err16, max_abs_err_f32=err32,
+                f32_rows_past_1e4=share32, stock_max_abs_err=stock_err,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                ms=median_ms(lambda: kern(*bf, *tail)),
+                plain_ms=median_ms(lambda: ref(*bf, *tail), runs=3),
+                stock_ms=median_ms(lambda: _stock_int8(name, bf, tail)),
+                device_ms=device_ms(lambda: kern(*bf, *tail)),
+                stock_device_ms=device_ms(lambda: _stock_int8(name, bf, tail)),
+            )
+        log(f"kernel {name}: bf16 {res['ms']:.3f} ms per call (device "
+            f"{_ms(res['device_ms'])}), plain {res['plain_ms']:.3f} ms, stock "
+            f"composition {res['stock_ms']:.3f} ms (device "
+            f"{_ms(res['stock_device_ms'])}); bound {bound_ms:.4f} ms "
+            f"({bound_by}); median of 10")
+        results[name] = res
+        del bf
+        torch.cuda.empty_cache()
+    ops.reset_launches()
+    return results
+
+
+# ------------------------------------------------------------------ phase 6
+
+
+def _force_int8_on_cpu():
+    """The port's int8 encoder gates opened for CPU tensors (its plain
+    versions), as tests/test_torch_int8.py opens them -> undo callable."""
+    from yomitoku_tpu_torch.models.layers import attention
+
+    saved = {n: getattr(attention, n) for n in
+             ("use_int8_encoder", "_use_fused_block", "_use_fused_mlp")}
+    attention.use_int8_encoder = lambda x: True
+    attention._use_fused_block = lambda x, h: True
+    attention._use_fused_mlp = lambda x: True
+    return lambda: [setattr(attention, n, f) for n, f in saved.items()]
+
+
+def phase_int8_recognizer(card, ctx):
+    with _env(YOMITOKU_TPU_INT8_ENCODER="1", YOMITOKU_TPU_INT8_KV=None):
+        return _phase_int8_recognizer(card, ctx)
+
+
+def _phase_int8_recognizer(card, ctx):
+    import numpy as np
+    import torch
+
+    from yomitoku_tpu_torch import ops
+    from yomitoku_tpu_torch.data.dataset import ParseqDataset
+    from yomitoku_tpu_torch.text_recognizer import TextRecognizer
+
+    rec = TextRecognizer(device="cuda")  # parseq-large-v4_1, seed-0 weights
+    model = rec.model
+    check(model.int8_kv, "the int8 memory-K/V cache is not on by default on CUDA")
+    page, quads, crops = ctx["page"], ctx["quads"], ctx["crops"]
+
+    # the main path, counted: the recognizer on the synthetic page (a batch
+    # of 128 and one of 8)
+    ops.reset_launches()
+    lines = rec(page, quads)
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    log(f"int8: launches {launches}")
+    check(all(launches[k] > 0 for k in INT8_KERNELS),
+          f"a kernel of the int8 recognizer path was never launched: {launches}")
+    check(launches["fused_attention_block_ln"] == 0 and launches["fused_mlp_ln"] == 0,
+          f"the int8 path ran a bf16 encoder kernel: {launches}")
+    _finite_schema(lines, "int8 recognizer")
+    check(len(lines.contents) == len(quads), "int8 recognizer lost lines")
+    ops.reset_launches()
+    ids8, probs8 = model.forward_tokens(crops)
+    per_batch = {k: ops.launches[k] for k in INT8_KERNELS}
+    log(f"int8: launches for one batch of 128: {per_batch}")
+    check(per_batch["fused_attention_block_ln_int8"] == 12
+          and per_batch["fused_mlp_ln_int8"] == 12,
+          f"expected 12 launches of each int8 kernel per batch: {per_batch}")
+    check(np.isfinite(probs8).all(), "int8 probs not finite")
+    loop = model._ar_loops[128]
+    check(loop.graph is not None and loop.mem[0].dtype == torch.int8,
+          "the batch-128 AR loop is not one CUDA graph over an int8 memory cache")
+    same = float((ids8 == ctx["ids_bf16"]).mean())
+    log(f"int8: greedy ids equal to the bf16 path's (full K/V cache) at "
+        f"{same:.4f} of {ids8.size} positions (seed-0 random weights)")
+
+    rec_s = host_timed(lambda: rec(page, quads[:128]))
+    crop_s = host_timed(lambda: ParseqDataset(rec._cfg, page, quads[:128]).as_u8_array())
+    model_s = host_timed(lambda: model.forward_tokens(crops))
+    log(f"int8: recognizer batch 128 (int8 encoder + int8 K/V): {128 / rec_s:.1f} "
+        f"lines/s end to end ({rec_s * 1e3:.1f} ms, of which host crops "
+        f"{crop_s * 1e3:.1f} ms), {128 / model_s:.1f} lines/s device decode "
+        f"({model_s * 1e3:.1f} ms/batch); median of 3; card {card}")
+    audit = model.audit_int8_kv()
+    log(f"int8: audit of the int8 memory-K/V cache (4 random crops): "
+        f"{'kept' if audit else 'diverged, turned off'}")
+    del rec, model, loop
+    torch.cuda.empty_cache()
+
+    # f32 int8 on the card against the plain int8 path on the CPU, same
+    # seed weights, 8 lines, in two hops.  The encoder (the int8 kernels):
+    # memory within 5e-2 of its largest value, the JAX package's int8
+    # tolerance (tests/test_int8_encoder.py), since a code that moves by one
+    # step at a rounding tie (f32 sums in another order) spreads through
+    # attention to every row of its line and compounds over 12 blocks; a
+    # wiring fault gives errors of the order of the values.  The decoder with the
+    # int8 memory-K/V cache, both sides on the CPU's memory: greedy ids
+    # equal, except that a line may part from the CPU's at a near-tie
+    # (top-2 gap < 1e-3) and is compared only up to there.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec32 = TextRecognizer(device="cuda", dtype=torch.float32, from_pretrained=False)
+    cpu32 = TextRecognizer(device="cpu", from_pretrained=False)
+    cpu32.model.int8_kv = True
+    x = torch.from_numpy(crops[:8])
+    n0 = dict(ops.launches)
+    with torch.no_grad():
+        mem_card = rec32.model.encode(x).cpu()
+        check(all(ops.launches[k] > n0[k] for k in INT8_KERNELS[:2]),
+              f"f32 int8 run missed a kernel: {n0} -> {ops.launches}")
+        # the control: the CPU against itself with its input moved by one
+        # part in 1e6, which shows how far such code moves spread
+        xf = x.float() * (1.0 / 127.5) - 1.0
+        jitter = 1.0 + 1e-6 * torch.randn(xf.shape, generator=torch.Generator().manual_seed(0))
+        undo = _force_int8_on_cpu()
+        try:
+            mem_cpu = cpu32.model.encode(x)
+            mem_ctl = cpu32.model.encode(xf * jitter)
+        finally:
+            undo()
+        d = (mem_card - mem_cpu).abs()
+        err_m, top_m = d.max().item(), mem_cpu.abs().max().item()
+        mean_m = (d.mean() / mem_cpu.abs().mean()).item()
+        dc = (mem_ctl - mem_cpu).abs()
+        log(f"int8: f32 encoder memory card vs CPU on 8 lines: max|d| {err_m:.3e} "
+            f"(limit {5e-2 * top_m:.3e}, 5e-2 of max), mean|d| / mean|ref| "
+            f"{mean_m:.3e}; the CPU against itself with its input moved by 1e-6: "
+            f"max|d| {dc.max().item():.3e}, mean|d| / mean|ref| "
+            f"{(dc.mean() / mem_cpu.abs().mean()).item():.3e}")
+        check(err_m <= 5e-2 * top_m, "f32 int8 encoder memory differs from the CPU's")
+        got = rec32.model.logits_from_memory(mem_cpu.cuda()).cpu()
+        want = cpu32.model.logits_from_memory(mem_cpu)
+    check(torch.isfinite(got).all().item(), "f32 int8 card logits not finite")
+    top2 = want.topk(2, dim=-1).values
+    tie = (top2[..., 0] - top2[..., 1]) < 1e-3
+    differ = got.argmax(-1) != want.argmax(-1)
+    parted = 0
+    for r in range(differ.shape[0]):
+        cols = torch.nonzero(differ[r])[:, 0]
+        if len(cols):
+            check(bool(tie[r, cols[0]]), f"f32 int8 line {r} parts from the CPU's "
+                  f"at position {int(cols[0])}, which is not a near-tie")
+            parted += 1
+    log(f"int8: f32 decoder (int8 K/V) card vs CPU on the same memory, 8 lines: "
+        f"ids equal at {int((~differ).sum())}/{differ.numel()} positions; "
+        f"{parted} lines part at a near-tie (top-2 gap < 1e-3); max|d logit| "
+        f"{(got - want).abs().max().item():.3e}")
+    return launches, dict(ids_equal_bf16=same, audit_kept=audit,
+                          f32_memory_max_abs_err=err_m,
+                          f32_memory_mean_rel_err=mean_m,
+                          f32_lines_parted_at_near_tie=parted,
+                          lines_s_end_to_end=128 / rec_s,
+                          lines_s_device_decode=128 / model_s,
+                          ms_per_batch=model_s * 1e3)
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -785,10 +1194,14 @@ def main():
         card = phase_card()
         kernels = phase_kernels()
         layout_kernels = phase_layout_kernels()
-        paths = {"ocr": phase_slice(card), "layout": phase_layout(card)}
+        kernels.update(phase_int8_kernels())
+        ocr_launches, ctx = phase_slice(card)
+        paths = {"ocr": ocr_launches, "layout": phase_layout(card)}
+        paths["int8_recognizer"], int8_numbers = phase_int8_recognizer(card, ctx)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1
+    (OUT / "int8_recognizer.json").write_text(json.dumps(int8_numbers, indent=1))
     log(card)  # as nvidia-smi prints it: name, power limit
     main_shape = {"ms_deformable_attention": "lq300"}
     rows = []

@@ -8,7 +8,14 @@ PyTorch is installed:
 Tolerances: f32 kernels (TF32 off) within 1e-4 of the largest reference
 value plus 1e-5 (summation order only); bf16 inputs against the f32 plain
 version of the same bf16 values within 2e-2 of the largest value (the
-kernels round intermediates to bf16 where the Pallas kernels do)."""
+kernels round intermediates to bf16 where the Pallas kernels do).  The
+int8 kernels: codes of the row-quantize kernel equal to the plain
+version's up to one step at a rounding tie, on at most 1e-3 of them (its
+f32 LayerNorm sums in another order); the int8 GEMM on the same codes
+within 1e-5 of the largest value; the W8A8 sublayers in f32 within 1e-4
+of the largest value plus 1e-5 on all rows but at most 1% of them (rows
+where a code moved by one step at a rounding tie, one quantum of one
+input: about 1e-3 of the largest value), which stay within 2e-2."""
 
 import numpy as np
 import pytest
@@ -94,11 +101,13 @@ def test_kernels_match_plain_versions(dtype, heads, layout):
 
 
 @pytest.mark.cuda
-def test_small_recognizer_f32_matches_cpu():
+def test_small_recognizer_f32_matches_cpu(monkeypatch):
     """A small PARSeq (tests/yaml/rec_small.yaml) in f32 on the card and on
     the CPU from the same seed, two batches: equal greedy ids, probs within
-    1e-4."""
+    1e-4.  Both with the full memory-K/V cache (int8 is the card's
+    default)."""
     _require_cuda()
+    monkeypatch.setenv("YOMITOKU_TPU_INT8_KV", "0")
     from pathlib import Path
 
     from yomitoku_tpu_torch.text_recognizer import TextRecognizer
@@ -193,3 +202,175 @@ def test_small_rtdetr_f32_matches_cpu():
     limit = 1e-3 * want["pred_logits"].abs().max().item()
     assert (got["pred_logits"] - want["pred_logits"]).abs().max().item() <= limit
     assert (got["pred_boxes"] - want["pred_boxes"]).abs().max().item() <= 1e-3
+
+
+# ------------------------------------------------------------------ W8A8
+
+
+def _dev(a, dt=torch.float32):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to("cuda", dt)
+
+
+def _held_int8(got, want, dtype):
+    """bf16: within 2e-2 of the largest value.  f32: within 1e-4 of it plus
+    1e-5, except on at most 1% of the rows (a code moved at a rounding
+    tie), which stay within 2e-2 of it."""
+    d = (got.float() - want).abs().reshape(-1, want.shape[-1]).amax(-1)
+    top = want.abs().max().item()
+    if dtype == "bfloat16":
+        assert d.max().item() <= 2e-2 * top, (d.max().item(), top)
+        return
+    off = d > 1e-4 * top + 1e-5
+    assert off.float().mean().item() <= 1e-2, int(off.sum())
+    assert d.max().item() <= 2e-2 * top, (d.max().item(), top)
+
+
+def _int8_weights(rng, shapes):
+    out = []
+    for k, n in shapes:
+        w = _dev(rng.standard_normal((k, n)) * k ** -0.5)
+        out += list(ops.quantize_weight_int8(w)) + [_dev(rng.standard_normal(n) * 0.05)]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D,Hd", [(300, 96, 384), (257, 64, 2048), (1024, 128, 512)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_mlp_matches_plain_version(dtype, N, D, Hd):
+    """fused_mlp_ln_int8 at ragged row counts; Hd=2048 quantizes the GELU
+    output in two chunks of 1024."""
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(21)
+    x = _dev(rng.standard_normal((N, D)), dt)
+    g, b = _dev(1 + 0.1 * rng.standard_normal(D)), _dev(0.1 * rng.standard_normal(D))
+    w = _int8_weights(rng, [(D, Hd), (Hd, D)])
+    n0 = ops.launches["fused_mlp_ln_int8"]
+    got = ops.fused_mlp_ln_int8(x, g, b, *w)
+    want = ops.fused_mlp_ln_int8_reference(x.float(), g, b, *w)
+    torch.cuda.synchronize()
+    assert ops.launches["fused_mlp_ln_int8"] == n0 + 1
+    assert got.dtype == dt
+    _held_int8(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,D,H", [(3, 37, 96, 6), (2, 40, 128, 8), (2, 33, 96, 4)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_attention_block_matches_plain_version(dtype, B, L, D, H):
+    """fused_attention_block_ln_int8 with ragged L; head dims 16 (the bf16
+    attention kernel's tensor-core path, f32 output) and 24 (its FMA
+    path)."""
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(22)
+    x = _dev(rng.standard_normal((B, L, D)), dt)
+    g, b = _dev(1 + 0.1 * rng.standard_normal(D)), _dev(0.1 * rng.standard_normal(D))
+    w = _int8_weights(rng, [(D, D)] * 4)
+    n0 = ops.launches["fused_attention_block_ln_int8"]
+    got = ops.fused_attention_block_ln_int8(x, g, b, *w, H)
+    want = ops.fused_attention_block_ln_int8_reference(x.float(), g, b, *w, H)
+    torch.cuda.synchronize()
+    assert ops.launches["fused_attention_block_ln_int8"] == n0 + 1
+    _held_int8(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk,ln", [(None, True), (None, False), (128, False)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_rows_kernel_codes(dtype, chunk, ln):
+    from yomitoku_tpu_torch.ops._common import quantize_rows
+
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(23)
+    M, K = 333, 512
+    x = _dev(rng.standard_normal((M, K)) * 3, dt)
+    g, b = _dev(1 + 0.1 * rng.standard_normal(K)), _dev(0.1 * rng.standard_normal(K))
+    nc = K // (chunk or K)
+    q = torch.empty((M, K), dtype=torch.int8, device="cuda")
+    s = torch.empty((M, nc), dtype=torch.float32, device="cuda")
+    quantize_rows(x, q, s, ln=(g, b, 1e-6) if ln else None)
+    v = ops.layer_norm(x, g, b, 1e-6, torch.float32) if ln else x.float()
+    wq, ws = ops.quantize_rows_reference(v, chunk)
+    torch.cuda.synchronize()
+    d = (q.int() - wq.int()).abs()
+    assert d.max().item() <= 1 and d.float().mean().item() <= 1e-3
+    torch.testing.assert_close(s, ws, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gelu,res,kchunk", [(True, False, 1024), (False, True, 1024),
+                                             (False, True, 3072), (False, False, 192)])
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_int8_gemm_matches_plain_on_same_codes(out_dtype, gelu, res, kchunk):
+    """The int8 GEMM on given codes and scales: exact int32 sums, then the
+    plain version's f32 epilogue (within 1e-5 of the largest value, the
+    erf and the output rounding aside)."""
+    from yomitoku_tpu_torch.ops._common import gemm_int8
+    from yomitoku_tpu_torch.ops.mlp import dequantize, int_matmul
+
+    _require_cuda()
+    dt = getattr(torch, out_dtype)
+    rng = np.random.default_rng(24)
+    M, K, N = 201, 3072 if kchunk != 192 else 192, 136
+    a = torch.from_numpy(rng.integers(-127, 128, (M, K), dtype=np.int8)).cuda()
+    w = torch.from_numpy(rng.integers(-127, 128, (N, K), dtype=np.int8)).cuda().t()
+    nc = K // kchunk
+    sa = _dev(rng.random((M, nc)) * 1e-3)
+    sw = _dev(rng.random(N) * 1e-3)
+    bias = _dev(rng.standard_normal(N))
+    r = _dev(rng.standard_normal((M, N)), dt) if res else None
+    out = torch.empty((M, N), dtype=dt, device="cuda")
+    gemm_int8(a, sa, w, sw, bias, out, res=r, gelu=gelu)
+    want = 0
+    for c in range(nc):
+        sl = slice(c * kchunk, (c + 1) * kchunk)
+        want = want + dequantize(int_matmul(a[:, sl], w[sl]), sa[:, c:c + 1], sw)
+    want = want + bias
+    if gelu:
+        want = torch.nn.functional.gelu(want)
+    if res:
+        want = r.float() + want
+    torch.cuda.synchronize()
+    tol = 1e-5 if out_dtype == "float32" else 2 ** -8
+    assert (out.float() - want).abs().max().item() <= tol * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_int8_kv_loop_matches_full_cache(monkeypatch):
+    """A small PARSeq in f32 on the card with the int8 memory-K/V cache (the
+    card's default) against the full cache, two batches of one size (one
+    CUDA graph, captured on the first, replayed on the second), with the
+    JAX package's criteria (tests/test_int8_kv.py): at least 70% of ids
+    equal, probs before each row's first divergence within 2e-2, and each
+    first divergence a near-tie of the full-cache path (gap < 0.05)."""
+    _require_cuda()
+    from pathlib import Path
+
+    from yomitoku_tpu_torch.text_recognizer import TextRecognizer
+
+    cfg = str(Path(__file__).parent / "yaml" / "rec_small.yaml")
+    monkeypatch.delenv("YOMITOKU_TPU_INT8_KV", raising=False)
+    q8 = TextRecognizer(path_cfg=cfg, device="cuda", dtype=torch.float32,
+                        from_pretrained=False).model
+    monkeypatch.setenv("YOMITOKU_TPU_INT8_KV", "0")
+    full = TextRecognizer(path_cfg=cfg, device="cuda", dtype=torch.float32,
+                          from_pretrained=False).model
+    assert q8.int8_kv and not full.int8_kv
+    rng = np.random.default_rng(9)
+    for _ in range(2):
+        x = rng.integers(0, 256, (40, 32, 32, 3), dtype=np.uint8)
+        ids_a, probs_a = full.forward_tokens(x)
+        ids_b, probs_b = q8.forward_tokens(x)
+        assert (ids_a == ids_b).mean() >= 0.7
+        dist = full.forward_probs(torch.from_numpy(x)).cpu().numpy()
+        for r in range(len(ids_a)):
+            diff = np.nonzero(ids_a[r] != ids_b[r])[0]
+            j0 = diff[0] if diff.size else ids_a.shape[1]
+            np.testing.assert_allclose(probs_a[r, :j0], probs_b[r, :j0], atol=2e-2)
+            if diff.size:
+                assert dist[r, j0, ids_a[r, j0]] - dist[r, j0, ids_b[r, j0]] < 0.05
+    loop = q8._ar_loops[40]
+    assert list(q8._ar_loops) == [40] and loop.graph is not None
+    assert loop.mem[0].dtype == torch.int8

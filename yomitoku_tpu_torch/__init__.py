@@ -3,9 +3,10 @@
 The OCR path (DBNet text detection + PARSeq text recognition) and layout
 analysis (RT-DETRv2 layout parsing + table structure recognition) in
 PyTorch, with hand-written Hopper kernels (``csrc/``) where the JAX
-package runs Pallas kernels.  The host layers (configs, schemas, data, postprocessors,
-native code) are the JAX package's own, imported, not copied.  This
-package imports ``torch`` and never ``jax`` or ``flax``.
+package runs Pallas kernels.  The host layers it uses (configs, schemas,
+data, postprocessors, native C++) are its own copies of the JAX package's,
+under the same module paths: it imports ``torch`` and never ``jax``,
+``flax`` or ``yomitoku_tpu``.
 """
 
 __version__ = "0.1.0"

@@ -1,19 +1,87 @@
 """Task-module base of the port (counterpart of yomitoku_tpu/base.py):
-``BaseModule.load_model`` builds one of the port's models on an explicit
-device.  The model catalog class and the timing observer are the JAX
-package's own (both free of JAX)."""
+the model catalog, the timing observer, the schema base class, and
+``BaseModule.load_model``, which builds one of the port's models on an
+explicit device."""
+
+import os
+import time
+from pathlib import Path
 
 import torch
+from pydantic import BaseModel, ConfigDict
 
-from yomitoku_tpu.base import BaseModelCatalog, observer
-from yomitoku_tpu.config import load_config
-from yomitoku_tpu.utils.logger import set_logger
-
+from .config import load_config
+from .utils.logger import set_logger
 from .weights import load_pretrained
 
 logger = set_logger(__name__, "INFO")
 
-__all__ = ["BaseModelCatalog", "BaseModule", "resolve_device"]
+__all__ = ["BaseModelCatalog", "BaseModule", "BaseSchema", "observer",
+           "resolve_device"]
+
+
+def observer(cls, func):
+    """Wrap a callable with wall-clock INFO timing.
+
+    When ``YOMITOKU_TPU_PROFILE=<dir>`` is set, each observed call is also
+    recorded with ``torch.profiler`` (host and, where there is a card,
+    device timelines), written as a Chrome trace under ``<dir>/<Module>/``
+    (the JAX package records a jax.profiler trace there)."""
+
+    def wrapper(*args, **kwargs):
+        profile_dir = os.environ.get("YOMITOKU_TPU_PROFILE")
+        prof = None
+        if profile_dir:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(ProfilerActivity.CUDA)
+            prof = profile(activities=activities)
+            prof.__enter__()
+        try:
+            start = time.time()
+            result = func(*args, **kwargs)
+            elapsed = time.time() - start
+            logger.info(f"{cls.__name__} {func.__name__} elapsed_time: {elapsed}")
+        except Exception as e:
+            logger.error(f"Error occurred in {cls.__name__} {func.__name__}: {e}")
+            raise e
+        finally:
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                out = Path(profile_dir) / cls.__name__
+                out.mkdir(parents=True, exist_ok=True)
+                prof.export_chrome_trace(str(out / f"trace_{time.time_ns()}.json"))
+        return result
+
+    wrapper._is_observer = True
+    return wrapper
+
+
+class BaseSchema(BaseModel):
+    model_config = ConfigDict(extra="forbid", validate_assignment=True)
+
+
+class BaseModelCatalog:
+    """Registry mapping model-variant name -> (default config, model class)."""
+
+    def __init__(self):
+        self.catalog = {}
+
+    def get(self, model_name: str):
+        model_name = model_name.lower()
+        if model_name in self.catalog:
+            return self.catalog[model_name]
+        raise ValueError(f"Unknown model: {model_name}")
+
+    def register(self, model_name: str, config, model):
+        if model_name in self.catalog:
+            raise ValueError(f"{model_name} is already registered.")
+        self.catalog[model_name] = (config, model)
+
+    def list_model(self):
+        return list(self.catalog.keys())
 
 
 def resolve_device(device) -> torch.device:

@@ -25,7 +25,10 @@
 //     products): f32 FMAs from shared memory, 4 warps x 8 query rows, Q read
 //     as float4.
 // The ragged Lq and Lk edges are masked inside the kernel (the Pallas
-// kernel padded Lq to a multiple of 8).
+// kernel padded Lq to a multiple of 8).  The output is of the input's type,
+// or f32 for bf16 inputs: the attention of fused_attention_block_ln_int8,
+// whose f32 output is quantized row by row before the out-projection, as
+// the Pallas kernel quantizes its f32 attention.
 #include <math.h>
 #include <stdint.h>
 
@@ -56,7 +59,7 @@ size_t smem_bytes(int dhp) {
 
 // ------------------------------------------------------------ FMA path
 
-template <typename T>
+template <typename T, typename TO>
 __global__ void __launch_bounds__(NTHREADS) attention_kernel(AttnArgs p) {
   extern __shared__ __align__(16) float smem[];
   const int dhp = p.dhp;
@@ -71,7 +74,7 @@ __global__ void __launch_bounds__(NTHREADS) attention_kernel(AttnArgs p) {
   const T* qb = static_cast<const T*>(p.q) + b * p.q_bs + (long long)h * p.dh;
   const T* kb = static_cast<const T*>(p.k) + b * p.k_bs + (long long)h * p.dh;
   const T* vb = static_cast<const T*>(p.v) + b * p.v_bs + (long long)h * p.dh;
-  T* ob = static_cast<T*>(p.o) + b * p.o_bs + (long long)h * p.dh;
+  TO* ob = static_cast<TO*>(p.o) + b * p.o_bs + (long long)h * p.dh;
 
   for (int idx = tid; idx < BQ * dhp; idx += NTHREADS) {
     const int r = idx / dhp, d = idx % dhp;
@@ -175,7 +178,7 @@ __global__ void __launch_bounds__(NTHREADS) attention_kernel(AttnArgs p) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int d = lane + 32 * i;
-      if (d < p.dh) ob[row * p.o_rs + d] = from_f32<T>(acc[r][i] * inv);
+      if (d < p.dh) ob[row * p.o_rs + d] = from_f32<TO>(acc[r][i] * inv);
     }
   }
 }
@@ -197,6 +200,7 @@ size_t tc_smem_bytes(int dh) { return sizeof(bf16) * (size_t)(TQ + 4 * TK) * (dh
 // four lanes of a row reduce with two shuffles.  K and V tiles stream
 // through a double-buffered cp.async ring; the logits turn into the next
 // product's A fragments without leaving the registers.
+template <typename TO>
 __global__ void __launch_bounds__(NTHREADS) attention_tc_kernel(AttnArgs p) {
   extern __shared__ __align__(128) unsigned char sm[];
   const int dh = p.dh, pitch = dh + 8, nvec = dh / 8, nd = dh / 16;
@@ -210,7 +214,7 @@ __global__ void __launch_bounds__(NTHREADS) attention_tc_kernel(AttnArgs p) {
   const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_bs + (long long)h * dh;
   const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_bs + (long long)h * dh;
   const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_bs + (long long)h * dh;
-  bf16* ob = static_cast<bf16*>(p.o) + b * p.o_bs + (long long)h * dh;
+  TO* ob = static_cast<TO*>(p.o) + b * p.o_bs + (long long)h * dh;
 
   // rows past Lq and keys past Lk are zero-filled (and the keys masked)
   for (int idx = tid; idx < TQ * nvec; idx += NTHREADS) {
@@ -343,8 +347,12 @@ __global__ void __launch_bounds__(NTHREADS) attention_tc_kernel(AttnArgs p) {
 #pragma unroll
     for (int j = 0; j < DMAX / 8; ++j) {
       if (j >= 2 * nd) continue;
-      *reinterpret_cast<__nv_bfloat162*>(ob + row * p.o_rs + j * 8 + qd * 2) =
-          __floats2bfloat162_rn(o[j][2 * hr] * inv, o[j][2 * hr + 1] * inv);
+      TO* dst = ob + row * p.o_rs + j * 8 + qd * 2;
+      if constexpr (sizeof(TO) == 4)
+        *reinterpret_cast<float2*>(dst) = make_float2(o[j][2 * hr] * inv, o[j][2 * hr + 1] * inv);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(dst) =
+            __floats2bfloat162_rn(o[j][2 * hr] * inv, o[j][2 * hr + 1] * inv);
     }
   }
 }
@@ -359,34 +367,36 @@ bool tc_ok(const AttnArgs& p) {
           p.o_rs) % 8 == 0;
 }
 
+template <typename TO>
 int launch_tc(const AttnArgs& p, int batch, cudaStream_t s) {
   const size_t bytes = tc_smem_bytes(p.dh);
   cudaError_t e = cudaFuncSetAttribute(
-      attention_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attention_tc_kernel<TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((p.lq + TQ - 1) / TQ, p.heads, batch);
-  attention_tc_kernel<<<grid, NTHREADS, bytes, s>>>(p);
+  attention_tc_kernel<TO><<<grid, NTHREADS, bytes, s>>>(p);
   return (int)cudaGetLastError();
 }
 
 // ----------------------------------------------------------------- launch
 
-template <typename T>
+template <typename T, typename TO>
 int launch(const AttnArgs& p, int batch, cudaStream_t s) {
   const size_t bytes = smem_bytes(p.dhp);
   cudaError_t e = cudaFuncSetAttribute(
-      attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attention_kernel<T, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((p.lq + BQ - 1) / BQ, p.heads, batch);
-  attention_kernel<T><<<grid, NTHREADS, bytes, s>>>(p);
+  attention_kernel<T, TO><<<grid, NTHREADS, bytes, s>>>(p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int yt_attention(int dtype, const void* q, long long q_bs,
+// out_dtype: dtype, or YT_F32 for bf16 inputs (f32 output).
+extern "C" int yt_attention(int dtype, int out_dtype, const void* q, long long q_bs,
                             long long q_rs, const void* k, long long k_bs,
                             long long k_rs, const void* v, long long v_bs,
                             long long v_rs, void* o, long long o_bs,
@@ -398,7 +408,10 @@ extern "C" int yt_attention(int dtype, const void* q, long long q_bs,
              v_bs, v_rs, o_bs, o_rs,  heads, lq,  lk,           dh,
              (dh + 3) / 4 * 4, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == YT_BF16) return tc_ok(p) ? launch_tc(p, batch, s) : launch<bf16>(p, batch, s);
-  if (dtype == YT_F32) return launch<float>(p, batch, s);
+  if (dtype == YT_BF16 && out_dtype == YT_BF16)
+    return tc_ok(p) ? launch_tc<bf16>(p, batch, s) : launch<bf16, bf16>(p, batch, s);
+  if (dtype == YT_BF16 && out_dtype == YT_F32)
+    return tc_ok(p) ? launch_tc<float>(p, batch, s) : launch<bf16, float>(p, batch, s);
+  if (dtype == YT_F32 && out_dtype == YT_F32) return launch<float, float>(p, batch, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,9 +2,8 @@
 recognition of every table found (counterpart of
 yomitoku_tpu/layout_analyzer.py)."""
 
-from yomitoku_tpu.schemas import LayoutAnalyzerSchema
-
 from .layout_parser import LayoutParser
+from .schemas import LayoutAnalyzerSchema
 from .table_structure_recognizer import TableStructureRecognizer
 
 

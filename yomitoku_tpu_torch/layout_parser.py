@@ -13,16 +13,12 @@ raises NotImplementedError.
 import cv2
 import numpy as np
 
-from yomitoku_tpu.configs import (
-    LayoutParserRTDETRv2Config,
-    LayoutParserRTDETRv2V2Config,
-)
-from yomitoku_tpu.schemas import LayoutParserSchema
-from yomitoku_tpu.utils.misc import containment_matrix, filter_by_flag
-
 from .base import BaseModelCatalog, BaseModule
+from .configs import LayoutParserRTDETRv2Config, LayoutParserRTDETRv2V2Config
 from .models.rtdetr import RTDETRv2
 from .postprocessor.rtdetr_postprocessor import RTDETRPostProcessor
+from .schemas import LayoutParserSchema
+from .utils.misc import containment_matrix, filter_by_flag
 
 
 class LayoutParserModelCatalog(BaseModelCatalog):
@@ -144,7 +140,7 @@ class LayoutParser(BaseModule):
         results = self.postprocess(preds, (ori_h, ori_w))
         vis = None
         if self.visualize:
-            from yomitoku_tpu.utils.visualizer import layout_visualizer
+            from .utils.visualizer import layout_visualizer
 
             vis = layout_visualizer(results, img)
         return results, vis

@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yomitoku_tpu.data.functions import IMAGENET_MEAN, IMAGENET_STD
+from ..data.functions import IMAGENET_MEAN, IMAGENET_STD
 
 from .base import TorchModel
 from .layers.resnet import FrozenBatchNorm, ResNetFeatures

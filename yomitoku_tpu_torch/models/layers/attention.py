@@ -19,8 +19,19 @@ its Pallas kernels, on the same conditions, except:
     plain XLA in the JAX package).
 The JAX package's environment switches that turn the kernels off
 (YOMITOKU_TPU_NO_FLASH, YOMITOKU_TPU_NO_FUSED_MLP) are not ported.
+
+The W8A8 encoder sublayers (``use_int8_encoder``) take the place of the
+pre-LN fused kernels where the JAX package's do: opt-in with
+YOMITOKU_TPU_INT8_ENCODER=1, on CUDA tensors.  Their int8 weights are
+quantized once and kept until the float weights change (a state_dict load
+copies into the parameters and so bumps their version), where the JAX
+package quantizes inside every forward; both quantize the same
+parameters.  ``quantize_kv_int8`` and ``MultiHeadAttention.attend_int8``
+are the int8 memory-K/V cache of the PARSeq AR loop, plain torch ops as
+they are XLA ops in the JAX package.
 """
 
+import os
 from typing import Optional
 
 import torch
@@ -28,11 +39,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops import (
+    fused_attention_block_ln_int8_packed,
     fused_attention_block_ln_packed,
     fused_attention_heads,
     fused_mlp,
     fused_mlp_ln,
+    fused_mlp_ln_int8,
     layer_norm,
+    quantize_weight_int8,
 )
 
 __all__ = [
@@ -42,7 +56,9 @@ __all__ = [
     "Mlp",
     "layer_norm",
     "mlp_forward",
+    "quantize_kv_int8",
     "scaled_dot_attention",
+    "use_int8_encoder",
 ]
 
 
@@ -66,6 +82,42 @@ def _use_fused_packed(query, key, num_heads) -> bool:
 
 def _use_fused_mlp(x) -> bool:
     return x.is_cuda and x[..., 0].numel() >= 1024
+
+
+def use_int8_encoder(x) -> bool:
+    """W8A8 encoder sublayer kernels: opt-in with
+    YOMITOKU_TPU_INT8_ENCODER=1, on CUDA tensors (where the JAX package asks
+    for its TPU backend).  Read at every call, as the JAX package reads it
+    at every trace."""
+    return os.environ.get("YOMITOKU_TPU_INT8_ENCODER") == "1" and x.is_cuda
+
+
+def _int8_weights(owner, *weights):
+    """``quantize_weight_int8`` of each torch-layout (out, in) weight's
+    ``.t()``, kept on ``owner`` until a weight changes (new storage, or an
+    in-place write such as a state_dict load, which bumps its version)."""
+    key = tuple((w.data_ptr(), w._version, w.dtype) for w in weights)
+    cached = owner.__dict__.get("_int8_weights")
+    if cached is None or cached[0] != key:
+        cached = (key, [quantize_weight_int8(w.t()) for w in weights])
+        owner.__dict__["_int8_weights"] = cached
+    return cached[1]
+
+
+def quantize_kv_int8(k, v):
+    """Symmetric int8 quantization of a K/V pair ((B, H, L, Dh) each) with
+    one float32 scale per (batch, head), shape (B, H, 1, 1):
+    s = max(max|x| / 127, 1e-8), q = clip(round(x / s), -127, 127) ->
+    (kq, sk, vq, sv), as the JAX package's default (per-head) form."""
+
+    def q8(x):
+        xf = x.float()
+        s = torch.clamp_min(xf.abs().amax(dim=(2, 3), keepdim=True) / 127.0, 1e-8)
+        return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
+
+    kq, sk = q8(k)
+    vq, sv = q8(v)
+    return kq, sk, vq, sv
 
 
 def scaled_dot_attention(q, k, v, mask=None, dtype=torch.float32):
@@ -126,6 +178,23 @@ class MultiHeadAttention(nn.Module):
         out = out.transpose(1, 2).reshape(B, Lq, H * Dh).to(q.dtype)
         return F.linear(out, *self.out_params())
 
+    def attend_int8(self, q, kq, sk, vq, sv, mask: Optional[torch.Tensor] = None):
+        """Attend against an int8 K/V cache (``quantize_kv_int8``): the
+        per-(batch, head) scales fold into the query before QK^T and into
+        the output after PV; logits and accumulation in f32, the scaled
+        query and the softmax weights rounded to the compute dtype."""
+        dt = q.dtype
+        scale = q.shape[-1] ** -0.5
+        qs = (q.float() * (sk * scale)).to(dt)
+        logits = torch.matmul(qs.float(), kq.float().transpose(-1, -2))
+        if mask is not None:
+            logits = logits.masked_fill(mask, torch.finfo(torch.float32).min)
+        weights = torch.softmax(logits, dim=-1).to(dt)
+        out = torch.matmul(weights.float(), vq.float()) * sv
+        B, H, Lq, Dh = out.shape
+        out = out.transpose(1, 2).reshape(B, Lq, H * Dh).to(dt)
+        return F.linear(out, *self.out_params())
+
     # -- fused entry ------------------------------------------------------
 
     def forward(self, query, key, value, attn_mask=None, key_padding_mask=None,
@@ -138,6 +207,12 @@ class MultiHeadAttention(nn.Module):
                     and _use_fused_block(query, self.num_heads)):
                 w, bias = self.in_proj()
                 wo, bo = self.out_params()
+                if use_int8_encoder(query):
+                    (wq8, sq8), (wo8, so8) = _int8_weights(self, w, wo)
+                    return fused_attention_block_ln_int8_packed(
+                        query, g, b, wq8, sq8, bias, wo8, so8, bo,
+                        self.num_heads, eps=eps,
+                    )
                 return fused_attention_block_ln_packed(
                     query, g, b, w.t(), bias, wo.t(), bo, self.num_heads,
                     eps=eps,
@@ -195,7 +270,12 @@ def mlp_forward(x, fc1: nn.Linear, fc2: nn.Linear, pre_ln: Optional[tuple] = Non
         args = (fc1.weight.t(), fc1.bias, fc2.weight.t(), fc2.bias)
         if pre_ln is not None:
             g, b, eps = pre_ln
-            out = fused_mlp_ln(x2, g, b, *args, eps=eps)
+            if use_int8_encoder(x):
+                (w1q, s1), (w2q, s2) = _int8_weights(fc1, fc1.weight, fc2.weight)
+                out = fused_mlp_ln_int8(x2, g, b, w1q, s1, fc1.bias, w2q, s2,
+                                        fc2.bias, eps=eps)
+            else:
+                out = fused_mlp_ln(x2, g, b, *args, eps=eps)
         else:
             out = fused_mlp(x2, *args)
         return out.reshape(*lead, fc2.out_features)

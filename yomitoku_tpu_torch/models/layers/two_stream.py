@@ -12,7 +12,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .attention import LayerNorm, MultiHeadAttention, mlp_forward
+from .attention import LayerNorm, MultiHeadAttention, mlp_forward, quantize_kv_int8
 
 DEC_EPS = 1e-5
 
@@ -47,13 +47,20 @@ class TwoStreamDecoderLayer(nn.Module):
         """Loop-invariant cross-attention K/V: (B, H, M, Dh) x2."""
         return self.cross_attn.project_kv(memory, memory)
 
+    def memory_kv_int8(self, memory):
+        """The memory K/V as an int8 cache with per-(batch, head) scales:
+        (kq, sk, vq, sv) (``attention.quantize_kv_int8``)."""
+        return quantize_kv_int8(*self.memory_kv(memory))
+
     def content_kv(self, rows):
         """Self-attention K/V for new content rows: (B, H, r, Dh) x2."""
         c = self.norm_c(rows)
         return self.self_attn.project_kv(c, c)
 
     def query_step(self, query, kc, vc, km, vm, query_mask=None):
-        """Query-stream update against cached K/V (no content update)."""
+        """Query-stream update against cached K/V (no content update).
+        ``km`` may be the int8 memory cache (kq, sk, vq, sv) of
+        ``memory_kv_int8``; ``vm`` is then unused."""
         mask = None
         if query_mask is not None:
             m = query_mask
@@ -61,7 +68,10 @@ class TwoStreamDecoderLayer(nn.Module):
         q1 = self.self_attn.project_q(self.norm_q(query))
         tgt = query + self.self_attn.attend(q1, kc, vc, mask)
         q2 = self.cross_attn.project_q(self.norm1(tgt))
-        tgt = tgt + self.cross_attn.attend(q2, km, vm)
+        if isinstance(km, tuple):
+            tgt = tgt + self.cross_attn.attend_int8(q2, *km)
+        else:
+            tgt = tgt + self.cross_attn.attend(q2, km, vm)
         return tgt + self._mlp(self.norm2(tgt))
 
     def forward(self, query, content, memory, query_mask=None,

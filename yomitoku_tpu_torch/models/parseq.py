@@ -14,20 +14,61 @@ CUDA graph, captured on the first batch of each size and replayed.
 
 Token ids follow the reference tokenizer: EOS=0, then the charset, then
 BOS=num_tokens-2, PAD=num_tokens-1; the head predicts num_tokens-2
-classes.  The JAX package's int8 memory-K/V cache (on by default on its
-accelerator) is not ported: the port decodes as the JAX package does with
-YOMITOKU_TPU_INT8_KV=0.
+classes.
+
+The AR loop's memory K/V may be held as an int8 cache with per-(batch,
+head) scales (``int8_kv``), as in the JAX package: on by default on CUDA,
+off on the CPU, YOMITOKU_TPU_INT8_KV=1/0 forces it, read once when the
+model is built (the JAX package bakes it in at first trace).  The content
+cache stays full precision.  ``audit_int8_kv`` checks one batch's greedy
+ids against the full cache and turns int8 off on divergence.
 """
 
 import math
+import os
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..utils.logger import set_logger
+from ..utils.stagetrace import segment
 from .base import TorchModel, trunc_normal_
 from .layers.two_stream import TwoStreamDecoder
 from .layers.vit import ViTEncoder
+
+logger = set_logger(__name__, "INFO")
+
+
+def _int8_kv_default(device) -> bool:
+    """The int8 memory-K/V cache: on for CUDA, off on the CPU, where exact
+    parity with the JAX package's f32 path is the point.
+    YOMITOKU_TPU_INT8_KV=1/0 forces either way; other values keep the
+    default.  Validated against the full cache on random weights only: a
+    real-checkpoint load audits it (``PARSeq.audit_int8_kv``)."""
+    env = os.environ.get("YOMITOKU_TPU_INT8_KV")
+    if env in ("1", "true", "True"):
+        return True
+    if env in ("0", "false", "False"):
+        return False
+    return torch.device(device).type == "cuda"
+
+
+_INT8_KV_NOTICED = False
+
+
+def _notice_int8_kv_default():
+    """One notice per process that the CUDA default quantizes the memory
+    K/V cache; silent when the user chose (YOMITOKU_TPU_INT8_KV)."""
+    global _INT8_KV_NOTICED
+    if _INT8_KV_NOTICED or os.environ.get("YOMITOKU_TPU_INT8_KV"):
+        return
+    _INT8_KV_NOTICED = True
+    logger.info(
+        "PARSeq AR decode uses an int8 memory K/V cache (CUDA default). "
+        "Real-checkpoint loads audit greedy parity against the full cache "
+        "and fall back on divergence; set YOMITOKU_TPU_INT8_KV=0 to force "
+        "the full cache.")
 
 
 class TokenEmbedding(nn.Module):
@@ -47,7 +88,8 @@ class TokenEmbedding(nn.Module):
 class _CachedARLoop:
     """The depth-1 AR loop for one batch size: fixed-shape buffers (token
     ids, content K/V caches, the memory K/V, the step counter and a
-    ``done`` flag) and one step over them.
+    ``done`` flag) and one step over them.  The memory K/V is f32, or with
+    ``int8_kv`` int8 codes and per-(batch, head) f32 scales.
 
     A step reads its position from the device counter and gates every write
     on ``done``, so it needs no host value: on CUDA it is captured once as
@@ -59,8 +101,9 @@ class _CachedARLoop:
     The host reads ``done`` after each step to exit early; a step run after
     ``done`` would change nothing."""
 
-    def __init__(self, model, B, L, causal):
+    def __init__(self, model, B, L, causal, int8_kv):
         self.model = model
+        self.int8_kv = int8_kv
         self.layer = layer = model.decoder.layers[0]
         self.L = L
         H = layer.self_attn.num_heads
@@ -74,7 +117,9 @@ class _CachedARLoop:
         # this layout spares a full copy of the 400-row memory K/V per step.
         self.kc = torch.empty((B, H, L, dh), dtype=torch.float32, device=dev)
         self.vc = torch.empty_like(self.kc)
-        self.km = self.vm = None  # (B, H, M, dh) f32, on the first batch
+        # (km, vm) (B, H, M, dh) f32, or (kq, sk, vq, sv): int8 codes and
+        # (B, H, 1, 1) f32 scales; allocated on the first batch
+        self.mem = None
         self.logits = None
         if model.refine_iters == 0:
             self.logits = torch.empty(
@@ -87,12 +132,17 @@ class _CachedARLoop:
 
     def _reset(self, memory):
         m = self.model
-        km, vm = self.layer.memory_kv(memory)
-        if self.km is None:
-            self.km = torch.empty(km.shape, dtype=torch.float32, device=km.device)
-            self.vm = torch.empty_like(self.km)
-        self.km.copy_(km)
-        self.vm.copy_(vm)
+        if self.int8_kv:
+            mem = self.layer.memory_kv_int8(memory)
+        else:
+            mem = self.layer.memory_kv(memory)
+        if self.mem is None:
+            self.mem = tuple(
+                torch.empty(t.shape, device=t.device,
+                            dtype=t.dtype if self.int8_kv else torch.float32)
+                for t in mem)
+        for dst, src in zip(self.mem, mem):
+            dst.copy_(src)
         self.tgt_in.fill_(m.pad_id)
         self.tgt_in[:, 0] = m.bos_id
         self.kc.zero_()
@@ -110,9 +160,10 @@ class _CachedARLoop:
         i = self.step_i
         j = (i + 1).clamp(max=L - 1)  # the row this step writes
         live = ~self.done
+        km, vm = (self.mem, None) if self.int8_kv else self.mem
         p_i = m.head(m.decoder.ar_query_step(
-            self.pos_all.index_select(1, i), self.kc, self.vc, self.km,
-            self.vm, self.causal.index_select(0, i),
+            self.pos_all.index_select(1, i), self.kc, self.vc, km, vm,
+            self.causal.index_select(0, i),
         )).float()
         if self.logits is not None:
             self.logits.index_copy_(
@@ -191,6 +242,9 @@ class PARSeq(TorchModel):
         self.pos_queries = nn.Parameter(torch.zeros(1, cfg.max_label_length + 1, D))
         #: batch size -> _CachedARLoop (its buffers and its CUDA graph)
         self._ar_loops = {}
+        self.int8_kv = _int8_kv_default(self.device)
+        if self.int8_kv:
+            _notice_int8_kv_default()
         self.finish_init()
 
     def init_extra(self, gen):
@@ -226,8 +280,9 @@ class PARSeq(TorchModel):
         follows) the per-step logits, on the loop state kept for batch size
         ``B`` (see ``_CachedARLoop``)."""
         loop = self._ar_loops.get(B)
-        if loop is None:
-            loop = self._ar_loops[B] = _CachedARLoop(self, B, L, causal)
+        if loop is None or loop.int8_kv != self.int8_kv:
+            loop = self._ar_loops[B] = _CachedARLoop(self, B, L, causal,
+                                                     self.int8_kv)
         return loop(memory)
 
     def _ar_uncached(self, memory, B, L, causal):
@@ -255,12 +310,23 @@ class PARSeq(TorchModel):
     def forward_logits(self, images):
         """(B, H, W, 3) standardized float (or uint8, normalised on the
         device) -> final logits (B, L, num_tokens - 2) float32."""
+        return self.logits_from_memory(self.encode(images))
+
+    @torch.no_grad()
+    def encode(self, images):
+        """(B, H, W, 3) standardized float or uint8 -> encoder memory
+        (B, M, D) in the compute dtype."""
         images = images.to(self.device)
         if images.dtype == torch.uint8:
             # device-side ToTensor + Normalize(0.5, 0.5)
             images = images.to(self.dtype) * (1.0 / 127.5) - 1.0
-        memory = self.encoder(images.to(self.dtype))
-        B = images.shape[0]
+        return self.encoder(images.to(self.dtype))
+
+    @torch.no_grad()
+    def logits_from_memory(self, memory):
+        """The decoder alone: encoder memory (B, M, D) -> final logits
+        (B, L, num_tokens - 2) float32."""
+        B = memory.shape[0]
         L = self.max_label_length + 1
         dev = memory.device
         # True = masked.  Causal: query i sees content <= i.
@@ -311,11 +377,35 @@ class PARSeq(TorchModel):
 
     def forward_tokens(self, images: np.ndarray):
         """Host entry: (B, H, W, 3) ndarray -> (ids, probs) ndarrays."""
-        from yomitoku_tpu.utils.stagetrace import segment
-
         with segment(self.trace_stage, "dispatch", nbytes=images.nbytes):
             ids, probs = self.forward_tokens_device(
                 torch.from_numpy(np.ascontiguousarray(images))
             )
         with segment(self.trace_stage, "sync"):
             return ids.cpu().numpy(), probs.cpu().numpy()
+
+    def audit_int8_kv(self, batch=None) -> bool:
+        """One batch's greedy ids with the int8 memory-K/V cache against
+        the full cache.  True when they agree (int8 stays on); on
+        divergence (K projections whose outlier dimensions per-head
+        quantization crushes) int8 is turned off for this model, with a
+        warning, as the JAX package's audit does.  ``batch`` defaults to 4
+        uniform random crops from seed 0."""
+        if not self.int8_kv:
+            return True
+        if batch is None:
+            h, w = self.img_size
+            rng = np.random.default_rng(0)
+            batch = rng.random((4, h, w, 3), np.float32) * 2.0 - 1.0
+        ids8, _ = self.forward_tokens(batch)
+        self.int8_kv = False
+        ids32, _ = self.forward_tokens(batch)
+        if np.array_equal(ids8, ids32):
+            self.int8_kv = True
+            return True
+        logger.warning(
+            "int8 memory-K/V greedy decode diverges from the full cache on "
+            f"this checkpoint ({int((ids8 != ids32).sum())} token positions "
+            "in the audit batch); falling back to the full-precision cache "
+            "for this model; set YOMITOKU_TPU_INT8_KV=1 to force int8.")
+        return False

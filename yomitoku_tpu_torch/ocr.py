@@ -1,8 +1,7 @@
 """OCR pipeline: text detection -> line recognition -> word aggregation
 (counterpart of yomitoku_tpu/ocr.py)."""
 
-from yomitoku_tpu.schemas import OCRSchema
-
+from .schemas import OCRSchema
 from .text_detector import TextDetector
 from .text_recognizer import TextRecognizer
 

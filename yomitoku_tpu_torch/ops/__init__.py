@@ -5,6 +5,9 @@ and csrc/)."""
 from ._common import launches, layer_norm, reset_launches
 from .attention import (
     fused_attention_block_ln,
+    fused_attention_block_ln_int8,
+    fused_attention_block_ln_int8_packed,
+    fused_attention_block_ln_int8_reference,
     fused_attention_block_ln_packed,
     fused_attention_block_ln_reference,
     fused_attention_heads,
@@ -17,23 +20,36 @@ from .deformable_attention import (
 from .mlp import (
     fused_mlp,
     fused_mlp_ln,
+    fused_mlp_ln_int8,
+    fused_mlp_ln_int8_reference,
     fused_mlp_ln_reference,
     fused_mlp_reference,
+    hidden_chunk,
+    quantize_rows_reference,
+    quantize_weight_int8,
 )
 
 __all__ = [
     "fused_attention_block_ln",
+    "fused_attention_block_ln_int8",
+    "fused_attention_block_ln_int8_packed",
+    "fused_attention_block_ln_int8_reference",
     "fused_attention_block_ln_packed",
     "fused_attention_block_ln_reference",
     "fused_attention_heads",
     "fused_attention_heads_reference",
     "fused_mlp",
     "fused_mlp_ln",
+    "fused_mlp_ln_int8",
+    "fused_mlp_ln_int8_reference",
     "fused_mlp_ln_reference",
     "fused_mlp_reference",
+    "hidden_chunk",
     "launches",
     "layer_norm",
     "ms_deformable_attention",
     "ms_deformable_attention_reference",
+    "quantize_rows_reference",
+    "quantize_weight_int8",
     "reset_launches",
 ]

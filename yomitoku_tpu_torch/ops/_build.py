@@ -8,6 +8,9 @@ at the repository root, named by a hash of the sources and flags: a
 changed source rebuilds, an unchanged one reuses the library.  A failed
 build raises with nvcc's output; nothing falls back to the plain version.
 
+The host C++ of the port (``csrc/*.cpp``: the DBNet contours) builds the
+same way with the host's g++, one library per source (``host_library``).
+
 Nothing here runs at import time: the first kernel launch builds.
 """
 
@@ -51,7 +54,7 @@ class _Library:
         ]
         lib.yt_gemm.restype = i32
         lib.yt_attention.argtypes = [
-            i32, vp, i64, i64, vp, i64, i64, vp, i64, i64, vp, i64, i64,
+            i32, i32, vp, i64, i64, vp, i64, i64, vp, i64, i64, vp, i64, i64,
             i32, i32, i32, i32, i32, ctypes.c_float, vp,
         ]
         lib.yt_attention.restype = i32
@@ -60,6 +63,15 @@ class _Library:
             i32, vp, vp, vp, vp, i32, i64, i32, i32, i32, i32, ip, ip, vp,
         ]
         lib.yt_ms_deformable_attention.restype = i32
+        lib.yt_quantize_rows.argtypes = [
+            i32, vp, i64, vp, vp, ctypes.c_float, vp, vp, i32, i32, i32, vp,
+        ]
+        lib.yt_quantize_rows.restype = i32
+        lib.yt_gemm_int8.argtypes = [
+            vp, i64, vp, i64, vp, vp, vp, vp, i64, vp, i64,
+            i32, i32, i32, i32, i32, i32, vp,
+        ]
+        lib.yt_gemm_int8.restype = i32
         lib.yt_error_string.argtypes = [i32]
         lib.yt_error_string.restype = ctypes.c_char_p
         self.lib = lib
@@ -146,3 +158,35 @@ def library() -> _Library:
     if _LOADED is None:
         _LOADED = build()
     return _LOADED
+
+
+HOST_FLAGS = ("-O2", "-shared", "-fPIC")
+_HOST = {}
+
+
+def host_library(stem: str) -> ctypes.CDLL:
+    """The host C++ library ``csrc/<stem>.cpp`` (no CUDA), compiled at
+    first use with the host's g++ into ``BUILD_DIR`` (named by a hash of
+    the source and flags) and loaded; raises KernelBuildError when it
+    cannot be built."""
+    if stem in _HOST:
+        return _HOST[stem]
+    src = CSRC / f"{stem}.cpp"
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode() + src.read_bytes())
+    out = BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cxx = shutil.which("g++") or shutil.which("c++")
+        if cxx is None:
+            raise KernelBuildError(f"no host C++ compiler to build {src.name}")
+        proc = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise KernelBuildError(
+                f"{cxx} failed (exit {proc.returncode}) on {src.name}:\n"
+                f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    _HOST[stem] = ctypes.CDLL(str(out))
+    return _HOST[stem]

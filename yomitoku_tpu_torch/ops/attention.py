@@ -14,8 +14,19 @@
   D x D weights resident; an SM holds neither, so the sublayer is split
   at the two places where a (B*L, D)-sized activation must be complete.
 
+* ``fused_attention_block_ln_int8``: the same sublayer with W8A8
+  projections (the Pallas kernel's semantics, see ops/mlp.py): five
+  launches.  The row-quantize kernel with the LayerNorm prologue gives
+  the int8 codes of LN(x) in f32 and a scale per row; the int8 GEMM
+  (csrc/gemm_int8.cu) writes the packed QKV, dequantized and rounded to
+  x's dtype; the attention kernel reads Q, K and V there and writes its
+  output in f32; the row-quantize kernel quantizes that f32 output per
+  row; the int8 GEMM adds the out-projection, its bias and the residual.
+  ``fused_attention_block_ln_int8_packed`` takes the QKV codes packed.
+
 Each function keeps the JAX function's name and argument order, with
-weights in the JAX (in, out) layout.  On CPU tensors it runs its plain
+weights in the JAX (in, out) layout; int8 weights as the transpose of a
+row-major (out, in) tensor (``quantize_weight_int8``).  On CPU tensors it runs its plain
 ``*_reference`` version; on CUDA tensors it launches the kernels or
 raises.  Numerics follow the Pallas kernels: f32 LayerNorm statistics,
 f32 logits and accumulation, projections rounded to the input dtype.
@@ -26,16 +37,20 @@ import torch
 from ._common import (
     attention,
     gemm,
+    gemm_int8,
     launches,
     layer_norm,
     on_cpu,
+    quantize_rows,
     require_cuda,
     vector,
 )
+from .mlp import dequantize, int_matmul, quantize_rows_reference
 
 
-def fused_attention_heads_reference(q, k, v, num_heads, scale=None):
-    """Plain PyTorch version of ``fused_attention_heads``."""
+def _attention_f32(q, k, v, num_heads, scale=None):
+    """Head-packed attention in f32 (f32 logits, weights rounded to v's
+    dtype, f32 accumulation), unrounded output."""
     B, Lq, D = q.shape
     Lk = k.shape[1]
     H = num_heads
@@ -48,7 +63,12 @@ def fused_attention_heads_reference(q, k, v, num_heads, scale=None):
     logits = torch.matmul(qh, kh.transpose(-1, -2)) * scale
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.matmul(w.float(), vh.float())
-    return out.transpose(1, 2).reshape(B, Lq, D).to(q.dtype)
+    return out.transpose(1, 2).reshape(B, Lq, D)
+
+
+def fused_attention_heads_reference(q, k, v, num_heads, scale=None):
+    """Plain PyTorch version of ``fused_attention_heads``."""
+    return _attention_f32(q, k, v, num_heads, scale).to(q.dtype)
 
 
 def fused_attention_heads(q, k, v, num_heads, scale=None):
@@ -140,5 +160,94 @@ def fused_attention_block_ln_packed(
     )
     out = torch.empty_like(x2)
     gemm(attn.view(B * L, D), wo, vector(bo, D, x, name), out, res=x2)
+    launches[name] += 1
+    return out.view(B, L, D)
+
+
+def fused_attention_block_ln_int8_reference(
+    x, ln_scale, ln_bias, wq, sq, bq, wk, sk, bk, wv, sv, bv, wo, so, bo,
+    num_heads, scale=None, eps=1e-6,
+):
+    """Plain PyTorch version of ``fused_attention_block_ln_int8``."""
+    B, L, D = x.shape
+    dt = x.dtype
+    h = layer_norm(x, ln_scale, ln_bias, eps, torch.float32).reshape(B * L, D)
+    hq, sh = quantize_rows_reference(h)
+
+    def proj(w, s, b):
+        return dequantize(int_matmul(hq, w), sh, s, b).to(dt).reshape(B, L, D)
+
+    attn = _attention_f32(proj(wq, sq, bq), proj(wk, sk, bk), proj(wv, sv, bv),
+                          num_heads, scale)
+    aq, sa = quantize_rows_reference(attn.reshape(B * L, D))
+    out = dequantize(int_matmul(aq, wo), sa, so, bo).reshape(B, L, D)
+    return (x.float() + out).to(dt)
+
+
+def fused_attention_block_ln_int8(
+    x, ln_scale, ln_bias, wq, sq, bq, wk, sk, bk, wv, sv, bv, wo, so, bo,
+    num_heads, scale=None, eps=1e-6,
+):
+    """Pre-LN self-attention sublayer with int8 projections: x +
+    attn_block_int8(LayerNorm(x)).  w* int8 (D, D) with per-output-channel
+    scales s* (D,) from ``quantize_weight_int8``; x (B, L, D) contiguous.
+    The three input projections are packed into one (D, 3D) code matrix
+    per call; ``fused_attention_block_ln_int8_packed`` takes them packed."""
+    args = (x, ln_scale, ln_bias, wq, sq, bq, wk, sk, bk, wv, sv, bv, wo, so, bo)
+    if on_cpu(*args):
+        return fused_attention_block_ln_int8_reference(
+            *args, num_heads, scale=scale, eps=eps)
+    # packed along the output axis of the (N, K) rows: the transpose of a
+    # row-major (3D, D), the layout the int8 GEMM reads
+    w_qkv = torch.cat([wq.t(), wk.t(), wv.t()]).t()
+    return fused_attention_block_ln_int8_packed(
+        x, ln_scale, ln_bias, w_qkv, torch.cat([sq, sk, sv]),
+        torch.cat([bq, bk, bv]), wo, so, bo, num_heads, scale=scale, eps=eps)
+
+
+def fused_attention_block_ln_int8_packed(
+    x, ln_scale, ln_bias, w_qkv, s_qkv, b_qkv, wo, so, bo, num_heads,
+    scale=None, eps=1e-6,
+):
+    """``fused_attention_block_ln_int8`` with the input projections packed:
+    w_qkv (D, 3D) int8 = [wq | wk | wv], s_qkv and b_qkv (3D,)."""
+    B, L, D = x.shape
+    if scale is None:
+        scale = (D // num_heads) ** -0.5
+    args = (x, ln_scale, ln_bias, w_qkv, s_qkv, b_qkv, wo, so, bo)
+    if on_cpu(*args):
+        return fused_attention_block_ln_int8_reference(
+            x, ln_scale, ln_bias,
+            w_qkv[:, :D], s_qkv[:D], b_qkv[:D],
+            w_qkv[:, D:2 * D], s_qkv[D:2 * D], b_qkv[D:2 * D],
+            w_qkv[:, 2 * D:], s_qkv[2 * D:], b_qkv[2 * D:],
+            wo, so, bo, num_heads, scale=scale, eps=eps,
+        )
+    name = "fused_attention_block_ln_int8"
+    require_cuda(name, x)
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous")
+    if w_qkv.shape != (D, 3 * D) or wo.shape != (D, D):
+        raise ValueError(f"{name}: w_qkv {tuple(w_qkv.shape)}, wo {tuple(wo.shape)}")
+    dev, f32 = x.device, torch.float32
+    # the GEMM reads W as rows of (out, in): a copy only for other layouts
+    w_qkv, wo = w_qkv.t().contiguous().t(), wo.t().contiguous().t()
+    x2 = x.view(B * L, D)
+    xq = torch.empty((B * L, D), dtype=torch.int8, device=dev)
+    sx = torch.empty((B * L, 1), dtype=f32, device=dev)
+    quantize_rows(x2, xq, sx, ln=(vector(ln_scale, D, x, name, f32),
+                                  vector(ln_bias, D, x, name, f32), eps))
+    qkv = torch.empty((B * L, 3 * D), dtype=x.dtype, device=dev)
+    gemm_int8(xq, sx, w_qkv, vector(s_qkv, 3 * D, x, name, f32),
+              vector(b_qkv, 3 * D, x, name, f32), qkv)
+    q3 = qkv.view(B, L, 3 * D)
+    attn = torch.empty((B, L, D), dtype=f32, device=dev)
+    attention(q3[..., :D], q3[..., D:2 * D], q3[..., 2 * D:], attn, num_heads, scale)
+    aq = torch.empty((B * L, D), dtype=torch.int8, device=dev)
+    sa = torch.empty((B * L, 1), dtype=f32, device=dev)
+    quantize_rows(attn.view(B * L, D), aq, sa)
+    out = torch.empty_like(x2)
+    gemm_int8(aq, sa, wo, vector(so, D, x, name, f32), vector(bo, D, x, name, f32),
+              out, res=x2)
     launches[name] += 1
     return out.view(B, L, D)

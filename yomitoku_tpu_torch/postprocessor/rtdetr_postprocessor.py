@@ -11,7 +11,7 @@ The host then thresholds and clamps (``filter_packed``).
 import numpy as np
 import torch
 
-from yomitoku_tpu.utils.stagetrace import segment
+from ..utils.stagetrace import segment
 
 
 def topk_packed(logits, boxes, orig_sizes, num_top_queries):

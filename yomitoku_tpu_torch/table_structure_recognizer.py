@@ -13,14 +13,13 @@ raises NotImplementedError.
 import cv2
 import numpy as np
 
-from yomitoku_tpu.configs import TableStructureRecognizerRTDETRv2Config
-from yomitoku_tpu.schemas import TableStructureRecognizerSchema
-from yomitoku_tpu.utils.misc import calc_intersection, filter_by_flag, is_contained
-
 from .base import BaseModelCatalog, BaseModule
+from .configs import TableStructureRecognizerRTDETRv2Config
 from .layout_parser import filter_contained_rectangles_within_category
 from .models.rtdetr import RTDETRv2
 from .postprocessor.rtdetr_postprocessor import RTDETRPostProcessor
+from .schemas import TableStructureRecognizerSchema
+from .utils.misc import calc_intersection, filter_by_flag, is_contained
 
 
 class TableStructureRecognizerModelCatalog(BaseModelCatalog):
@@ -170,7 +169,7 @@ class TableStructureRecognizer(BaseModule):
         if vis is None and self.visualize:
             vis = img.copy()
         if self.visualize:
-            from yomitoku_tpu.utils.visualizer import table_visualizer
+            from .utils.visualizer import table_visualizer
 
             for table in outputs:
                 vis = table_visualizer(vis, table)

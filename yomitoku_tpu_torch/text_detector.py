@@ -2,21 +2,21 @@
 yomitoku_tpu/text_detector.py): resize the uint8 page on the host
 (shortest edge 1280, limit 1600, /32-snapped), standardise and run DBNet
 on the device, bring back the uint8 probability map, and extract quads
-with the JAX package's postprocessor (native C++ contours and unclip)."""
+with the port's copy of the JAX package's postprocessor (native C++
+contours and unclip, csrc/dbnet_post.cpp)."""
 
-from yomitoku_tpu.configs import (
+from .base import BaseModelCatalog, BaseModule
+from .configs import (
     TextDetectorDBNetConfig,
     TextDetectorDBNetV2_1Config,
     TextDetectorDBNetV2_1LiteConfig,
     TextDetectorDBNetV2Config,
 )
-from yomitoku_tpu.data.functions import resize_shortest_edge
-from yomitoku_tpu.postprocessor.dbnet_postprocessor import DBnetPostProcessor
-from yomitoku_tpu.schemas import TextDetectorSchema
-from yomitoku_tpu.utils.stagetrace import segment
-
-from .base import BaseModelCatalog, BaseModule
+from .data.functions import resize_shortest_edge
 from .models.dbnet import DBNet
+from .postprocessor.dbnet_postprocessor import DBnetPostProcessor
+from .schemas import TextDetectorSchema
+from .utils.stagetrace import segment
 
 
 class TextDetectorModelCatalog(BaseModelCatalog):

@@ -5,28 +5,30 @@ The host-crop route: ``ParseqDataset`` cuts, rotates and pads each line
 quad on the host; batches are padded to the buckets (1, 8, 32, 128) and
 decoded on the device; only the greedy (ids, probs) come back; strings
 are NFKC-normalised.  This is the route the JAX package takes wherever its
-device crops are off.  Not ported yet: device crops, width buckets, the
-180-degree orientation fallback and visualisation.
+device crops are off.  On a real-checkpoint load with the int8 memory-K/V
+cache at its default, the model audits that cache once, as in the JAX
+package.  Not ported yet: device crops, width buckets, the 180-degree
+orientation fallback and visualisation.
 """
 
+import os
 import unicodedata
 
 import numpy as np
 
-from yomitoku_tpu.configs import (
+from .base import BaseModelCatalog, BaseModule
+from .configs import (
     TextRecognizerPARSeqConfig,
     TextRecognizerPARSeqLargeV41Config,
     TextRecognizerPARSeqSmallConfig,
     TextRecognizerPARSeqTinyConfig,
     TextRecognizerPARSeqV2Config,
 )
-from yomitoku_tpu.data.dataset import ParseqDataset
-from yomitoku_tpu.postprocessor.parseq_tokenizer import ParseqTokenizer
-from yomitoku_tpu.schemas import TextRecognizerSchema
-from yomitoku_tpu.utils.misc import load_charset
-
-from .base import BaseModelCatalog, BaseModule
+from .data.dataset import ParseqDataset
 from .models.parseq import PARSeq
+from .postprocessor.parseq_tokenizer import ParseqTokenizer
+from .schemas import TextRecognizerSchema
+from .utils.misc import load_charset
 
 #: Batch-size buckets (padded), as in the JAX package
 BATCH_BUCKETS = (1, 8, 32, 128)
@@ -63,6 +65,15 @@ class TextRecognizer(BaseModule):
         super().__init__()
         self.load_model(model_name, path_cfg, device=device,
                         from_pretrained=from_pretrained, dtype=dtype)
+        # audit the int8 memory-K/V default on real weights, unless the
+        # user chose (YOMITOKU_TPU_INT8_KV) or asked to skip it
+        if (
+            self.model.int8_kv
+            and self.model.pretrained_source is not None
+            and not os.environ.get("YOMITOKU_TPU_INT8_KV")
+            and not os.environ.get("YOMITOKU_TPU_SKIP_INT8_AUDIT")
+        ):
+            self.model.audit_int8_kv()
         self.charset = load_charset(self._cfg.charset)
         self.tokenizer = ParseqTokenizer(self.charset)
 

@@ -2,8 +2,9 @@
 yomitoku_tpu/models/weights_convert.py).
 
 * ``load_pretrained``: a reference-layout torch ``state_dict`` from the
-  JAX package's weight store (``$YOMITOKU_TPU_WEIGHTS``,
-  ``<repo>/pytorch_model.bin`` or ``model.safetensors``) loads as it is;
+  weight store the JAX package also reads (``$YOMITOKU_TPU_WEIGHTS``,
+  ``<repo>/pytorch_model.bin`` or ``model.safetensors``; the lookup is the
+  port's own copy of yomitoku_tpu/weights.py's) loads as it is;
   without one the model keeps its seeded random init, with the JAX
   package's loud warning.
 * ``state_dict_from_jax``: the JAX package's parameters (numpy arrays) as
@@ -13,18 +14,48 @@ yomitoku_tpu/models/weights_convert.py).
   statistics map unchanged.
 """
 
+import os
+from pathlib import Path
+
 import numpy as np
 import torch
 
-from yomitoku_tpu.utils.logger import set_logger
-from yomitoku_tpu.weights import (
-    _find_torch_checkpoint,
-    _repo_name,
-    load_torch_state_dict,
-    weights_dir,
-)
+from .utils.logger import set_logger
 
 logger = set_logger(__name__, "INFO")
+
+
+def weights_dir() -> Path:
+    d = os.environ.get("YOMITOKU_TPU_WEIGHTS")
+    if d:
+        return Path(d)
+    return Path.home() / ".cache" / "yomitoku_tpu" / "weights"
+
+
+def _repo_name(cfg) -> str:
+    return str(cfg.hf_hub_repo).split("/")[-1]
+
+
+def _find_torch_checkpoint(cfg):
+    base = weights_dir() / _repo_name(cfg)
+    for name in ("model.safetensors", "pytorch_model.bin"):
+        for cand in (base / name, weights_dir() / f"{_repo_name(cfg)}_{name}"):
+            if cand.exists():
+                return cand
+    return None
+
+
+def load_torch_state_dict(path: Path) -> dict:
+    """A torch checkpoint as a dict of numpy arrays (safetensors or a
+    pickled state_dict)."""
+    if path.suffix == ".safetensors":
+        from safetensors.numpy import load_file
+
+        return load_file(str(path))
+    sd = torch.load(str(path), map_location="cpu", weights_only=True)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    return {k: v.numpy() for k, v in sd.items()}
 
 
 def load_pretrained(model, cfg):
