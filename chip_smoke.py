@@ -52,6 +52,26 @@ Phases, each printed as it runs; any failure exits non-zero:
    the same weights on the CPU (plain int8 path) on 8 lines, in two hops:
    the encoder's memory, then the decoder with the int8 K/V cache on the
    CPU's memory (greedy ids equal; a line may part at a near-tie).
+7. The fused backbone (YOMITOKU_TPU_FUSED_BOTTLENECK=1,
+   YOMITOKU_TPU_FUSED_STAGE=1): ``fused_bottleneck`` at each distinct
+   stride-1 block shape of DBNet at 1600x1184 and PResNet-50-d at 640x640,
+   ``fused_identity_stage`` at each DBNet stage tail, ``fused_attention``
+   at the ViT's (128, 8, 400, 96) and ``fused_attention_block`` at the
+   AIFI's (1, 400, 256) with 8 heads, against their plain versions (f32
+   within 1e-4 of the largest value plus 1e-5 with TF32 off; bf16 within
+   2e-2 of it, the bottleneck kernels against the plain version on the
+   same bf16 values, which rounds h1 and h2 where they do), the unfused
+   cuDNN blocks in f32 against the same plain version, then the times of
+   the kernel, the plain version and the stock op (the unfused modules in
+   channels_last bf16; SDPA; torch ops), per call and on the device.  Then
+   the path: ``OCR(device="cuda")`` on demo/sample_text.png and
+   ``LayoutAnalyzer(device="cuda")`` on demo/sample_table.png with its
+   recognizer on the 4 fixed boxes, with both switches on: launch counts,
+   ms/page and device time of the detector and layout models against the
+   default backbone in the same run, DBNet's bf16 map fused against
+   unfused (max|d| <= 3e-2, mean <= 2e-3: the JAX package's in-model
+   bound), and DBNet (at 1600x1184) and RT-DETRv2 in f32 on the card
+   against the same weights on the CPU with the gates forced open there.
 
 Phase 3 pins YOMITOKU_TPU_INT8_KV=0 (the full cache, which its f32
 card-vs-CPU check compares with the CPU's), phase 6 leaves it at its
@@ -102,6 +122,15 @@ KERNELS = [
      "yomitoku_tpu/ops/pallas/flash_attention.py:436"),
     ("fused_mlp_ln_int8", "cuda", "yomitoku_tpu_torch/csrc/gemm_int8.cu", [],
      "yomitoku_tpu/ops/pallas/fused_mlp.py:264"),
+    ("fused_attention", "cuda", "yomitoku_tpu_torch/csrc/attention.cu", [],
+     "yomitoku_tpu/ops/pallas/flash_attention.py:51"),
+    ("fused_attention_block", "cuda", "yomitoku_tpu_torch/csrc/attention.cu",
+     ["yomitoku_tpu_torch/csrc/gemm.cu"],
+     "yomitoku_tpu/ops/pallas/flash_attention.py:220"),
+    ("fused_bottleneck", "cuda", "yomitoku_tpu_torch/csrc/bottleneck.cu", [],
+     "yomitoku_tpu/ops/pallas/bottleneck.py:172"),
+    ("fused_identity_stage", "cuda", "yomitoku_tpu_torch/csrc/bottleneck.cu", [],
+     "yomitoku_tpu/ops/pallas/stage.py:148"),
 ]
 
 # Recognizer shapes (parseq-large-v4_1, batch 128, 32x800 canvas)
@@ -124,6 +153,37 @@ DEFORM_QUERIES = {"lq300": (1, 300), "b4_lq300": (4, 300), "lq2500": (1, 2500)}
 #: v), the page and the table recognizer's batch
 RTDETR_ATTENTION = {"aifi": (1, 400), "decoder": (1, 300),
                     "aifi_b4": (4, 400), "decoder_b4": (4, 300)}
+#: the fused-backbone path's kernels
+FUSED_KERNELS = ("fused_bottleneck", "fused_identity_stage")
+#: fused_bottleneck at each distinct stride-1 block of DBNet (1600x1184 ->
+#: layer1 400x296, layer4 100x74) and PResNet-50-d (640x640): label -> (H,
+#: W, Cin, Cm, Cout, dilation, projection).  DBNet's identity blocks run
+#: in the stage kernel.
+BOTTLENECK_SHAPES = {
+    "dbnet_layer1_0": (400, 296, 64, 64, 256, 1, True),
+    "dbnet_layer4_0": (100, 74, 1024, 512, 2048, 1, True),
+    "presnet_stage0_0": (160, 160, 64, 64, 256, 1, True),
+    "presnet_stage0": (160, 160, 256, 64, 256, 1, False),
+    "presnet_stage1": (80, 80, 512, 128, 512, 1, False),
+    "presnet_stage2": (40, 40, 1024, 256, 1024, 1, False),
+    "presnet_stage3": (20, 20, 2048, 512, 2048, 1, False),
+}
+#: fused_identity_stage at DBNet's stage tails: label -> (H, W, C, Cm, N,
+#: dilation)
+STAGE_SHAPES = {
+    "dbnet_layer1": (400, 296, 256, 64, 2, 1),
+    "dbnet_layer2": (200, 148, 512, 128, 3, 1),
+    "dbnet_layer3": (100, 74, 1024, 256, 5, 1),
+    "dbnet_layer4": (100, 74, 2048, 512, 2, 2),
+}
+#: fused_attention at the ViT's (B, H, L, Dh); fused_attention_block at the
+#: AIFI's (B, L, D), 8 heads
+ATTENTION_SHAPE, ATTENTION_BLOCK_SHAPE = (128, 8, 400, 96), (1, 400, 256)
+#: the shape of each kernel's headline numbers in the kernels line
+MAIN_SHAPE = {"ms_deformable_attention": "lq300",
+              "fused_attention": "vit", "fused_attention_block": "aifi",
+              "fused_bottleneck": "dbnet_layer1_0",
+              "fused_identity_stage": "dbnet_layer3"}
 #: CUDA kernel names (as the profiler shows them) of each wrapper
 DEVICE_NAMES = {"ms_deformable_attention": "deform_kernel",
                 "fused_attention_heads": "attention"}
@@ -360,6 +420,17 @@ def kernel_ops(name, args, tail):
         value, loc = args[0], args[1]
         B, Lq, nh, P = loc.shape[:4]
         return {"f32": B * Lq * nh * P * 4 * value.shape[-1] * 2}
+    if name == "fused_attention":
+        B, H, Lq, Dh = args[0].shape
+        return {"bf16": 4 * B * H * Lq * args[1].shape[2] * Dh}
+    if name == "fused_attention_block":
+        B, L, D = args[0].shape
+        return {"bf16": 8 * B * L * D * D + 4 * B * L * L * D}
+    if name in FUSED_KERNELS:
+        # one multiply-add per pixel and weight element (w1, w2, w3, wd)
+        x = args[0]
+        ws = [a for i, a in enumerate(args) if i in (1, 3, 5, 7) and a is not None]
+        return {"bf16": 2 * (x.numel() // x.shape[-1]) * sum(w.numel() for w in ws)}
     raise KeyError(name)
 
 
@@ -754,12 +825,14 @@ def _in_page(schema, w, h, what):
               f"{what}: box {el.box} / score {el.score} off the page")
 
 
-def _rtdetr_f32_vs_cpu(cfg, images):
+def _rtdetr_f32_vs_cpu(cfg, images, fused=False):
     """One RT-DETRv2 in f32 on the card and on the CPU, seed-0 weights on
     both: the same top-k selected queries outside near-ties (scores within
     1e-3 of the k-th's magnitude), then, over the queries both sides
     selected (at least 90% of k), logits within 1e-3 of the largest and
-    boxes within 1e-3, matched by query index."""
+    boxes within 1e-3, matched by query index.  ``fused``: the card runs
+    the fused backbone (its switch set by the caller) and the CPU the
+    plain versions of its kernels, the gates forced open."""
     import numpy as np
     import torch
 
@@ -769,17 +842,23 @@ def _rtdetr_f32_vs_cpu(cfg, images):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     outs, scores = [], []
+    kernels = LAYOUT_KERNELS + (("fused_bottleneck",) if fused else ())
     for device in ("cuda", "cpu"):
         model = RTDETRv2(cfg, device=device, dtype=torch.float32)
         seen = {}
         hook = model.decoder.enc_score_head.register_forward_hook(
             lambda m, i, o: seen.__setitem__("s", o.float().amax(-1)[0].cpu().numpy()))
         n0 = dict(ops.launches)
-        out = model(images)
+        undo = _force_fused_on_cpu() if fused and device == "cpu" else None
+        try:
+            out = model(images)
+        finally:
+            if undo:
+                undo()
         hook.remove()
         if device == "cuda":
             torch.cuda.synchronize()
-            check(all(ops.launches[k] > n0[k] for k in LAYOUT_KERNELS),
+            check(all(ops.launches[k] > n0[k] for k in kernels),
                   f"f32 RT-DETR run missed a kernel: {n0} -> {ops.launches}")
         outs.append({k: v[0].cpu().numpy() for k, v in out.items()})
         scores.append(seen["s"])
@@ -804,7 +883,8 @@ def _rtdetr_f32_vs_cpu(cfg, images):
     d_logit = float(np.abs(got["pred_logits"][rg] - want["pred_logits"][rc]).max())
     d_box = float(np.abs(got["pred_boxes"][rg] - want["pred_boxes"][rc]).max())
     limit = 1e-3 * float(np.abs(want["pred_logits"]).max())
-    log(f"layout: f32 card vs CPU at {images.shape[1]}x{images.shape[2]}: "
+    log(f"{'fused' if fused else 'layout'}: f32 RT-DETRv2 card vs CPU at "
+        f"{images.shape[1]}x{images.shape[2]}: "
         f"selection score max|d| {d_score:.3e}; k-th/(k+1)-th gap "
         f"{kth - s_c[order_c[k]]:.3e}; {len(differ)} selected queries differ"
         f"{' (all near-ties)' if differ else ''}; over the {len(common)} "
@@ -1174,6 +1254,357 @@ def _phase_int8_recognizer(card, ctx):
                           ms_per_batch=model_s * 1e3)
 
 
+# ------------------------------------------------------------------ phase 7
+
+
+def _force_fused_on_cpu():
+    """The port's fused-backbone gates opened for CPU tensors (the plain
+    versions of the kernels; stride 1 still required), as
+    tests/test_torch_fused_backbone.py opens them -> undo callable."""
+    from yomitoku_tpu_torch.models.layers import resnet
+
+    saved = {n: getattr(resnet, n) for n in
+             ("use_fused_bottleneck", "use_fused_stage", "fused_backbone")}
+    resnet.use_fused_bottleneck = lambda x, stride, *a: stride == 1
+    resnet.use_fused_stage = lambda x, n, *a: n >= 2
+    resnet.fused_backbone = lambda x: True
+    return lambda: [setattr(resnet, n, f) for n, f in saved.items()]
+
+
+def _seeded_blocks(specs, seed):
+    """The port's unfused ``Bottleneck`` modules, f32 on the card, seeded:
+    lecun-normal convolutions, FrozenBN statistics drawn around their
+    identity.  specs: [(Cin, Cm, dilation, projection)]."""
+    import torch
+
+    from yomitoku_tpu_torch.models.base import init_standard_layers
+    from yomitoku_tpu_torch.models.layers.resnet import Bottleneck, FrozenBatchNorm
+
+    gen = torch.Generator().manual_seed(seed)
+    blocks = torch.nn.Sequential(*[Bottleneck(cin, cm, 1, d, proj)
+                                   for cin, cm, d, proj in specs])
+    init_standard_layers(blocks, gen)
+    with torch.no_grad():
+        for m in blocks.modules():
+            if isinstance(m, FrozenBatchNorm):
+                n = m.weight.numel()
+                m.weight.copy_(1 + 0.1 * torch.randn(n, generator=gen))
+                m.bias.copy_(0.1 * torch.randn(n, generator=gen))
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=gen))
+    return blocks.cuda()
+
+
+def _fused_cases():
+    """(kernel, label) -> (blocks, x shape (B, H, W, C), dilation): the
+    block modules whose folded weights the kernel reads."""
+    cases = {}
+    for i, (label, (H, W, cin, cm, cout, d, proj)) in enumerate(BOTTLENECK_SHAPES.items()):
+        cases[("fused_bottleneck", label)] = (
+            _seeded_blocks([(cin, cm, d, proj)], 100 + i), (1, H, W, cin), d)
+    for i, (label, (H, W, c, cm, n, d)) in enumerate(STAGE_SHAPES.items()):
+        cases[("fused_identity_stage", label)] = (
+            _seeded_blocks([(c, cm, d, False)] * n, 200 + i), (1, H, W, c), d)
+    return cases
+
+
+def _fused_args(name, blocks, x, dtype):
+    """The kernel's arguments: x (NHWC) and the blocks' folded weights."""
+    from yomitoku_tpu_torch.models.layers.resnet import stage_weights
+
+    if name == "fused_bottleneck":
+        return [x.to(dtype)] + list(blocks[0].folded(dtype))
+    return [x.to(dtype)] + list(stage_weights(list(blocks), dtype))
+
+
+def _timings(kern, plain, stock, library=None):
+    """Per-call times (CUDA events, median of 10) and device times
+    (profiler, every kernel of the call) of the kernel, its plain version
+    and the stock op, and of one library call where there is one."""
+    return dict(ms=median_ms(kern), plain_ms=median_ms(plain, runs=3),
+                stock_ms=median_ms(stock), device_ms=device_ms(kern),
+                stock_device_ms=device_ms(stock),
+                library_ms=None if library is None else median_ms(library))
+
+
+def _log_timings(name, label, res):
+    log(f"kernel {name} [{label}]: bf16 {res['ms']:.4f} ms per call (device "
+        f"{_ms(res['device_ms'])}), plain {res['plain_ms']:.4f} ms, stock "
+        f"{res['stock_ms']:.4f} ms (device {_ms(res['stock_device_ms'])}), "
+        f"library {'none' if res['library_ms'] is None else _ms(res['library_ms'])}; "
+        f"bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']})")
+
+
+def phase_fused_kernels():
+    """Kernels 6, 7, 10 and 11 at the main paths' shapes -> {kernel: {label:
+    numbers}}.  The stock op of the bottleneck kernels is the unfused
+    modules (cuDNN) in channels_last bf16; its f32 run is also held to the
+    plain version, an independent check of the BN folding."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from yomitoku_tpu_torch import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    rng = np.random.default_rng(7)
+    for (name, label), (blocks, shape, d) in _fused_cases().items():
+        kern = getattr(ops, name)
+        ref = (ops.bottleneck_reference if name == "fused_bottleneck"
+               else ops.fused_identity_stage_reference)
+        x = torch.from_numpy(rng.standard_normal(shape).astype("float32")).cuda()
+        with torch.no_grad():
+            a32 = _fused_args(name, blocks, x, torch.float32)
+            want32 = ref(*a32, dilation=d)
+            err32, ok32, text32 = _held(kern(*a32, dilation=d), want32, None,
+                                        1e-4, 1e-5, 0.0)
+            # the unfused modules take NCHW: x.permute is channels_last
+            stock32 = blocks(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            err_s, oks, texts = _held(stock32, want32, None, 1e-4, 1e-5, 0.0)
+            del a32, want32, stock32
+            a16 = _fused_args(name, blocks, x, torch.bfloat16)
+            out16 = kern(*a16, dilation=d)
+            err16, ok16, text16 = _held(out16, ref(*a16, dilation=d).float(),
+                                        None, 2e-2, 0.0, 0.0)
+        torch.cuda.synchronize()
+        log(f"kernel {name} [{label}] x {tuple(shape)} d={d}: f32 {text32} "
+            f"{'ok' if ok32 else 'FAIL'}; bf16 {text16} {'ok' if ok16 else 'FAIL'}; "
+            f"unfused cuDNN f32 vs plain {texts} {'ok' if oks else 'FAIL'}")
+        check(ok32 and ok16 and oks, f"{name} [{label}] disagrees with its plain version")
+        blocks16 = copy.deepcopy(blocks).to(torch.bfloat16)
+        xs16 = a16[0].permute(0, 3, 1, 2)
+        with torch.no_grad():
+            res = _timings(lambda: kern(*a16, dilation=d),
+                           lambda: ref(*a16, dilation=d), lambda: blocks16(xs16))
+        res.update(max_abs_err=err16, max_abs_err_f32=err32,
+                   stock_f32_max_abs_err=err_s)
+        res["bound_ms"], res["bound_by"] = bound(a16, [out16], kernel_ops(name, a16, ()))
+        _log_timings(name, label, res)
+        results.setdefault(name, {})[label] = res
+        del blocks, blocks16, a16, out16, x, xs16
+        torch.cuda.empty_cache()
+    results.update(_attention_kernels(rng))
+    ops.reset_launches()
+    return results
+
+
+def _attention_kernels(rng):
+    """``fused_attention`` at the ViT's shape and ``fused_attention_block``
+    at the AIFI's -> {kernel: {label: numbers}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from yomitoku_tpu_torch import ops
+
+    def dev(shape, std=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * std).astype("float32")).cuda()
+
+    B, L, D = ATTENTION_BLOCK_SHAPE
+    block = [dev((B, L, D))]
+    for _ in range(4):
+        block += [dev((D, D), D ** -0.5), dev((D,), 0.05)]
+
+    def stock_block(x, wq, bq, wk, bk, wv, bv, wo, bo):
+        split = lambda t: t.view(B, L, HEADS, D // HEADS).transpose(1, 2)  # noqa: E731
+        a = F.scaled_dot_product_attention(split(x @ wq + bq), split(x @ wk + bk),
+                                           split(x @ wv + bv))
+        return a.transpose(1, 2).reshape(B, L, D) @ wo + bo
+
+    def library_block(args):
+        """One F.multi_head_attention_forward call, its weights in torch's
+        (out, in) layout."""
+        x, wq, bq, wk, bk, wv, bv, wo, bo = args
+        w_in = torch.cat([wq.t(), wk.t(), wv.t()]).contiguous()
+        b_in, w_out, xt = torch.cat([bq, bk, bv]), wo.t().contiguous(), x.transpose(0, 1)
+        return lambda: F.multi_head_attention_forward(
+            xt, xt, xt, D, HEADS, w_in, b_in, None, None, False, 0.0, w_out, bo,
+            training=False, need_weights=False)
+
+    cases = {
+        ("fused_attention", "vit"): (
+            ops.fused_attention_reference, F.scaled_dot_product_attention,
+            [dev(ATTENTION_SHAPE) for _ in range(3)], ()),
+        ("fused_attention_block", "aifi"): (
+            ops.fused_attention_block_reference, stock_block, block, (HEADS,)),
+    }
+    results = {}
+    for (name, label), (ref, stock, f32, tail) in cases.items():
+        kern = getattr(ops, name)
+        bf = [a.to(torch.bfloat16) for a in f32]
+        with torch.no_grad():
+            err32, ok32, text32 = _held(kern(*f32, *tail), ref(*f32, *tail), None,
+                                        1e-4, 1e-5, 0.0)
+            out16 = kern(*bf, *tail)
+            err16, ok16, text16 = _held(out16, ref(*[a.float() for a in bf], *tail),
+                                        None, 2e-2, 0.0, 0.0)
+        torch.cuda.synchronize()
+        log(f"kernel {name} [{label}]: f32 {text32} {'ok' if ok32 else 'FAIL'}; "
+            f"bf16 {text16} {'ok' if ok16 else 'FAIL'}")
+        check(ok32 and ok16, f"{name} [{label}] disagrees with its plain version")
+        library = ((lambda: F.scaled_dot_product_attention(*bf))
+                   if name == "fused_attention" else library_block(bf))
+        with torch.no_grad():
+            res = _timings(lambda: kern(*bf, *tail), lambda: ref(*bf, *tail),
+                           lambda: stock(*bf), library)
+        res.update(max_abs_err=err16, max_abs_err_f32=err32)
+        res["bound_ms"], res["bound_by"] = bound(bf, [out16], kernel_ops(name, bf, tail))
+        _log_timings(name, label, res)
+        results[name] = {label: res}
+        del f32, bf, out16
+        torch.cuda.empty_cache()
+    return results
+
+
+def _both_backbones(fn, runs=3):
+    """Median host times (s) of ``fn`` ending in a sync, with the fused
+    backbone and with the default one, taken in turns (default, fused,
+    fused, default) after one warm-up call each -> (fused, default)."""
+    times = {True: [], False: []}
+    for fused in (False, True, True, False):
+        with _env(YOMITOKU_TPU_FUSED_BOTTLENECK="1" if fused else None,
+                  YOMITOKU_TPU_FUSED_STAGE="1" if fused else None):
+            fn()
+            times[fused].append(host_timed(fn, runs))
+    return statistics.median(times[True]), statistics.median(times[False])
+
+
+def phase_fused_backbone(card):
+    """The fused-backbone path -> (launches, numbers)."""
+    with _env(YOMITOKU_TPU_FUSED_BOTTLENECK="1", YOMITOKU_TPU_FUSED_STAGE="1",
+              YOMITOKU_TPU_INT8_KV="0", YOMITOKU_TPU_INT8_ENCODER=None):
+        return _phase_fused_backbone(card)
+
+
+def _phase_fused_backbone(card):
+    import cv2
+    import numpy as np
+    import torch
+
+    from yomitoku_tpu_torch import ops
+    from yomitoku_tpu_torch.layout_analyzer import LayoutAnalyzer
+    from yomitoku_tpu_torch.ocr import OCR
+    from yomitoku_tpu_torch.text_detector import TextDetector
+
+    ocr = OCR(device="cuda")  # dbnetv2_1 + parseq-large-v4_1, seed-0 weights
+    la = LayoutAnalyzer(device="cuda")  # rtdetrv2v2 + rtdetrv2, seed-0 weights
+    lp, tsr = la.layout_parser, la.table_structure_recognizer
+    sample = cv2.imread(str(ROOT / "demo" / "sample_text.png"))
+    page = cv2.imread(str(ROOT / "demo" / "sample_table.png"))
+    check(sample is not None and page is not None, "demo pages missing")
+
+    # the main path, counted: OCR on the text page, then layout analysis
+    # and the table recognizer on the fixed boxes of the table page
+    ops.reset_launches()
+    result = ocr(sample)
+    torch.cuda.synchronize()
+    on_ocr = dict(ops.launches)
+    layout, _ = la(page)
+    tables, _ = tsr(page, TABLE_BOXES)
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    on_layout = {k: launches[k] - on_ocr[k] for k in launches}
+    log(f"fused: launches on OCR {on_ocr}")
+    log(f"fused: launches on layout {on_layout}")
+    check(on_ocr["fused_bottleneck"] == 2 and on_ocr["fused_identity_stage"] == 4,
+          f"OCR with the fused backbone: expected 2 fused_bottleneck and 4 "
+          f"fused_identity_stage launches per page: {on_ocr}")
+    rtdetr_calls = on_layout["ms_deformable_attention"] // 6
+    check(on_layout["fused_bottleneck"] == 13 * rtdetr_calls > 0
+          and on_layout["fused_identity_stage"] == 0,
+          f"layout with the fused backbone: expected 13 fused_bottleneck "
+          f"launches per RT-DETR call ({rtdetr_calls} calls): {on_layout}")
+    check(len(result.words) > 0, "fused OCR schema holds no words")
+    _in_page(layout, page.shape[1], page.shape[0], "fused layout")
+    log(f"fused: OCR on sample_text.png: {len(result.words)} words; layout: "
+        f"{len(layout.paragraphs)} paragraphs, {len(tables)} tables on the "
+        "fixed boxes")
+
+    # times against the default backbone in the same run
+    det = ocr.detector.model
+    u8 = torch.from_numpy(ocr.detector.preprocess_u8(sample))
+    xl = lp.preprocess(page)
+    numbers = {}
+    for what, fn in (("detector", lambda: ocr.detector(sample)),
+                     ("ocr", lambda: ocr(sample)),
+                     ("layout_parser", lambda: lp(page)),
+                     ("tsr_4_tables", lambda: tsr(page, TABLE_BOXES))):
+        fused_s, default_s = _both_backbones(fn)
+        numbers[what] = dict(fused_ms=fused_s * 1e3, default_ms=default_s * 1e3)
+        log(f"fused: {what} {fused_s * 1e3:.1f} ms/page fused, "
+            f"{default_s * 1e3:.1f} ms default (median, in turns)")
+    for what, fn in (("dbnet_forward", lambda: det.forward_u8(u8)),
+                     ("rtdetr_forward", lambda: lp.model(xl))):
+        busy = {}
+        for fused in (True, False):
+            with _env(YOMITOKU_TPU_FUSED_BOTTLENECK="1" if fused else None,
+                      YOMITOKU_TPU_FUSED_STAGE="1" if fused else None):
+                wall, device, n = profiled(fn, runs=5)
+            busy["fused" if fused else "default"] = dict(
+                wall_ms=wall, device_busy_ms=sum(device.values()),
+                device_ops_per_call=n,
+                top_kernels=sorted(device.items(), key=lambda kv: -kv[1])[:5])
+        numbers[what] = busy
+        log(f"fused: {what} on the device (profiler): fused "
+            f"{busy['fused']['device_busy_ms']:.3f} ms busy of "
+            f"{busy['fused']['wall_ms']:.2f} ms, default "
+            f"{busy['default']['device_busy_ms']:.3f} ms of "
+            f"{busy['default']['wall_ms']:.2f} ms; fused top: "
+            + "; ".join(f"{k[:50]} {v:.3f}" for k, v in busy["fused"]["top_kernels"]))
+    log(f"fused: card {card}")
+
+    # bf16 probability map, fused against unfused (the JAX package's
+    # in-model bound, tests/test_stage_kernel.py)
+    x = det.standardize_u8(u8)
+    fused_map = det(x)
+    with _env(YOMITOKU_TPU_FUSED_BOTTLENECK=None, YOMITOKU_TPU_FUSED_STAGE=None):
+        base_map = det(x)
+    d = (fused_map - base_map).abs()
+    numbers["bf16_map_max_abs_diff"] = d.max().item()
+    numbers["bf16_map_mean_abs_diff"] = d.mean().item()
+    log(f"fused: bf16 DBNet map at {u8.shape[1]}x{u8.shape[2]}, fused vs unfused: "
+        f"max|d| {d.max().item():.3e} (limit 3e-2), mean {d.mean().item():.3e} "
+        "(limit 2e-3)")
+    check(d.max().item() <= 3e-2 and d.mean().item() <= 2e-3,
+          "bf16 DBNet map, fused vs unfused, out of bound")
+    cfg = lp._cfg
+    del ocr, la, lp, tsr, det, fused_map, base_map, x
+    torch.cuda.empty_cache()
+
+    # f32 on the card against the CPU, gates forced open there
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gpu32 = TextDetector(device="cuda", dtype=torch.float32, from_pretrained=False).model
+    cpu32 = TextDetector(device="cpu", from_pretrained=False).model
+    xs = cpu32.standardize_u8(u8)
+    n0 = dict(ops.launches)
+    got = gpu32(xs.cuda()).cpu()
+    check(ops.launches["fused_bottleneck"] - n0["fused_bottleneck"] == 2
+          and ops.launches["fused_identity_stage"] - n0["fused_identity_stage"] == 4,
+          f"f32 fused DBNet missed a kernel: {n0} -> {ops.launches}")
+    undo = _force_fused_on_cpu()
+    try:
+        t0 = time.perf_counter()
+        want = cpu32(xs)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        undo()
+    err = (got - want).abs().max().item()
+    numbers["f32_map_max_abs_diff"] = err
+    log(f"fused: f32 DBNet map card vs CPU at {xs.shape[1]}x{xs.shape[2]}: "
+        f"max|d| {err:.3e} (limit 1e-4); the CPU took {cpu_s:.1f} s")
+    check(err <= 1e-4 and bool(torch.isfinite(got).all()),
+          "f32 fused DBNet card vs CPU disagree")
+    del gpu32, cpu32
+    _rtdetr_f32_vs_cpu(cfg, np.ascontiguousarray(
+        cv2.resize(cv2.cvtColor(page, cv2.COLOR_BGR2RGB), (640, 640),
+                   interpolation=cv2.INTER_AREA))[None], fused=True)
+    return launches, numbers
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -1195,26 +1626,30 @@ def main():
         kernels = phase_kernels()
         layout_kernels = phase_layout_kernels()
         kernels.update(phase_int8_kernels())
+        shaped = phase_fused_kernels()  # {kernel: {label: numbers}}
         ocr_launches, ctx = phase_slice(card)
         paths = {"ocr": ocr_launches, "layout": phase_layout(card)}
         paths["int8_recognizer"], int8_numbers = phase_int8_recognizer(card, ctx)
+        paths["fused_backbone"], fused_numbers = phase_fused_backbone(card)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1
     (OUT / "int8_recognizer.json").write_text(json.dumps(int8_numbers, indent=1))
+    (OUT / "fused_backbone.json").write_text(json.dumps(fused_numbers, indent=1))
     log(card)  # as nvidia-smi prints it: name, power limit
-    main_shape = {"ms_deformable_attention": "lq300"}
+    for name, at in layout_kernels.items():
+        shaped.setdefault(name, {}).update(at)
     rows = []
     for name, route, src, more, replaces in KERNELS:
         by_path = {p: n[name] for p, n in paths.items() if n[name]}
         numbers = dict(kernels.get(name, {}))
-        if name in main_shape:
-            numbers.update(layout_kernels[name][main_shape[name]])
+        at = shaped.get(name, {})
+        if name in MAIN_SHAPE:
+            numbers.update(at[MAIN_SHAPE[name]])
         rows.append(dict(
             name=name, route=route, source=src, sources=[src] + more,
             replaces=replaces, launches=sum(by_path.values()),
-            launches_by_path=by_path, **numbers,
-            at=layout_kernels.get(name, {}),
+            launches_by_path=by_path, **numbers, at=at,
         ))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

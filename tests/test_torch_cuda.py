@@ -374,3 +374,156 @@ def test_int8_kv_loop_matches_full_cache(monkeypatch):
     loop = q8._ar_loops[40]
     assert list(q8._ar_loops) == [40] and loop.graph is not None
     assert loop.mem[0].dtype == torch.int8
+
+
+# ------------------------------------------------------------------ fused backbone
+
+
+def _block_args(rng, dt, B, H, W, Cin, Cm, Cout, proj):
+    """x (B, H, W, Cin) and fused_bottleneck's weights (fan-in scaled, in
+    ``dt``) and f32 biases."""
+    def w(*shape):
+        return _dev(rng.standard_normal(shape) * shape[-2] ** -0.5, dt)
+
+    def b(n):
+        return _dev(rng.standard_normal(n) * 0.1)
+
+    args = [_dev(rng.standard_normal((B, H, W, Cin)), dt), w(Cin, Cm), b(Cm),
+            w(9, Cm, Cm) / 3, b(Cm), w(Cm, Cout), b(Cout)]
+    return args + ([w(Cin, Cout), b(Cout)] if proj else [None, None])
+
+
+def _held(got, want, dtype):
+    """f32 within 1e-4 of the largest value plus 1e-5; bf16 (against the
+    plain version on the same bf16 values, which rounds h1 and h2 where the
+    kernel does) within 2e-2 of it."""
+    rel, add = (1e-4, 1e-5) if dtype == "float32" else (2e-2, 0.0)
+    err, top = (got.float() - want.float()).abs().max().item(), want.float().abs().max().item()
+    assert err <= rel * top + add, (err, top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,Cin,Cm,Cout,d,proj", [
+    (2, 13, 10, 32, 16, 64, 2, True),     # odd sizes, dilation 2, projection
+    (2, 13, 10, 64, 16, 64, 1, False),    # odd sizes, identity
+    (1, 9, 17, 64, 24, 64, 2, False),     # Cm % 32 != 0: a partial K tile
+    (1, 37, 29, 64, 64, 256, 1, True),    # DBNet layer1_0's widths
+    (1, 25, 19, 256, 128, 256, 2, False),  # several M and N tiles, d = 2
+    (1, 5, 4, 128, 32, 128, 2, False),    # every 3x3 tap partly off the page
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bottleneck_kernel_matches_plain_version(dtype, B, H, W, Cin, Cm, Cout, d, proj):
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    args = _block_args(np.random.default_rng(31), dt, B, H, W, Cin, Cm, Cout, proj)
+    n0 = ops.launches["fused_bottleneck"]
+    got = ops.fused_bottleneck(*args, dilation=d)
+    want = ops.bottleneck_reference(*args, dilation=d)
+    torch.cuda.synchronize()
+    assert ops.launches["fused_bottleneck"] == n0 + 1
+    assert got.dtype == dt and got.shape == (B, H, W, Cout)
+    _held(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,d,H,W", [(3, 1, 13, 10), (2, 2, 13, 10), (1, 2, 6, 7),
+                                     (5, 1, 20, 9)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_identity_stage_kernel_matches_plain_version(dtype, N, d, H, W):
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(32)
+    C, Cm = 64, 16
+    blocks = [_block_args(rng, dt, 2, H, W, C, Cm, C, False) for _ in range(N)]
+    x = blocks[0][0]
+    stacks = [torch.stack([blk[i] for blk in blocks]) for i in range(1, 7)]
+    n0 = ops.launches["fused_identity_stage"]
+    got = ops.fused_identity_stage(x, *stacks, dilation=d)
+    want = ops.fused_identity_stage_reference(x, *stacks, dilation=d)
+    torch.cuda.synchronize()
+    assert ops.launches["fused_identity_stage"] == n0 + 1
+    assert got.shape == x.shape
+    _held(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_fused_backbone_raises_on_non_nhwc_input(monkeypatch):
+    """The kernels read NHWC rows in place: an NCHW-contiguous CUDA tensor
+    raises (nothing copies it quietly), in the wrappers and in a block
+    whose gate is open."""
+    _require_cuda()
+    from yomitoku_tpu_torch.models.layers.resnet import Bottleneck
+
+    rng = np.random.default_rng(33)
+    args = _block_args(rng, torch.float32, 1, 6, 5, 32, 8, 32, False)
+    nchw = args[0].permute(0, 3, 1, 2).contiguous()
+    with pytest.raises(ValueError, match="NHWC"):
+        ops.fused_bottleneck(nchw.permute(0, 2, 3, 1), *args[1:])
+    stacks = [a[None] for a in args[1:7]]
+    with pytest.raises(ValueError, match="NHWC"):
+        ops.fused_identity_stage(nchw.permute(0, 2, 3, 1), *stacks)
+    monkeypatch.setenv("YOMITOKU_TPU_FUSED_BOTTLENECK", "1")
+    block = Bottleneck(32, 8).cuda()
+    with pytest.raises(ValueError, match="NHWC"):
+        block(nchw)
+    out = block(nchw.contiguous(memory_format=torch.channels_last))
+    assert out.is_contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Lq,Lk,Dh", [(2, 3, 37, 45, 32), (1, 8, 300, 300, 32),
+                                          (2, 2, 21, 19, 24), (1, 2, 101, 400, 96)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_attention_matches_plain_version(dtype, B, H, Lq, Lk, Dh):
+    """(B, H, L, Dh) attention; head dim 24 takes the FMA path in bf16."""
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(34)
+    q, k, v = (_dev(rng.standard_normal((B, H, n, Dh)), dt) for n in (Lq, Lk, Lk))
+    n0 = ops.launches["fused_attention"]
+    got = ops.fused_attention(q, k, v)
+    want = ops.fused_attention_reference(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert ops.launches["fused_attention"] == n0 + 1
+    _held(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,D,H", [(2, 37, 96, 4), (1, 400, 256, 8)])
+@pytest.mark.parametrize("layout", ["out_in.t", "in_out"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_attention_block_matches_plain_version(dtype, layout, B, L, D, H):
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(35)
+    args = [_dev(rng.standard_normal((B, L, D)), dt)]
+    for _ in range(4):
+        w = _dev(rng.standard_normal((D, D)) * D ** -0.5, dt)
+        args += [w.t().contiguous().t() if layout == "out_in.t" else w,
+                 _dev(rng.standard_normal(D) * 0.05, dt)]
+    n0 = ops.launches["fused_attention_block"]
+    got = ops.fused_attention_block(*args, H)
+    want = ops.fused_attention_block_reference(*[a.float() for a in args], H)
+    torch.cuda.synchronize()
+    assert ops.launches["fused_attention_block"] == n0 + 1
+    _held(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_small_dbnet_fused_f32_matches_cpu(monkeypatch):
+    """DBNet (dbnetv2_1, full widths) at 64x96 in f32 with both fused-backbone
+    switches on, on the card, against the same seed-0 weights on the CPU's
+    library path: the map within 1e-4."""
+    _require_cuda()
+    from yomitoku_tpu_torch.text_detector import TextDetector
+
+    monkeypatch.setenv("YOMITOKU_TPU_FUSED_BOTTLENECK", "1")
+    monkeypatch.setenv("YOMITOKU_TPU_FUSED_STAGE", "1")
+    gpu = TextDetector(device="cuda", dtype=torch.float32, from_pretrained=False).model
+    cpu = TextDetector(device="cpu", from_pretrained=False).model
+    x = np.random.default_rng(36).random((2, 64, 96, 3)).astype(np.float32)
+    ops.reset_launches()
+    got = gpu.forward_binary(x)
+    assert ops.launches["fused_bottleneck"] == 2
+    assert ops.launches["fused_identity_stage"] == 4
+    np.testing.assert_allclose(got, cpu.forward_binary(x), atol=1e-4)

@@ -19,6 +19,19 @@ def default_dtype(device) -> torch.dtype:
     return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
 
 
+def cached(owner, slot, tensors, build):
+    """``build()``, kept in ``owner.<slot>`` until one of ``tensors``
+    changes: new storage or dtype, or an in-place write (a state_dict load
+    copies into the parameters and so bumps their versions).  For values
+    derived from weights once, such as quantized or BN-folded copies."""
+    key = tuple((t.data_ptr(), t._version, t.dtype) for t in tensors)
+    hit = owner.__dict__.get(slot)
+    if hit is None or hit[0] != key:
+        hit = (key, build())
+        owner.__dict__[slot] = hit
+    return hit[1]
+
+
 def trunc_normal_(w, std, gen):
     """Normal draws clipped at two standard deviations."""
     with torch.no_grad():

@@ -5,7 +5,9 @@ attention -> binarize head at full resolution.  The adaptive-threshold head
 of the reference checkpoints is never evaluated at inference and is not
 built.  Parameter names follow the reference ``state_dict``
 (yomitoku/models/dbnet_plus.py).  The public forward functions take NHWC
-images, as the JAX package's do; the convolutions run NCHW inside.
+images, as the JAX package's do; the convolutions run NCHW inside, in
+channels_last memory when a fused-backbone switch is on
+(models/layers/resnet.py), which the NHWC input already is.
 """
 
 import numpy as np
@@ -144,16 +146,20 @@ class DBNet(TorchModel):
         x = images.to(self.device, self.dtype).permute(0, 3, 1, 2)
         return self.decoder(self.backbone(x))[:, 0]
 
+    def standardize_u8(self, images_u8):
+        """(B, H, W, 3) uint8 resized page -> the standardized float32 input
+        of ``forward``, computed on the device.  The BGR input meets
+        RGB-ordered ImageNet statistics, because the reference flips the
+        channels twice (text_detector.py:69-94)."""
+        mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32) * 255.0
+        inv = 1.0 / (torch.tensor(IMAGENET_STD, dtype=torch.float32) * 255.0)
+        return (images_u8.to(self.device).float() - mean.to(self.device)) * inv.to(self.device)
+
     @torch.no_grad()
     def forward_u8(self, images_u8):
         """(B, H, W, 3) uint8 resized page -> (B, H, W) uint8 wire map
-        (prob * 255, rounded half to even).  ImageNet standardisation runs
-        on the device; the BGR input meets RGB-ordered statistics, because
-        the reference flips the channels twice (text_detector.py:69-94)."""
-        mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32) * 255.0
-        inv = 1.0 / (torch.tensor(IMAGENET_STD, dtype=torch.float32) * 255.0)
-        x = (images_u8.to(self.device).float() - mean.to(self.device)) * inv.to(self.device)
-        prob = self.forward(x)
+        (prob * 255, rounded half to even)."""
+        prob = self.forward(self.standardize_u8(images_u8))
         return torch.clamp(torch.round(prob * 255.0), 0, 255).to(torch.uint8)
 
     def forward_binary_u8(self, images_u8: np.ndarray) -> np.ndarray:

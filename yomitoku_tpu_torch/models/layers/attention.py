@@ -48,6 +48,7 @@ from ...ops import (
     layer_norm,
     quantize_weight_int8,
 )
+from ..base import cached
 
 __all__ = [
     "LayerNorm",
@@ -94,14 +95,9 @@ def use_int8_encoder(x) -> bool:
 
 def _int8_weights(owner, *weights):
     """``quantize_weight_int8`` of each torch-layout (out, in) weight's
-    ``.t()``, kept on ``owner`` until a weight changes (new storage, or an
-    in-place write such as a state_dict load, which bumps its version)."""
-    key = tuple((w.data_ptr(), w._version, w.dtype) for w in weights)
-    cached = owner.__dict__.get("_int8_weights")
-    if cached is None or cached[0] != key:
-        cached = (key, [quantize_weight_int8(w.t()) for w in weights])
-        owner.__dict__["_int8_weights"] = cached
-    return cached[1]
+    ``.t()``, kept on ``owner`` until a weight changes."""
+    return cached(owner, "_int8_weights", weights,
+                  lambda: [quantize_weight_int8(w.t()) for w in weights])
 
 
 def quantize_kv_int8(k, v):

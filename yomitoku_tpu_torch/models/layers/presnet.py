@@ -7,13 +7,23 @@ convolution (variant d), frozen BatchNorm.  Parameter names follow the
 reference ``state_dict`` (rtdetr_backbone.py): ``conv1.conv1_1`` ..,
 ``res_layers.<s>.blocks.<b>.branch2a`` .., ``short`` on stage 0 and
 ``short.conv`` on the stride-2 shortcuts.  The convolutions are library
-convolutions, as XLA ran them in the JAX package (its opt-in Pallas
-bottleneck kernel is not ported).
+convolutions, as XLA ran them in the JAX package.
+
+With YOMITOKU_TPU_FUSED_BOTTLENECK=1 on CUDA tensors (``resnet.
+use_fused_bottleneck``) each stride-1 relu block runs on the
+``fused_bottleneck`` kernel, stage 0's first block with its 1x1
+projection shortcut included: 13 of the 16 blocks; the three stride-2
+blocks keep their library convolutions, as they keep XLA in the JAX
+package.  The backbone then runs channels_last from its input.
 """
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops import fused_bottleneck
+from ..base import cached
+from . import resnet
 from .resnet import FrozenBatchNorm
 
 ACTS = {
@@ -63,12 +73,29 @@ class PBottleneck(nn.Module):
         self.branch2a = ConvNorm(cin, w, 1, 1, act)
         self.branch2b = ConvNorm(w, w, 3, stride, act)
         self.branch2c = ConvNorm(w, w * 4, 1, 1, None)
-        self.act = act
+        self.act, self.stride, self.ch_out = act, stride, ch_out
         if not shortcut:
             self.short = (_Shortcut(cin, w * 4) if stride == 2
                           else ConvNorm(cin, w * 4, 1, stride))
 
+    def folded(self, dtype):
+        """fused_bottleneck's (w1, b1, w2, b2, w3, b3, wd, bd) of this
+        stride-1 block (wd, bd: the 1x1 projection, where it has one)."""
+        branches = (self.branch2a, self.branch2b, self.branch2c)
+        short = getattr(self, "short", None)
+        proj = None if short is None else (short.conv.weight, short.norm)
+        return cached(
+            self, f"_folded_{dtype}", resnet.weight_state([self]),
+            lambda: resnet.folded_bottleneck(
+                [b.conv.weight for b in branches], [b.norm for b in branches],
+                proj, dtype))
+
     def forward(self, x):
+        w = self.ch_out
+        if self.act == "relu" and resnet.use_fused_bottleneck(
+                x, self.stride, x.shape[1], w, w * 4, 1):
+            y = fused_bottleneck(x.permute(0, 2, 3, 1), *self.folded(x.dtype))
+            return y.permute(0, 3, 1, 2)
         out = self.branch2c(self.branch2b(self.branch2a(x)))
         short = self.short(x) if hasattr(self, "short") else x
         return ACTS[self.act](out + short)
@@ -111,6 +138,8 @@ class PResNet(nn.Module):
         self.res_layers = nn.ModuleList(layers)
 
     def forward(self, x):  # (B, 3, H, W)
+        if resnet.fused_backbone(x):
+            x = x.contiguous(memory_format=torch.channels_last)
         x = F.max_pool2d(self.conv1(x), 3, 2, 1)
         outs = []
         for si, layer in enumerate(self.res_layers):

@@ -16,6 +16,10 @@ launches = {
     "ms_deformable_attention": 0,
     "fused_attention_block_ln_int8": 0,
     "fused_mlp_ln_int8": 0,
+    "fused_attention": 0,
+    "fused_attention_block": 0,
+    "fused_bottleneck": 0,
+    "fused_identity_stage": 0,
 }
 
 

@@ -14,6 +14,15 @@
   D x D weights resident; an SM holds neither, so the sublayer is split
   at the two places where a (B*L, D)-sized activation must be complete.
 
+* ``fused_attention``: unmasked softmax(q k^T s) v on (B, H, L, Dh)
+  tensors, one launch of the attention kernel on the (B*H, L, Dh) views
+  with one head each.
+* ``fused_attention_block``: attn(x Wq + bq, x Wk + bk, x Wv + bv) Wo + bo,
+  the LN sublayer's chain without the LayerNorm prologue and without the
+  residual: three launches (packed QKV GEMM, attention, out-projection
+  GEMM), q, k, v and the attention output rounded to x's dtype.  Neither
+  has a model caller, in the JAX package or here.
+
 * ``fused_attention_block_ln_int8``: the same sublayer with W8A8
   projections (the Pallas kernel's semantics, see ops/mlp.py): five
   launches.  The row-quantize kernel with the LayerNorm prologue gives
@@ -84,6 +93,83 @@ def fused_attention_heads(q, k, v, num_heads, scale=None):
     attention(q, k, v, out, num_heads, scale)
     launches["fused_attention_heads"] += 1
     return out
+
+
+def fused_attention_reference(q, k, v, scale=None):
+    """Plain PyTorch version of ``fused_attention``."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.matmul(w.float(), v.float()).to(q.dtype)
+
+
+def fused_attention(q, k, v, scale=None):
+    """Unmasked scaled-dot attention softmax(q k^T * scale) v: q (B, H, Lq,
+    Dh), k/v (B, H, Lk, Dh) -> (B, H, Lq, Dh), f32 logits and accumulation
+    whatever the input dtype."""
+    B, H, Lq, Dh = q.shape
+    Lk = k.shape[2]
+    if scale is None:
+        scale = Dh ** -0.5
+    if on_cpu(q, k, v):
+        return fused_attention_reference(q, k, v, scale)
+    name = "fused_attention"
+    require_cuda(name, q, k, v)
+    if k.shape != (B, H, Lk, Dh) or v.shape != k.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    out = torch.empty((B, H, Lq, Dh), dtype=q.dtype, device=q.device)
+    attention(q.reshape(B * H, Lq, Dh), k.reshape(B * H, Lk, Dh),
+              v.reshape(B * H, Lk, Dh), out.view(B * H, Lq, Dh), 1, scale)
+    launches[name] += 1
+    return out
+
+
+def fused_attention_block_reference(x, wq, bq, wk, bk, wv, bv, wo, bo,
+                                    num_heads, scale=None):
+    """Plain PyTorch version of ``fused_attention_block``."""
+    dt = x.dtype
+    xf = x.float()
+
+    def proj(w, b):
+        return (torch.matmul(xf, w.float()) + b.float()).to(dt)
+
+    attn = fused_attention_heads_reference(proj(wq, bq), proj(wk, bk),
+                                           proj(wv, bv), num_heads, scale)
+    return (torch.matmul(attn.float(), wo.float()) + bo.float()).to(dt)
+
+
+def fused_attention_block(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads,
+                          scale=None):
+    """Self-attention block without LayerNorm or residual: x (B, L, D)
+    contiguous -> attn(x Wq + bq, x Wk + bk, x Wv + bv) Wo + bo.  Weights
+    (D, D) in the (in, out) layout, each row-major or the transpose of a
+    row-major tensor; the three input projections are packed into one
+    (D, 3D) weight per call."""
+    args = (x, wq, bq, wk, bk, wv, bv, wo, bo)
+    if on_cpu(*args):
+        return fused_attention_block_reference(*args, num_heads, scale=scale)
+    B, L, D = x.shape
+    if scale is None:
+        scale = (D // num_heads) ** -0.5
+    name = "fused_attention_block"
+    require_cuda(name, x, wq, wk, wv, wo)
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous")
+    dt = x.dtype
+    x2 = x.view(B * L, D)
+    qkv = torch.empty((B * L, 3 * D), dtype=dt, device=x.device)
+    gemm(x2, torch.cat([wq, wk, wv], dim=1),
+         vector(torch.cat([bq, bk, bv]), 3 * D, x, name), qkv)
+    q3 = qkv.view(B, L, 3 * D)
+    attn = torch.empty((B, L, D), dtype=dt, device=x.device)
+    attention(q3[..., :D], q3[..., D:2 * D], q3[..., 2 * D:], attn, num_heads,
+              scale)
+    out = torch.empty_like(x2)
+    gemm(attn.view(B * L, D), wo, vector(bo, D, x, name), out)
+    launches[name] += 1
+    return out.view(B, L, D)
 
 
 def fused_attention_block_ln_reference(
