@@ -6,7 +6,9 @@
 Phases, each printed as it runs; any failure exits non-zero:
 
 1. Card: name and power limit (nvidia-smi), and the kernel build time
-   (the CUDA sources under yomitoku_tpu_torch/csrc compile here).
+   (the CUDA sources under yomitoku_tpu_torch/csrc compile here), with
+   the registers and spills of every attention kernel instantiation
+   (ptxas; a spill fails the run).
 2. Kernels: each of the four OCR kernels at the recognizer's shapes
    against its plain PyTorch version on the same CUDA inputs (f32 kernel
    vs f32 reference at max|d| <= 1e-4 max|ref| + 1e-5 with TF32 off; bf16
@@ -20,11 +22,20 @@ Phases, each printed as it runs; any failure exits non-zero:
    table recognizer's (B=4, Lq=300) and the cell detector's Lq=2500 (stock:
    ``F.grid_sample`` per level), and ``fused_attention_heads`` at the AIFI
    (L=400) and decoder (L=300) self-attention, 8 heads of 32, at B=1 and
-   B=4 (stock: SDPA).
+   B=4 (stock: SDPA).  At each attention shape (the refine, AIFI and
+   decoder at B=1 and 4, and the ViT's in phase 7) a line ``attention
+   ...`` gives the attention kernel's route, its device time against one
+   SDPA call's (profiler), its bound and TFLOP/s; at the refine's and the
+   ViT's a line ``attention consumer warpgroups ...`` gives the device time
+   of the kernel with two consumer warpgroups per block (route "wgmma")
+   and with one ("wgmma_small" unsplit) on the same inputs.
 3. The OCR path: ``OCR(device="cuda")`` (DBNet dbnetv2_1 + PARSeq
    parseq-large-v4_1, seed-0 random weights) on demo/sample_text.png, its
    recognizer on a synthetic page of 128+ lines (a full batch of 128), the
-   four launch counters of that run, and two 16-line f32 recognizer runs
+   four launch counters of that run and the attention kernel's launches
+   by route (every bf16 path's attention on a wgmma route, none on the FMA
+   kernel, in phases 3, 4, 6 and 7), the decode's device busy time and the
+   attention kernel's share of it, and two 16-line f32 recognizer runs
    on the card (the first captures the AR step's CUDA graph, the second
    replays it) against the same weights on the CPU (plain path).
 4. The layout path: ``LayoutAnalyzer(device="cuda")`` (RT-DETRv2
@@ -252,6 +263,28 @@ def card_line():
     return out[0].strip()
 
 
+def attention_instantiations(build_log):
+    """[(kernel<template args>, registers, spill bytes)] of every attention
+    kernel in ptxas's output, in build order."""
+    import re
+
+    rows, name = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?\d(attention_(?:wgmma_|combine_)?kernel)"
+                      r"I(\w+?)EEv", line)
+        if m:
+            args = re.findall(r"Li(\d+)E|(13__nv_bfloat16|S\d*_)|(f)", m.group(2))
+            label = ", ".join(n or ("bf16" if b else "f32") for n, b, _ in args)
+            name, spills = f"{m.group(1)}<{label}>", None
+            continue
+        if name and spills is None and "spill stores" in line:
+            spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
+        elif name and spills is not None and "Used" in line:
+            rows.append((name, int(re.search(r"Used (\d+) registers", line).group(1)), spills))
+            name = None
+    return rows
+
+
 def phase_card():
     import torch
 
@@ -268,6 +301,12 @@ def phase_card():
         f"(nvcc {lib.build_seconds:.1f} s) -> {lib.path.name}")
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "nvcc.log").write_text(lib.build_log)
+    if lib.build_log:  # a fresh build: ptxas's registers and spills
+        rows = attention_instantiations(lib.build_log)
+        log("attention instantiations (ptxas): " + "; ".join(
+            f"{n} {r} regs, {sp} B spilled" for n, r, sp in rows))
+        check(any("wgmma" in n for n, _, _ in rows), "no wgmma attention kernel was built")
+        check(all(sp == 0 for _, _, sp in rows), "an attention instantiation spills")
     return card
 
 
@@ -496,6 +535,61 @@ def device_ms(fn, kernel=""):
     return ms or None
 
 
+def route_taken(fn):
+    """The attention kernel's route(s) that one call of ``fn`` launched
+    ("fma", "wgmma", "wgmma_small"), or None where it launched none."""
+    import torch
+
+    from yomitoku_tpu_torch.ops._common import attention_route_launches
+
+    before = dict(attention_route_launches)
+    fn()
+    torch.cuda.synchronize()
+    return "+".join(r for r, n in attention_route_launches.items() if n > before[r]) or None
+
+
+def attention_numbers(kern, sdpa, flops):
+    """The route one call of ``kern`` takes, its device time and that of one
+    SDPA call (profiler), and its TFLOP/s at ``flops``."""
+    dev = device_ms(kern, "attention")
+    return dict(attention_route=route_taken(kern), device_ms=dev,
+                library_device_ms=device_ms(sdpa),
+                tflops=None if dev is None else flops / dev / 1e9)
+
+
+def log_attention(name, label, res):
+    tflops = "not measured" if res["tflops"] is None else f"{res['tflops']:.1f}"
+    log(f"attention {name} [{label}]: route {res['attention_route']}, device "
+        f"{_ms(res['device_ms'])} against one SDPA call's "
+        f"{_ms(res['library_device_ms'])}, bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}), {tflops} TFLOP/s")
+
+
+def consumer_warpgroups(name, label, q, k, v, heads):
+    """The attention kernel on these bf16 inputs with two consumer
+    warpgroups per block (route "wgmma", 128 rows) and with one
+    ("wgmma_small" unsplit, 64 rows), launched directly (uncounted): their
+    outputs held to each other (2e-2 of the largest value) and their device
+    times (profiler) -> {"nwg2_device_ms": .., "nwg1_device_ms": ..}."""
+    import torch
+
+    from yomitoku_tpu_torch.ops._common import launch_attention
+
+    scale = (q.shape[-1] // heads) ** -0.5
+    outs, res = {}, {}
+    for nwg, route in ((2, "wgmma"), (1, "wgmma_small")):
+        out = outs[nwg] = torch.empty_like(q)
+        res[f"nwg{nwg}_device_ms"] = device_ms(
+            lambda: launch_attention(route, 1, q, k, v, out, heads, scale), "attention")
+    err = (outs[2].float() - outs[1].float()).abs().max().item()
+    top = outs[2].float().abs().max().item()
+    log(f"attention consumer warpgroups {name} [{label}]: two per block (128 rows) "
+        f"device {_ms(res['nwg2_device_ms'])}, one (64 rows) {_ms(res['nwg1_device_ms'])}; "
+        f"outputs max|d| {err:.3e} (limit {2e-2 * top:.3e})")
+    check(err <= 2e-2 * top, f"{name} [{label}]: one and two consumer warpgroups disagree")
+    return res
+
+
 def phase_kernels():
     import numpy as np
     import torch
@@ -544,6 +638,13 @@ def phase_kernels():
                         if name == "fused_attention_heads" else None)
                 res["bound_ms"], res["bound_by"] = bound(
                     bf, [out16], kernel_ops(name, bf, tail))
+                if name == "fused_attention_heads":  # the PARSeq refine
+                    with torch.no_grad():
+                        res.update(attention_numbers(
+                            lambda: kern(*args16, *tail), sdpa_call(*bf, *tail),
+                            kernel_ops(name, bf, tail)["bf16"]))
+                        res.update(consumer_warpgroups(name, "refine", *args16[:3], *tail))
+                    log_attention(name, "refine", res)
                 log(f"kernel {name}: bf16 {res['ms']:.3f} ms, plain "
                     f"{res['plain_ms']:.3f} ms, stock bf16 torch "
                     f"{res['stock_ms']:.3f} ms, one library call "
@@ -649,6 +750,12 @@ def phase_layout_kernels():
                 stock_device_ms=device_ms(lambda: stock(*bf, *tail)),
             )
 
+        if name == "fused_attention_heads":
+            with torch.no_grad():
+                res.update(attention_numbers(lambda: kern(*bf, *tail), sdpa_call(*bf, *tail),
+                                             kernel_ops(name, bf, tail)["bf16"]))
+            log_attention(name, label, res)
+
         def ms(key):
             return "not measured" if res[key] is None else f"{res[key]:.4f} ms"
 
@@ -665,6 +772,19 @@ def phase_layout_kernels():
 
 
 # ------------------------------------------------------------------ phase 3
+
+
+def check_attention_routes(what, route=None):
+    """After a bf16 path's counted run: the attention kernel's launches by
+    route; every one on a wgmma route (none on the FMA kernel), ``route``
+    among them where given."""
+    from yomitoku_tpu_torch.ops._common import attention_route_launches
+
+    routes = dict(attention_route_launches)
+    log(f"{what}: attention launches by route {routes}")
+    wgmma = routes[route] if route else routes["wgmma"] + routes["wgmma_small"]
+    check(routes["fma"] == 0 and wgmma > 0,
+          f"{what}: the bf16 path's attention left the wgmma routes: {routes}")
 
 
 def synthetic_lines_page(n_lines=136, seed=0):
@@ -700,6 +820,14 @@ def host_timed(fn, runs=3):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return statistics.median(times)
+
+
+def decode_profile(model, crops):
+    """One recognizer model's decode of ``crops`` under torch.profiler (2
+    calls) -> (device busy ms per batch, of which the attention kernels)."""
+    _, device, _ = profiled(lambda: model.forward_tokens(crops), runs=2)
+    return (sum(device.values()),
+            sum(v for k, v in device.items() if "attention" in k))
 
 
 def _finite_schema(schema, what):
@@ -746,6 +874,7 @@ def _phase_slice(card):
     log(f"slice: launches {launches}")
     check(all(launches[k] > 0 for k in OCR_KERNELS),
           f"a kernel of the OCR path was never launched: {launches}")
+    check_attention_routes("slice", "wgmma")
     check(len(result.words) > 0, "OCR schema holds no words")
     for w in result.words:
         check(np.isfinite([w.det_score, w.rec_score]).all(), "OCR score not finite")
@@ -771,6 +900,9 @@ def _phase_slice(card):
     first_s = host_timed(lambda: rec.forward_tokens(crops), runs=1)
     ids_bf16, _ = rec.forward_tokens(crops)
     model_s = host_timed(lambda: rec.forward_tokens(crops))
+    busy, attn = decode_profile(rec, crops)
+    log(f"slice: bf16 decode on the device (profiler): busy {busy:.2f} ms per batch "
+        f"of 128, of which the attention kernel {attn:.3f} ms")
     log(f"slice: OCR {page_s * 1e3:.1f} ms/page (detector {det_s * 1e3:.1f} ms) "
         f"on sample_text.png; recognizer bf16 batch 128: {128 / rec_s:.1f} "
         f"lines/s end to end ({rec_s * 1e3:.1f} ms, of which host crops "
@@ -922,6 +1054,7 @@ def phase_layout(card):
     log(f"layout: launches {launches}")
     check(all(launches[k] > 0 for k in LAYOUT_KERNELS),
           f"a kernel of the layout path was never launched: {launches}")
+    check_attention_routes("layout", "wgmma_small")
     _in_page(result, w, h, "layout")
     data = tsr.preprocess(page, TABLE_BOXES)
     preds = tsr.model(np.stack([d["array"] for d in data]))
@@ -1155,6 +1288,7 @@ def _phase_int8_recognizer(card, ctx):
     log(f"int8: launches {launches}")
     check(all(launches[k] > 0 for k in INT8_KERNELS),
           f"a kernel of the int8 recognizer path was never launched: {launches}")
+    check_attention_routes("int8", "wgmma")
     check(launches["fused_attention_block_ln"] == 0 and launches["fused_mlp_ln"] == 0,
           f"the int8 path ran a bf16 encoder kernel: {launches}")
     _finite_schema(lines, "int8 recognizer")
@@ -1177,6 +1311,9 @@ def _phase_int8_recognizer(card, ctx):
     rec_s = host_timed(lambda: rec(page, quads[:128]))
     crop_s = host_timed(lambda: ParseqDataset(rec._cfg, page, quads[:128]).as_u8_array())
     model_s = host_timed(lambda: model.forward_tokens(crops))
+    busy, attn = decode_profile(model, crops)
+    log(f"int8: decode on the device (profiler): busy {busy:.2f} ms per batch of "
+        f"128, of which the attention kernel {attn:.3f} ms")
     log(f"int8: recognizer batch 128 (int8 encoder + int8 K/V): {128 / rec_s:.1f} "
         f"lines/s end to end ({rec_s * 1e3:.1f} ms, of which host crops "
         f"{crop_s * 1e3:.1f} ms), {128 / model_s:.1f} lines/s device decode "
@@ -1453,6 +1590,14 @@ def _attention_kernels(rng):
         res.update(max_abs_err=err16, max_abs_err_f32=err32)
         res["bound_ms"], res["bound_by"] = bound(bf, [out16], kernel_ops(name, bf, tail))
         _log_timings(name, label, res)
+        if name == "fused_attention":
+            with torch.no_grad():
+                res.update(attention_numbers(lambda: kern(*bf), library,
+                                             kernel_ops(name, bf, ())["bf16"]))
+                # fused_attention's (B*H, L, Dh) views, one head each
+                res.update(consumer_warpgroups(name, label, *(
+                    a.reshape(-1, *a.shape[2:]) for a in bf), 1))
+            log_attention(name, label, res)
         results[name] = {label: res}
         del f32, bf, out16
         torch.cuda.empty_cache()
@@ -1506,6 +1651,7 @@ def _phase_fused_backbone(card):
     tables, _ = tsr(page, TABLE_BOXES)
     torch.cuda.synchronize()
     launches = dict(ops.launches)
+    check_attention_routes("fused")
     on_layout = {k: launches[k] - on_ocr[k] for k in launches}
     log(f"fused: launches on OCR {on_ocr}")
     log(f"fused: launches on layout {on_layout}")

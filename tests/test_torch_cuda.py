@@ -73,7 +73,7 @@ def _kernel(name, args, layout):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernels_match_plain_versions(dtype, heads, layout):
     """Ragged shapes (L=37, Lq=21); head dim 24 (4 heads) takes the
-    attention kernel's FMA path, 16 (6 heads) its tensor-core path in bf16;
+    attention kernel's FMA route, 16 (6 heads) its wgmma route in bf16;
     W as the models pass it (torch Linear weights .t()) and as row-major
     (in, out) tensors: one bf16 GEMM instantiation each.  The residual
     sublayers are also held to the scale of their own delta (ref - x), once
@@ -159,23 +159,106 @@ def test_deformable_kernel_matches_plain_version(dtype, batch, lq, points):
     assert (got - want).abs().max().item() <= limit
 
 
+#: (B, H, Lq, Lk, Dh, layout, input dtype, output dtype, route): the main
+#: paths' shapes (RT-DETR's AIFI and decoder at batch 1 and at the table
+#: recognizer's 4, and a cross shape; the PARSeq refine; the ViT block's
+#: packed QKV slices in bf16 and with the int8 sublayer's f32 output;
+#: fused_attention's (B*H, L, Dh) views, Lq > Lk among them), every wgmma
+#: head dim, ragged Lq and Lk, a low-variance regime, and the inputs that
+#: take the FMA kernel (f32, head dims 24 and 48, a misaligned base).
+#: Layouts: "heads" (B, L, H*Dh) tensors, "packed" column slices of one
+#: (B, L, 3 H*Dh) buffer, "bhld" (B, H, L, Dh) through fused_attention,
+#: "lowvar" logits near 100 that vary by about 1 (exp overflows f32 unless
+#: the running max is right), "misaligned" bases 8 bytes off.
+ATTENTION_CASES = [
+    (1, 8, 400, 400, 32, "heads", "bfloat16", "bfloat16", "wgmma_small"),
+    (1, 8, 400, 400, 32, "heads", "float32", "float32", "fma"),
+    (1, 8, 300, 300, 32, "heads", "bfloat16", "bfloat16", "wgmma_small"),
+    (4, 8, 400, 400, 32, "heads", "bfloat16", "bfloat16", "wgmma_small"),
+    (4, 8, 300, 300, 32, "heads", "bfloat16", "bfloat16", "wgmma_small"),
+    (4, 8, 300, 300, 32, "heads", "float32", "float32", "fma"),
+    (2, 8, 300, 400, 32, "heads", "bfloat16", "bfloat16", "wgmma_small"),
+    (2, 8, 300, 400, 32, "heads", "float32", "float32", "fma"),
+    (128, 8, 101, 400, 96, "heads", "bfloat16", "bfloat16", "wgmma"),
+    (1, 2, 101, 400, 96, "heads", "float32", "float32", "fma"),
+    (128, 8, 400, 400, 96, "packed", "bfloat16", "bfloat16", "wgmma"),
+    (128, 8, 400, 400, 96, "packed", "bfloat16", "float32", "wgmma"),
+    (128, 8, 400, 400, 96, "bhld", "bfloat16", "bfloat16", "wgmma"),
+    (1, 2, 1, 8, 16, "heads", "bfloat16", "bfloat16", "wgmma_small"),
+    (2, 3, 17, 63, 16, "heads", "bfloat16", "float32", "wgmma_small"),
+    (1, 4, 101, 1024, 128, "heads", "bfloat16", "bfloat16", "wgmma_small"),
+    (64, 2, 300, 300, 128, "packed", "bfloat16", "float32", "wgmma"),
+    (128, 2, 17, 80, 64, "heads", "bfloat16", "bfloat16", "wgmma"),
+    (2, 3, 37, 45, 32, "bhld", "bfloat16", "bfloat16", "wgmma_small"),
+    (2, 3, 37, 45, 32, "bhld", "float32", "float32", "fma"),
+    (1, 8, 300, 300, 32, "bhld", "bfloat16", "bfloat16", "wgmma_small"),
+    (1, 8, 300, 300, 32, "bhld", "float32", "float32", "fma"),
+    (2, 2, 21, 19, 24, "bhld", "bfloat16", "bfloat16", "fma"),
+    (2, 2, 21, 19, 24, "bhld", "float32", "float32", "fma"),
+    (1, 2, 101, 400, 96, "bhld", "bfloat16", "bfloat16", "wgmma_small"),
+    (1, 2, 101, 400, 96, "bhld", "float32", "float32", "fma"),
+    (2, 4, 400, 1024, 64, "lowvar", "bfloat16", "bfloat16", "wgmma_small"),
+    (128, 8, 400, 400, 32, "lowvar", "bfloat16", "float32", "wgmma"),
+    (2, 4, 37, 45, 24, "heads", "bfloat16", "bfloat16", "fma"),
+    (2, 4, 37, 45, 48, "heads", "bfloat16", "bfloat16", "fma"),
+    (2, 4, 37, 45, 32, "misaligned", "bfloat16", "bfloat16", "fma"),
+]
+
+
+def _attention_inputs(rng, B, H, Lq, Lk, Dh, layout, dt):
+    """q, k, v of dtype ``dt`` on the card in the layout of the case."""
+    D = H * Dh
+    if layout == "packed":
+        qkv = _dev(rng.standard_normal((B, Lk, 3 * D)), dt)
+        return qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    if layout == "bhld":
+        return tuple(_dev(rng.standard_normal((B, H, n, Dh)), dt) for n in (Lq, Lk, Lk))
+    if layout == "lowvar":
+        return (_dev(12 + 0.05 * rng.standard_normal((B, Lq, D)), dt),
+                _dev(1 + 0.05 * rng.standard_normal((B, Lk, D)), dt),
+                _dev(1 + rng.standard_normal((B, Lk, D)), dt))
+    if layout == "misaligned":
+        return tuple(_dev(rng.standard_normal((B, n, D + 4)), dt)[..., 4:]
+                     for n in (Lq, Lk, Lk))
+    return tuple(_dev(rng.standard_normal((B, n, D)), dt) for n in (Lq, Lk, Lk))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,lq,lk", [(1, 400, 400), (4, 300, 300), (2, 300, 400)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_attention_heads_at_rtdetr_shapes(dtype, batch, lq, lk):
-    """fused_attention_heads with 8 heads of 32 (the bf16 tensor-core path
-    needs Dh % 16 == 0): AIFI's L=400, the decoder's 300 queries (ragged
-    against the 64-key tiles) and a cross shape."""
+@pytest.mark.parametrize("B,H,Lq,Lk,Dh,layout,dtype,out,route", ATTENTION_CASES)
+def test_attention_routes_match_plain_versions(B, H, Lq, Lk, Dh, layout, dtype, out, route):
+    """Each case through the wrapper the main path calls (f32 outputs
+    through the attention launcher, as the int8 sublayer calls it): its
+    launch counted once, the route taken, and the output against the plain
+    version on the same values (bf16 inputs within 2e-2 of the largest
+    value, f32 inputs within 1e-4 of it plus 1e-5)."""
+    from yomitoku_tpu_torch.ops._common import attention, attention_route_launches
+
     _require_cuda()
-    dt = getattr(torch, dtype)
-    g = torch.Generator().manual_seed(3)
-    q, k, v = [torch.randn(batch, n, 256, generator=g).to("cuda", dt)
-               for n in (lq, lk, lk)]
-    got = ops.fused_attention_heads(q, k, v, 8).float()
-    want = ops.fused_attention_heads_reference(q.float(), k.float(), v.float(), 8)
+    q, k, v = _attention_inputs(np.random.default_rng(34), B, H, Lq, Lk, Dh, layout,
+                                getattr(torch, dtype))
+    routes0 = dict(attention_route_launches)
+    if layout == "bhld":
+        name, n0 = "fused_attention", ops.launches["fused_attention"]
+        got = ops.fused_attention(q, k, v)
+        want = ops.fused_attention_reference(q.float(), k.float(), v.float())
+    else:
+        want = ops.fused_attention_heads_reference(q.float(), k.float(), v.float(), H)
+        if out == "float32" and q.dtype == torch.bfloat16:
+            name, n0 = None, 0
+            got = torch.empty(q.shape, dtype=torch.float32, device="cuda")
+            attention(q, k, v, got, H, Dh ** -0.5)
+        else:
+            name, n0 = "fused_attention_heads", ops.launches["fused_attention_heads"]
+            got = ops.fused_attention_heads(q, k, v, H)
     torch.cuda.synchronize()
+    if name:
+        assert ops.launches[name] == n0 + 1
+    taken = {r: n - routes0[r] for r, n in attention_route_launches.items()}
+    assert taken == {r: int(r == route) for r in taken}, taken
+    assert got.dtype == getattr(torch, out) and got.shape == want.shape
     rel, add = (1e-4, 1e-5) if dtype == "float32" else (2e-2, 0.0)
-    assert (got - want).abs().max().item() <= rel * want.abs().max().item() + add
+    err, top = (got.float() - want).abs().max().item(), want.abs().max().item()
+    assert err <= rel * top + add, (err, top)
 
 
 @pytest.mark.cuda
@@ -259,8 +342,8 @@ def test_int8_mlp_matches_plain_version(dtype, N, D, Hd):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_int8_attention_block_matches_plain_version(dtype, B, L, D, H):
     """fused_attention_block_ln_int8 with ragged L; head dims 16 (the bf16
-    attention kernel's tensor-core path, f32 output) and 24 (its FMA
-    path)."""
+    attention kernel's wgmma route, f32 output) and 24 (its FMA
+    route)."""
     _require_cuda()
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(22)
@@ -468,24 +551,6 @@ def test_fused_backbone_raises_on_non_nhwc_input(monkeypatch):
         block(nchw)
     out = block(nchw.contiguous(memory_format=torch.channels_last))
     assert out.is_contiguous(memory_format=torch.channels_last)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,H,Lq,Lk,Dh", [(2, 3, 37, 45, 32), (1, 8, 300, 300, 32),
-                                          (2, 2, 21, 19, 24), (1, 2, 101, 400, 96)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_fused_attention_matches_plain_version(dtype, B, H, Lq, Lk, Dh):
-    """(B, H, L, Dh) attention; head dim 24 takes the FMA path in bf16."""
-    _require_cuda()
-    dt = getattr(torch, dtype)
-    rng = np.random.default_rng(34)
-    q, k, v = (_dev(rng.standard_normal((B, H, n, Dh)), dt) for n in (Lq, Lk, Lk))
-    n0 = ops.launches["fused_attention"]
-    got = ops.fused_attention(q, k, v)
-    want = ops.fused_attention_reference(q.float(), k.float(), v.float())
-    torch.cuda.synchronize()
-    assert ops.launches["fused_attention"] == n0 + 1
-    _held(got, want, dtype)
 
 
 @pytest.mark.cuda

@@ -10,6 +10,9 @@ typedef __nv_bfloat16 bf16;
 // Storage type codes of the plain C interface (match ops/_build.py).
 enum { YT_F32 = 0, YT_BF16 = 1 };
 
+// Error codes of the C interface beyond cudaError_t's (yt_error_string).
+enum { YT_ERR_ROUTE = 1000, YT_ERR_TENSOR_MAP = 1001 };
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 

@@ -370,5 +370,7 @@ extern "C" int yt_gemm(int dtype, const void* a, long long lda, const void* w,
 }
 
 extern "C" const char* yt_error_string(int code) {
+  if (code == YT_ERR_ROUTE) return "route not built for these arguments";
+  if (code == YT_ERR_TENSOR_MAP) return "TMA tensor map encode failed";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -54,8 +54,8 @@ class _Library:
         ]
         lib.yt_gemm.restype = i32
         lib.yt_attention.argtypes = [
-            i32, i32, vp, i64, i64, vp, i64, i64, vp, i64, i64, vp, i64, i64,
-            i32, i32, i32, i32, i32, ctypes.c_float, vp,
+            i32, i32, i32, i32, vp, i64, i64, vp, i64, i64, vp, i64, i64,
+            vp, i64, i64, vp, i32, i32, i32, i32, i32, ctypes.c_float, vp,
         ]
         lib.yt_attention.restype = i32
         ip = ctypes.POINTER(ctypes.c_int)

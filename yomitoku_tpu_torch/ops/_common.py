@@ -1,6 +1,8 @@
 """What the kernel wrappers share: launch counts, the LayerNorm formula,
 argument checks and the launchers of the C interface."""
 
+import functools
+
 import torch
 
 from ._build import DTYPE_CODES, library
@@ -26,6 +28,8 @@ launches = {
 def reset_launches():
     for name in launches:
         launches[name] = 0
+    for route in attention_route_launches:
+        attention_route_launches[route] = 0
 
 
 def layer_norm(x, scale, bias, eps, dtype=None):
@@ -43,7 +47,7 @@ def layer_norm(x, scale, bias, eps, dtype=None):
 def on_cpu(*tensors) -> bool:
     """True when every tensor lies on the CPU: the only case in which a
     wrapper runs its plain version."""
-    return all(t.device.type == "cpu" for t in tensors)
+    return all(t.is_cpu for t in tensors)
 
 
 def require_cuda(name, *tensors):
@@ -52,7 +56,7 @@ def require_cuda(name, *tensors):
     if dev.type != "cuda":
         raise ValueError(f"{name}: tensors on {dev}; the kernel needs CUDA")
     dt = tensors[0].dtype
-    if str(dt).split(".")[-1] not in DTYPE_CODES:
+    if dt not in _CODES:
         raise TypeError(f"{name}: dtype {dt} (kernel takes float32, bfloat16)")
     for t in tensors:
         if t.device != dev:
@@ -71,8 +75,23 @@ def vector(v, n, like, name, dtype=None):
     return v.to(dtype or like.dtype).contiguous()
 
 
+#: DTYPE_CODES keyed by torch dtype
+_CODES = {getattr(torch, name): code for name, code in DTYPE_CODES.items()}
+
+
 def _code(t):
-    return DTYPE_CODES[str(t.dtype).split(".")[-1]]
+    return _CODES[t.dtype]
+
+
+def _launch(device, fn, *args):
+    """fn(*args, stream): a C entry called with ``device``'s current raw
+    stream, under a device guard only where ``device`` is not current (the
+    guard and the stream object cost more host time than the call)."""
+    idx = device.index
+    if idx == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    with torch.cuda.device(idx):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
 
 
 def _ptr(t):
@@ -125,11 +144,81 @@ def gemm(a, w, bias, out, res=None, ln=None, gelu=False):
     lib.check(rc, "yt_gemm launch")
 
 
+#: Routes of the attention kernel (csrc/attention.cu ``yt_attention``):
+#: "fma" f32 FMAs from shared memory (f32, and bf16 head dims the wgmma
+#: route is not built for); "wgmma" TMA + wgmma, 128 query rows per block;
+#: "wgmma_small" the same kernel with 64 rows per block and the key range
+#: split over up to ``_MAX_SPLITS`` blocks plus a combine pass, for grids
+#: that 128-row blocks would leave under one wave.
+ATTENTION_ROUTES = {"fma": 0, "wgmma": 1, "wgmma_small": 2}
+#: head dims the wgmma routes are instantiated for
+WGMMA_HEAD_DIMS = (16, 32, 64, 96, 128)
+#: launches of the attention kernel by route, counted like ``launches``
+attention_route_launches = dict.fromkeys(ATTENTION_ROUTES, 0)
+_MAX_SPLITS = 4
+
+
+def attention_route(dtype, out_dtype, B, H, Lq, Dh, strides_ok, sms):
+    """The attention kernel's route for these arguments on a card of
+    ``sms`` SMs -> (route, splits).
+
+    bf16 inputs with a head dim in ``WGMMA_HEAD_DIMS`` and TMA-legal
+    operands (``strides_ok``: 16-byte aligned bases, batch and row strides
+    of a multiple of 8 elements) take a wgmma route: "wgmma" where its
+    128-row blocks fill the card, else "wgmma_small" with the key range
+    split over at most ``splits`` blocks, enough for the 64-row blocks to
+    fill it (the kernel cuts the keys into its own tiles and never leaves a
+    split empty).  Everything else takes "fma" (splits 1)."""
+    if (dtype != torch.bfloat16 or out_dtype not in (torch.bfloat16, torch.float32)
+            or Dh not in WGMMA_HEAD_DIMS or not strides_ok):
+        return "fma", 1
+    if -(-Lq // 128) * H * B >= sms:
+        return "wgmma", 1
+    return "wgmma_small", min(_MAX_SPLITS, -(-sms // (-(-Lq // 64) * H * B)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _tma_legal(batch, ptrs, strides):
+    """16-byte aligned bases and batch / row strides of 8 elements (16 bytes
+    of bf16) for tensors with these data pointers and strides; the batch
+    stride counts only where there is more than one."""
+    return all(p % 16 == 0 and s[1] % 8 == 0 and (batch == 1 or (s[0] % 8 == 0 and s[0] > 0))
+               for p, s in zip(ptrs, strides))
+
+
+def launch_attention(route, splits, q, k, v, out, num_heads, scale):
+    """One launch of the attention kernel by ``route`` with at most
+    ``splits`` key splits, on arguments ``attention`` has checked; the C
+    entry refuses a route not built for them.  Counts nothing."""
+    B, Lq, D = q.shape
+    dh = D // num_heads
+    (qs, ks, vs, os_) = [t.stride() for t in (q, k, v, out)]
+    part = None
+    if splits > 1:  # room for the splits' partial outputs and (max, sum) pairs
+        part = torch.empty(splits * B * num_heads * Lq * (dh + 2),
+                           dtype=torch.float32, device=q.device)
+    lib = library()
+    rc = _launch(
+        q.device, lib.lib.yt_attention,
+        ATTENTION_ROUTES[route], splits, _code(q), _code(out),
+        q.data_ptr(), qs[0], qs[1], k.data_ptr(), ks[0], ks[1], v.data_ptr(), vs[0], vs[1],
+        out.data_ptr(), os_[0], os_[1], _ptr(part),
+        B, num_heads, Lq, k.shape[1], dh, float(scale),
+    )
+    if rc:
+        lib.check(rc, f"yt_attention launch ({route}, {splits} splits)")
+
+
 def attention(q, k, v, out, num_heads, scale):
     """out = softmax(q k^T * scale) v per head on the attention kernel
-    (csrc/attention.cu).  q, out (B, Lq, H*Dh), k, v (B, Lk, H*Dh), each
-    with unit stride along the last axis and any batch / row strides; out
-    of q's dtype, or float32 for bfloat16 q, k, v."""
+    (csrc/attention.cu), by the route ``attention_route`` picks for q's
+    card.  q, out (B, Lq, H*Dh), k, v (B, Lk, H*Dh), each with unit stride
+    along the last axis and any batch / row strides; out of q's dtype, or
+    float32 for bfloat16 q, k, v."""
     B, Lq, D = q.shape
     Lk = k.shape[1]
     if k.shape != (B, Lk, D) or v.shape != (B, Lk, D) or out.shape != q.shape:
@@ -139,23 +228,16 @@ def attention(q, k, v, out, num_heads, scale):
     dh = D // num_heads
     if dh > 128:
         raise ValueError(f"attention: head dim {dh} > 128")
-    for t in (q, k, v, out):
-        if t.stride(2) != 1:
-            raise ValueError("attention: last axis must have unit stride")
+    if any(t.stride(2) != 1 for t in (q, k, v, out)):
+        raise ValueError("attention: last axis must have unit stride")
     if out.dtype not in (q.dtype, torch.float32):
         raise TypeError(f"attention: {out.dtype} output for {q.dtype} inputs")
-    lib = library()
-    with torch.cuda.device(q.device):
-        rc = lib.lib.yt_attention(
-            _code(q), _code(out),
-            q.data_ptr(), q.stride(0), q.stride(1),
-            k.data_ptr(), k.stride(0), k.stride(1),
-            v.data_ptr(), v.stride(0), v.stride(1),
-            out.data_ptr(), out.stride(0), out.stride(1),
-            B, num_heads, Lq, Lk, dh, float(scale),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    lib.check(rc, "yt_attention launch")
+    tensors = (q, k, v, out)
+    legal = _tma_legal(B, [t.data_ptr() for t in tensors], [t.stride() for t in tensors])
+    route, splits = attention_route(q.dtype, out.dtype, B, num_heads, Lq, dh, legal,
+                                    _sm_count(q.device.index))
+    launch_attention(route, splits, q, k, v, out, num_heads, scale)
+    attention_route_launches[route] += 1
 
 
 def _same_cuda_device(name, first, *tensors):
