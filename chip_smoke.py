@@ -867,8 +867,9 @@ def _phase_slice(card):
     # the main path, counted: OCR on the sample page, then the recognizer on
     # the synthetic page (one full batch of 128 + a bucket-8 remainder)
     ops.reset_launches()
-    result = ocr(sample)
-    lines = ocr.recognizer(lines_page, quads)
+    result, vis = ocr(sample)
+    lines, _ = ocr.recognizer(lines_page, quads)
+    check(vis is None, "OCR without visualize returned a picture")
     torch.cuda.synchronize()
     launches = dict(ops.launches)
     log(f"slice: launches {launches}")
@@ -1282,7 +1283,7 @@ def _phase_int8_recognizer(card, ctx):
     # the main path, counted: the recognizer on the synthetic page (a batch
     # of 128 and one of 8)
     ops.reset_launches()
-    lines = rec(page, quads)
+    lines, _ = rec(page, quads)
     torch.cuda.synchronize()
     launches = dict(ops.launches)
     log(f"int8: launches {launches}")
@@ -1644,7 +1645,7 @@ def _phase_fused_backbone(card):
     # the main path, counted: OCR on the text page, then layout analysis
     # and the table recognizer on the fixed boxes of the table page
     ops.reset_launches()
-    result = ocr(sample)
+    result, _ = ocr(sample)
     torch.cuda.synchronize()
     on_ocr = dict(ops.launches)
     layout, _ = la(page)

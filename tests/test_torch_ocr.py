@@ -8,8 +8,12 @@ convert_dbnet) with its last transposed conv scaled by 10, so that
 random weights give a structured map with several quads; the recognizer
 of tests/yaml/rec_small.yaml (parseq-large-v4_1 charset, D=32; the JAX
 seeded init given to the port through state_dict_from_jax).
-Quads and strings must be equal; scores agree to rtol 1e-4."""
+Quads and strings must be equal; scores agree to rtol 1e-4.  The task
+modules take the JAX package's arguments and return its (schema, vis)
+pairs; visualisations are equal pixel for pixel, and the host route's
+180-degree orientation fallback gives the same strings and scores."""
 
+import inspect
 import os
 import subprocess
 import sys
@@ -22,8 +26,14 @@ import torch
 
 from yomitoku_tpu.models.weights_convert import convert_dbnet
 from yomitoku_tpu.ocr import OCR as JaxOCR
+from yomitoku_tpu.text_detector import TextDetector as JaxTextDetector
+from yomitoku_tpu.text_recognizer import TextRecognizer as JaxTextRecognizer
+from yomitoku_tpu.utils import visualizer as jax_vis
+from yomitoku_tpu_torch.data.functions import resize_with_padding
 from yomitoku_tpu_torch.ocr import OCR
+from yomitoku_tpu_torch.text_detector import TextDetector
 from yomitoku_tpu_torch.text_recognizer import TextRecognizer
+from yomitoku_tpu_torch.utils import visualizer as port_vis
 from yomitoku_tpu_torch.weights import state_dict_from_jax
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -75,7 +85,8 @@ def test_detector_quads_equal(pipelines):
     jax_ocr, port = pipelines
     page = synthetic_page()
     want, _ = jax_ocr.detector(page)
-    got = port.detector(page)
+    got, vis = port.detector(page)
+    assert vis is None
     assert len(want.points) > 1
     assert got.points == want.points
     np.testing.assert_allclose(got.scores, want.scores, rtol=1e-4)
@@ -85,7 +96,8 @@ def test_recognizer_strings_equal_on_given_quads(pipelines):
     jax_ocr, port = pipelines
     page = synthetic_page()
     want, _ = jax_ocr.recognizer(page, QUADS)
-    got = port.recognizer(page, QUADS)
+    got, vis = port.recognizer(page, QUADS)
+    assert vis is None
     assert len(got.contents) == len(QUADS)
     assert got.contents == want.contents
     assert got.points == want.points
@@ -97,7 +109,8 @@ def test_ocr_schema_equal(pipelines):
     jax_ocr, port = pipelines
     page = synthetic_page()
     want, _ = jax_ocr(page)
-    got = port(page)
+    got, vis = port(page)
+    assert vis is None
     assert len(got.words) == len(want.words) > 1
     for g, w in zip(got.words, want.words):
         assert (g.points, g.content, g.direction) == (w.points, w.content, w.direction)
@@ -115,8 +128,8 @@ from yomitoku_tpu_torch import OCR
 ocr = OCR(configs={CONFIGS!r}, device="cpu")
 page = np.full((64, 96, 3), 255, np.uint8)
 page[20:40, 10:80] = 0
-result = ocr(page)
-words = ocr.recognizer(page, [[[10, 20], [80, 20], [80, 40], [10, 40]]])
+result, _ = ocr(page)
+words, _ = ocr.recognizer(page, [[[10, 20], [80, 20], [80, 40], [10, 40]]])
 assert len(words.contents) == 1
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "jaxlib"))
 assert not bad, bad
@@ -134,8 +147,6 @@ def test_reference_checkpoint_loads(tmp_path, monkeypatch):
     """A reference-layout pytorch_model.bin in the weight store loads as
     it is; the keys inference never reads (BatchNorm counters, DBNet's
     threshold head) are dropped."""
-    from yomitoku_tpu_torch.text_detector import TextDetector
-
     monkeypatch.setenv("YOMITOKU_TPU_WEIGHTS", str(tmp_path))
     cfg = CONFIGS["text_detector"]["path_cfg"]
     src = TextDetector(path_cfg=cfg, device="cpu", from_pretrained=False).model
@@ -160,3 +171,126 @@ def test_cuda_device_raises_without_cuda():
                        device="cuda", from_pretrained=False)
     with pytest.raises(RuntimeError, match="cuda"):
         OCR(configs=CONFIGS, device="cuda")
+
+
+# ---------------------------------------------------------------- the call API
+
+API_PAIRS = [(TextDetector, JaxTextDetector), (TextRecognizer, JaxTextRecognizer),
+             (OCR, JaxOCR)]
+
+
+@pytest.mark.parametrize("method", ["__init__", "__call__"])
+@pytest.mark.parametrize("port_cls, jax_cls", API_PAIRS,
+                         ids=[p.__name__ for p, _ in API_PAIRS])
+def test_task_signatures_match_jax(port_cls, jax_cls, method):
+    """The same parameter names in the same order and, but for the device
+    (CUDA here, the TPU there), the same defaults; ``dtype`` is the port's
+    own extra."""
+    got = inspect.signature(getattr(port_cls, method)).parameters
+    want = inspect.signature(getattr(jax_cls, method)).parameters
+    assert [n for n in got if n != "dtype"] == list(want)
+    for name, p in want.items():
+        if name != "device":
+            assert got[name].default == p.default, name
+    if "device" in want:
+        assert got["device"].default == "cuda"
+
+
+def _visualize_on(monkeypatch, *pipelines):
+    for ocr in pipelines:
+        monkeypatch.setattr(ocr.detector, "visualize", True)
+        monkeypatch.setattr(ocr.recognizer, "visualize", True)
+
+
+def test_visualize_matches_jax(pipelines, monkeypatch):
+    """visualize=True: the detector's quads, the recognizer's text drawn on
+    a given canvas or a copy of the page, and OCR's combined picture are
+    equal to the JAX modules' on the same weights and page."""
+    jax_ocr, port = pipelines
+    _visualize_on(monkeypatch, jax_ocr, port)
+    page = synthetic_page()
+    (_, want), (_, got) = jax_ocr.detector(page), port.detector(page)
+    assert got.shape == page.shape and not np.array_equal(got, page)
+    np.testing.assert_array_equal(got, want)
+    for canvas in (None, np.zeros_like(page)):
+        _, want = jax_ocr.recognizer(page, QUADS, vis=canvas)
+        _, got = port.recognizer(page, QUADS, vis=canvas)
+        np.testing.assert_array_equal(got, want)
+    (_, want), (_, got) = jax_ocr(page), port(page)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("as_u8", [True, False])
+def test_det_visualizer_heatmap_matches_jax(as_u8):
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, (40, 60, 3), dtype=np.uint8)
+    preds = rng.random((20, 30)).astype(np.float32)
+    if as_u8:
+        preds = (preds * 255).astype(np.uint8)
+    quads = [[[2, 3], [30, 3], [30, 15], [2, 15]]]
+    np.testing.assert_array_equal(
+        port_vis.det_visualizer(img, quads, preds=preds, vis_heatmap=True),
+        jax_vis.det_visualizer(img, quads, preds=preds, vis_heatmap=True))
+
+
+def test_orientation_fallback_matches_jax(pipelines, monkeypatch):
+    """The host route's 180-degree fallback: at thresholds around the
+    lines' scores, both packages retry the same lines, keep the same
+    rotated readings and return the same strings and scores; at one of
+    them at least one line is replaced."""
+    jax_ocr, port = pipelines
+    page = synthetic_page()
+    base, _ = port.recognizer(page, QUADS)
+    ds, _ = port.recognizer.preprocess(page, QUADS)
+    size = port.recognizer._cfg.data.img_size
+    rotated = np.stack([resize_with_padding(cv2.rotate(r, cv2.ROTATE_180), size)
+                        for r in ds.roi_images])
+    _, r_scores, _ = port.recognizer._run_batch_inference(rotated, ds.valid_quads)
+    # between a line's score and its rotated reading's (random weights
+    # score ~1e-17), and above them all
+    threshes = [(a * b) ** 0.5 for a, b in zip(base.scores, r_scores) if b > a]
+    assert threshes, (base.scores, r_scores)
+    threshes.append(2 * max(base.scores + r_scores))
+    replaced = 0
+    for thresh in threshes:
+        for rec in (jax_ocr.recognizer, port.recognizer):
+            monkeypatch.setattr(rec, "rec_orientation_fallback", True)
+            monkeypatch.setattr(rec, "rec_orientation_fallback_thresh", thresh)
+        want, _ = jax_ocr.recognizer(page, QUADS)
+        got, _ = port.recognizer(page, QUADS)
+        assert got.contents == want.contents
+        assert got.directions == want.directions
+        np.testing.assert_allclose(got.scores, want.scores, rtol=1e-4)
+        replaced += got.scores != base.scores
+    assert replaced > 0
+
+
+@pytest.mark.parametrize("cls", [TextDetector, TextRecognizer, OCR])
+def test_num_devices_beyond_one_raises(cls):
+    with pytest.raises(NotImplementedError, match="num_devices"):
+        cls(device="cpu", num_devices=2)
+
+
+def test_one_device_accepted():
+    det = TextDetector(path_cfg=CONFIGS["text_detector"]["path_cfg"], device="cpu",
+                       from_pretrained=False, num_devices=1, infer_onnx=True)
+    assert det.visualize is False
+
+
+def test_page_route_raises(pipelines):
+    _, port = pipelines
+    page = synthetic_page()
+    with pytest.raises(NotImplementedError, match="page="):
+        port.detector(page, page=object())
+    with pytest.raises(NotImplementedError, match="page="):
+        port.recognizer(page, QUADS, page=object())
+
+
+def test_ocr_configs_override_device():
+    """Each module's configs entry merges over OCR's own arguments, so a
+    ``device`` there wins (the JAX OCR's merge) instead of raising on a
+    duplicate keyword."""
+    configs = {name: {**cfg, "device": "cpu"} for name, cfg in CONFIGS.items()}
+    ocr = OCR(configs=configs, device="cuda", visualize=True)
+    assert ocr.detector.device.type == ocr.recognizer.device.type == "cpu"
+    assert ocr.detector.visualize and ocr.recognizer.visualize

@@ -126,3 +126,21 @@ class BaseModule:
         self.model = Net(self._cfg, device=self.device, dtype=dtype)
         if from_pretrained:
             load_pretrained(self.model, self._cfg)
+
+
+def check_num_devices(num_devices):
+    """The port runs on one card: ``num_devices`` None or 1, as the JAX
+    package's single-device default; more raises."""
+    if num_devices is not None and num_devices != 1:
+        raise NotImplementedError(
+            f"num_devices={num_devices}: page data parallelism is not ported "
+            "yet; the port runs on one device")
+
+
+def check_no_page(page):
+    """The device-page route (a page uploaded once and cropped on the
+    device) is not ported: ``page`` must be None."""
+    if page is not None:
+        raise NotImplementedError(
+            "the device-page route (page=) is not ported yet; pass the "
+            "image alone")

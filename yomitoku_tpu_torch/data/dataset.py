@@ -1,6 +1,7 @@
 """Line-crop dataset of the PARSeq recognizer (the port's copy of what it
 calls of yomitoku_tpu/data/dataset.py): thread-pool perspective crop,
-rotate and pad of the word quads at construction; the crops come out as
+rotate and pad of the word quads at construction, keeping the unpadded
+ROI crops for the 180-degree orientation fallback; the crops come out as
 one NHWC uint8 batch."""
 
 from concurrent.futures import ThreadPoolExecutor
@@ -24,7 +25,8 @@ class ParseqDataset:
         with ThreadPoolExecutor(max_workers=num_workers) as executor:
             data = list(executor.map(self.preprocess, self.quads))
 
-        self.data = [d for d in data if d is not None]
+        self.data = [d[0] for d in data if d is not None]
+        self.roi_images = [d[1] for d in data if d is not None]
         self.valid_quads = [q for q, d in zip(self.quads, data) if d is not None]
 
     def preprocess(self, quad):
@@ -34,7 +36,7 @@ class ParseqDataset:
         if roi_img is None or roi_img.size == 0:
             return None
         roi_img = rotate_text_image(roi_img, thresh_aspect=2)
-        return resize_with_padding(roi_img, self.cfg.data.img_size)
+        return resize_with_padding(roi_img, self.cfg.data.img_size), roi_img
 
     def __len__(self):
         return len(self.data)

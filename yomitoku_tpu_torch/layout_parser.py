@@ -13,7 +13,7 @@ raises NotImplementedError.
 import cv2
 import numpy as np
 
-from .base import BaseModelCatalog, BaseModule
+from .base import BaseModelCatalog, BaseModule, check_no_page
 from .configs import LayoutParserRTDETRv2Config, LayoutParserRTDETRv2V2Config
 from .models.rtdetr import RTDETRv2
 from .postprocessor.rtdetr_postprocessor import RTDETRPostProcessor
@@ -131,10 +131,7 @@ class LayoutParser(BaseModule):
 
     def __call__(self, img, page=None):
         """Detect the layout of a BGR image -> (LayoutParserSchema, vis)."""
-        if page is not None:
-            raise NotImplementedError(
-                "the device-page route (page=) is not ported yet; pass the "
-                "image alone")
+        check_no_page(page)
         ori_h, ori_w = img.shape[:2]
         preds = self.model(self.preprocess(img))
         results = self.postprocess(preds, (ori_h, ori_w))

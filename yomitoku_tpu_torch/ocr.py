@@ -25,18 +25,22 @@ def ocr_aggregate(det_outputs, rec_outputs):
 
 
 class OCR:
-    """Detector + recognizer.  Unlike the JAX package's OCR, no
-    visualisation yet: a call returns the schema alone."""
+    """Detector + recognizer, with the JAX package's arguments: each
+    module's ``configs`` entry is merged over ``device``, ``visualize`` and
+    ``num_devices``."""
 
-    def __init__(self, configs=None, device="cuda"):
+    def __init__(self, configs=None, device="cuda", visualize=False,
+                 num_devices=None):
         configs = configs or {}
         if not isinstance(configs, dict):
             raise ValueError("configs must be a dict.")
-        self.detector = TextDetector(device=device, **configs.get("text_detector", {}))
-        self.recognizer = TextRecognizer(device=device, **configs.get("text_recognizer", {}))
+        common = {"device": device, "visualize": visualize,
+                  "num_devices": num_devices}
+        self.detector = TextDetector(**{**common, **configs.get("text_detector", {})})
+        self.recognizer = TextRecognizer(**{**common, **configs.get("text_recognizer", {})})
 
     def __call__(self, img):
-        """Run OCR on a BGR image -> OCRSchema."""
-        det_outputs = self.detector(img)
-        rec_outputs = self.recognizer(img, det_outputs.points)
-        return OCRSchema(words=ocr_aggregate(det_outputs, rec_outputs))
+        """Run OCR on a BGR image -> (OCRSchema, vis)."""
+        det_outputs, vis = self.detector(img)
+        rec_outputs, vis = self.recognizer(img, det_outputs.points, vis=vis)
+        return OCRSchema(words=ocr_aggregate(det_outputs, rec_outputs)), vis

@@ -13,7 +13,7 @@ raises NotImplementedError.
 import cv2
 import numpy as np
 
-from .base import BaseModelCatalog, BaseModule
+from .base import BaseModelCatalog, BaseModule, check_no_page
 from .configs import TableStructureRecognizerRTDETRv2Config
 from .layout_parser import filter_contained_rectangles_within_category
 from .models.rtdetr import RTDETRv2
@@ -154,10 +154,7 @@ class TableStructureRecognizer(BaseModule):
     def __call__(self, img, table_boxes, vis=None, page=None):
         """Recognise the tables at ``table_boxes`` of a BGR image ->
         (list of TableStructureRecognizerSchema, vis)."""
-        if page is not None:
-            raise NotImplementedError(
-                "the device-page route (page=) is not ported yet; pass the "
-                "image alone")
+        check_no_page(page)
         data = self.preprocess(img, table_boxes)
         outputs = []
         if data:

@@ -3,9 +3,12 @@ yomitoku_tpu/text_detector.py): resize the uint8 page on the host
 (shortest edge 1280, limit 1600, /32-snapped), standardise and run DBNet
 on the device, bring back the uint8 probability map, and extract quads
 with the port's copy of the JAX package's postprocessor (native C++
-contours and unclip, csrc/dbnet_post.cpp)."""
+contours and unclip, csrc/dbnet_post.cpp).  The constructor takes the
+JAX package's arguments; ``num_devices`` beyond 1 raises until the port
+has page data parallelism, and ``page=`` raises until it has device
+crops."""
 
-from .base import BaseModelCatalog, BaseModule
+from .base import BaseModelCatalog, BaseModule, check_no_page, check_num_devices
 from .configs import (
     TextDetectorDBNetConfig,
     TextDetectorDBNetV2_1Config,
@@ -36,12 +39,17 @@ class TextDetector(BaseModule):
         model_name="dbnetv2_1",
         path_cfg=None,
         device="cuda",
+        visualize=False,
         from_pretrained=True,
+        infer_onnx=False,  # accepted, as in the JAX package; unused
+        num_devices=None,
         dtype=None,
     ):
         super().__init__()
+        check_num_devices(num_devices)
         self.load_model(model_name, path_cfg, device=device,
                         from_pretrained=from_pretrained, dtype=dtype)
+        self.visualize = visualize
         self.post_processor = DBnetPostProcessor(**self._cfg.post_process)
 
     def preprocess_u8(self, img):
@@ -55,10 +63,23 @@ class TextDetector(BaseModule):
     def postprocess(self, preds, image_size):
         return self.post_processor(preds, image_size)
 
-    def __call__(self, img):
-        """Detect text quads in a BGR image -> TextDetectorSchema."""
+    def __call__(self, img, page=None):
+        """Detect text quads in a BGR image -> (TextDetectorSchema, vis)."""
+        check_no_page(page)
         ori_h, ori_w = img.shape[:2]
         binary = self.model.forward_binary_u8(self.preprocess_u8(img))
         with segment("det", "contours"):
             quads, scores = self.postprocess({"binary": binary}, (ori_h, ori_w))
-        return TextDetectorSchema(points=quads, scores=scores)
+        results = TextDetectorSchema(points=quads, scores=scores)
+        vis = None
+        if self.visualize:
+            from .utils.visualizer import det_visualizer
+
+            vis = det_visualizer(
+                img,
+                quads,
+                preds=binary[0],
+                vis_heatmap=self._cfg.visualize.heatmap,
+                line_color=tuple(self._cfg.visualize.color[::-1]),
+            )
+        return results, vis

@@ -1,11 +1,61 @@
-"""Visualisation of the layout results (the port's copy of
-``layout_visualizer`` and ``table_visualizer`` of
-yomitoku_tpu/utils/visualizer.py): boxes per category and table cells,
-drawn with cv2."""
+"""Visualisation of the task results (the port's copy of
+``det_visualizer``, ``rec_visualizer``, ``layout_visualizer`` and
+``table_visualizer`` of yomitoku_tpu/utils/visualizer.py): detection quads
+and heatmap, recognized text (vertical top-to-bottom where PIL has
+libraqm), boxes per category and table cells, drawn with cv2 and PIL."""
 
 import cv2
+import numpy as np
+from PIL import Image, ImageDraw, ImageFont, features
 
 from ..constants import PALETTE
+from .logger import set_logger
+
+logger = set_logger(__name__, "INFO")
+
+
+def det_visualizer(img, quads, preds=None, vis_heatmap=False, line_color=(0, 255, 0)):
+    """preds: (H, W) float probability map, or the u8 map (value =
+    prob * 255) that the detector brings back from the device."""
+    out = img.copy()
+    h, w = out.shape[:2]
+    if vis_heatmap and preds is not None:
+        preds = np.asarray(preds)
+        if preds.dtype == np.uint8:
+            binary = preds
+        else:
+            binary = (preds * 255).astype(np.uint8)
+        binary = cv2.resize(binary, (w, h), interpolation=cv2.INTER_LINEAR)
+        heatmap = cv2.applyColorMap(binary, cv2.COLORMAP_JET)
+        out = cv2.addWeighted(out, 0.5, heatmap, 0.5, 0)
+    for quad in quads:
+        quad = np.array(quad).astype(np.int32)
+        out = cv2.polylines(out, [quad], True, line_color, 1)
+    return out
+
+
+def rec_visualizer(img, outputs, font_path, font_size=12, font_color=(255, 0, 0)):
+    out = img.copy()
+    pillow_img = Image.fromarray(out)
+    draw = ImageDraw.Draw(pillow_img)
+    has_raqm = features.check_feature(feature="raqm")
+    if not has_raqm:
+        logger.warning(
+            "libraqm is not installed. Vertical text rendering is not "
+            "supported. Rendering horizontally instead."
+        )
+    font = ImageFont.truetype(font_path, font_size)
+    for pred, quad, direction in zip(
+        outputs.contents, outputs.points, outputs.directions
+    ):
+        quad = np.array(quad).astype(np.int32)
+        if direction == "horizontal" or not has_raqm:
+            pos = (quad[0][0], quad[0][1] - font_size)
+            draw.text(pos, pred, font=font, fill=font_color)
+        else:
+            pos = (quad[0][0] - font_size, quad[0][1])
+            draw.text(pos, pred, font=font, fill=font_color, direction="ttb")
+    return np.array(pillow_img)
 
 
 def layout_visualizer(results, img):
