@@ -8,7 +8,9 @@ Phases, each printed as it runs; any failure exits non-zero:
 1. Card: name and power limit (nvidia-smi), and the kernel build time
    (the CUDA sources under yomitoku_tpu_torch/csrc compile here), with
    the registers and spills of every attention kernel instantiation
-   (ptxas; a spill fails the run).
+   (ptxas; a spill fails the run), and of every GEMM kernel (the three
+   wgmma schedules in both weight layouts, the f32 and LayerNorm kernels;
+   a spill fails the run).
 2. Kernels: each of the four OCR kernels at the recognizer's shapes
    against its plain PyTorch version on the same CUDA inputs (f32 kernel
    vs f32 reference at max|d| <= 1e-4 max|ref| + 1e-5 with TF32 off; bf16
@@ -28,14 +30,29 @@ Phases, each printed as it runs; any failure exits non-zero:
    SDPA call's (profiler), its bound and TFLOP/s; at the refine's and the
    ViT's a line ``attention consumer warpgroups ...`` gives the device time
    of the kernel with two consumer warpgroups per block (route "wgmma")
-   and with one ("wgmma_small" unsplit) on the same inputs.
+   and with one ("wgmma_small" unsplit) on the same inputs.  The four OCR
+   kernels are timed per call and on the device (profiler), beside the
+   stock composition's device time.  Then the GEMM kernel alone: a line
+   ``gemm [label] ...`` at every bf16 GEMM shape of the main paths (the
+   ViT's QKV, out-projection, fc1 and fc2 at M = 51,200, the refine MLP's
+   fc1 and fc2 at M = 12,928, fused_attention_block's two at M = 400),
+   with the epilogue the path runs, in both weight layouts: its route,
+   max|d| against the f32 product of the same bf16 values (2e-2 of the
+   largest value), device ms and TFLOP/s, one torch.matmul at the same
+   (M, K, N) on the device as cuBLAS's yardstick, and the bound; at the
+   M = 51,200 shapes a line ``gemm schedules [label] ...`` with the device
+   time of every bf16 schedule on the same inputs (the two consumer
+   warpgroups taking 128 x 128 units in turns, "wgmma"; sharing 128 x 256
+   units, "wgmma_coop"; one warpgroup on 64 x 128 units, "wgmma_small").
 3. The OCR path: ``OCR(device="cuda")`` (DBNet dbnetv2_1 + PARSeq
    parseq-large-v4_1, seed-0 random weights) on demo/sample_text.png, its
    recognizer on a synthetic page of 128+ lines (a full batch of 128), the
    four launch counters of that run and the attention kernel's launches
    by route (every bf16 path's attention on a wgmma route, none on the FMA
-   kernel, in phases 3, 4, 6 and 7), the decode's device busy time and the
-   attention kernel's share of it, and two 16-line f32 recognizer runs
+   kernel, in phases 3, 4, 6 and 7) and the GEMM kernel's (none on "fma"
+   in phases 3, 4, 6 and 7), the bf16 decode in ms per batch, its device
+   busy time and the attention and GEMM kernels' shares of it, and two
+   16-line f32 recognizer runs
    on the card (the first captures the AR step's CUDA graph, the second
    replays it) against the same weights on the CPU (plain path).
 4. The layout path: ``LayoutAnalyzer(device="cuda")`` (RT-DETRv2
@@ -263,18 +280,19 @@ def card_line():
     return out[0].strip()
 
 
-def attention_instantiations(build_log):
-    """[(kernel<template args>, registers, spill bytes)] of every attention
-    kernel in ptxas's output, in build order."""
+def instantiations(build_log, kernels):
+    """[(kernel<template args>, registers, spill bytes)] of every kernel
+    whose name matches the regex ``kernels``, in ptxas's output, in build
+    order."""
     import re
 
     rows, name = [], None
     for line in build_log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?\d(attention_(?:wgmma_|combine_)?kernel)"
-                      r"I(\w+?)EEv", line)
+        m = re.search(rf"Compiling entry function '\w*?\d({kernels})I(\w+?)EEv", line)
         if m:
-            args = re.findall(r"Li(\d+)E|(13__nv_bfloat16|S\d*_)|(f)", m.group(2))
-            label = ", ".join(n or ("bf16" if b else "f32") for n, b, _ in args)
+            args = re.findall(r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16|(?<!N)S\d*_)|(f)", m.group(2))
+            label = ", ".join(n or ("true" if b == "1" else "false") if n or b else
+                              "bf16" if h else "f32" for n, b, h, _ in args)
             name, spills = f"{m.group(1)}<{label}>", None
             continue
         if name and spills is None and "spill stores" in line:
@@ -302,11 +320,18 @@ def phase_card():
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "nvcc.log").write_text(lib.build_log)
     if lib.build_log:  # a fresh build: ptxas's registers and spills
-        rows = attention_instantiations(lib.build_log)
+        rows = instantiations(lib.build_log, r"attention_(?:wgmma_|combine_)?kernel")
         log("attention instantiations (ptxas): " + "; ".join(
             f"{n} {r} regs, {sp} B spilled" for n, r, sp in rows))
         check(any("wgmma" in n for n, _, _ in rows), "no wgmma attention kernel was built")
         check(all(sp == 0 for _, _, sp in rows), "an attention instantiation spills")
+        rows = instantiations(lib.build_log, "gemm_wgmma_kernel|gemm_f32_kernel|layer_norm_kernel")
+        log("gemm instantiations (ptxas): " + "; ".join(
+            f"{n} {r} regs, {sp} B spilled" for n, r, sp in rows))
+        check(sum("gemm_wgmma" in n for n, _, _ in rows) == 4 * len(GEMM_SCHEDULES),
+              "a wgmma GEMM schedule was not built in both weight layouts, with and "
+              "without GELU")
+        check(all(sp == 0 for _, _, sp in rows), "a GEMM instantiation spills")
     return card
 
 
@@ -636,6 +661,8 @@ def phase_kernels():
                     res["library_ms"] = (
                         median_ms(sdpa_call(*bf, *tail))
                         if name == "fused_attention_heads" else None)
+                    res["device_ms"] = device_ms(lambda: kern(*args16, *tail))
+                    res["stock_device_ms"] = device_ms(lambda: stock(*bf, *tail))
                 res["bound_ms"], res["bound_by"] = bound(
                     bf, [out16], kernel_ops(name, bf, tail))
                 if name == "fused_attention_heads":  # the PARSeq refine
@@ -645,9 +672,10 @@ def phase_kernels():
                             kernel_ops(name, bf, tail)["bf16"]))
                         res.update(consumer_warpgroups(name, "refine", *args16[:3], *tail))
                     log_attention(name, "refine", res)
-                log(f"kernel {name}: bf16 {res['ms']:.3f} ms, plain "
-                    f"{res['plain_ms']:.3f} ms, stock bf16 torch "
-                    f"{res['stock_ms']:.3f} ms, one library call "
+                log(f"kernel {name}: bf16 {res['ms']:.3f} ms per call (device "
+                    f"{_ms(res['device_ms'])}), plain {res['plain_ms']:.3f} ms, stock "
+                    f"bf16 torch {res['stock_ms']:.3f} ms (device "
+                    f"{_ms(res['stock_device_ms'])}), one library call "
                     f"{res['library_ms'] if res['library_ms'] is None else round(res['library_ms'], 4)} ms "
                     f"(median of 10); bound {res['bound_ms']:.4f} ms "
                     f"({res['bound_by']})")
@@ -657,6 +685,152 @@ def phase_kernels():
         results[name] = res
     ops.reset_launches()
     return results
+
+
+
+# ------------------------------------------------------------ the GEMM kernel
+
+#: The bf16 GEMMs of the main paths: label -> (M, K, N, epilogue), the
+#: epilogue as the path runs it ("ln": the LayerNorm pass first; "gelu";
+#: "res": the residual): the ViT's four per encoder block at batch 128,
+#: the refine MLP's two, and fused_attention_block's two at (1, 400, 256)
+GEMM_SHAPES = {
+    "vit_qkv": (B * L, D, 3 * D, ("ln",)),
+    "vit_out": (B * L, D, D, ("res",)),
+    "vit_fc1": (B * L, D, HIDDEN, ("ln", "gelu")),
+    "vit_fc2": (B * L, HIDDEN, D, ("res",)),
+    "refine_fc1": (B * STEPS, D, HIDDEN, ("gelu",)),
+    "refine_fc2": (B * STEPS, HIDDEN, D, ()),
+    "block_qkv": (400, 256, 768, ()),
+    "block_out": (400, 256, 256, ()),
+}
+#: the GEMM shapes inside each kernel row
+GEMMS_OF = {"fused_attention_block_ln": ("vit_qkv", "vit_out"),
+            "fused_mlp_ln": ("vit_fc1", "vit_fc2"),
+            "fused_mlp": ("refine_fc1", "refine_fc2"),
+            "fused_attention_block": ("block_qkv", "block_out")}
+#: the bf16 routes timed against each other at the M = 51,200 shapes
+GEMM_SCHEDULES = ("wgmma", "wgmma_coop", "wgmma_small")
+
+
+def _gemm_inputs(rng, M, K, N, epilogue, layout):
+    """bf16 inputs on the card: a, w (in the layout), bias, res, ln."""
+    import torch
+
+    def dev(shape, std=1.0, center=0.0):
+        return torch.from_numpy((center + rng.standard_normal(shape, dtype="float32") * std)).to(
+            "cuda", torch.bfloat16)
+
+    a = dev((M, K))
+    w = dev((K, N), K ** -0.5)
+    if layout == "out_in.t":
+        w = w.t().contiguous().t()
+    res = dev((M, N)) if "res" in epilogue else None
+    ln = (dev((K,), 0.1, 1.0), dev((K,), 0.1), 1e-6) if "ln" in epilogue else None
+    return a, w, dev((N,), 0.1), res, ln
+
+
+def _gemm_plain(a, w, bias, res, ln, gelu):
+    """The f32 product of the same bf16 values, LN(a) rounded to bf16 first
+    (as the kernel and the Pallas kernels round it)."""
+    import torch.nn.functional as F
+
+    from yomitoku_tpu_torch import ops
+
+    x = a if ln is None else ops.layer_norm(a, *ln)
+    y = x.float() @ w.float() + bias.float()
+    if gelu:
+        y = F.gelu(y)
+    return y if res is None else y + res.float()
+
+
+def gemm_route_of(fn):
+    """The GEMM route(s) that one call of ``fn`` launched."""
+    import torch
+
+    from yomitoku_tpu_torch.ops._common import gemm_route_launches
+
+    before = dict(gemm_route_launches)
+    fn()
+    torch.cuda.synchronize()
+    return "+".join(r for r, n in gemm_route_launches.items() if n > before[r]) or None
+
+
+def phase_gemm():
+    """The GEMM kernel at every shape of the main paths, in both weight
+    layouts, with the epilogue the path runs: the route, max|d| against the
+    f32 plain product of the same bf16 values (2e-2 of the largest value),
+    device ms (profiler, the GEMM kernel alone), TFLOP/s, the bound, and
+    one torch.matmul at the same (M, K, N) as cuBLAS's yardstick (never
+    called by the port); at the M = 51,200 shapes also every bf16 schedule
+    on the same inputs -> {label: numbers}."""
+    import numpy as np
+    import torch
+
+    from yomitoku_tpu_torch.ops._common import gemm, launch_gemm
+
+    rng = np.random.default_rng(3)
+    results = {}
+    for label, (M, K, N, epilogue) in GEMM_SHAPES.items():
+        gelu = "gelu" in epilogue
+        flops = 2 * M * K * N
+        res_by_layout = {}
+        for layout in LAYOUTS:
+            a, w, bias, res, ln = _gemm_inputs(rng, M, K, N, epilogue, layout)
+            out = torch.empty((M, N), dtype=torch.bfloat16, device="cuda")
+            call = lambda: gemm(a, w, bias, out, res=res, ln=ln, gelu=gelu)  # noqa: E731
+            route = gemm_route_of(call)
+            want = _gemm_plain(a, w, bias, res, ln, gelu)
+            err = (out.float() - want).abs().max().item()
+            limit = 2e-2 * want.abs().max().item()
+            del want
+            check(math.isfinite(err) and err <= limit,
+                  f"gemm [{label}, {layout}]: max|d| {err:.3e} over {limit:.3e}")
+            check(route is not None and route.startswith("wgmma"),
+                  f"gemm [{label}, {layout}]: bf16 took route {route}")
+            r = dict(route=route, max_abs_err=err, limit=limit)
+            r["device_ms"] = device_ms(call, "gemm_wgmma")
+            r["tflops"] = flops / r["device_ms"] / 1e9 if r["device_ms"] else None
+            if layout == LAYOUTS[0]:
+                r["matmul_device_ms"] = device_ms(lambda: torch.matmul(a, w))
+                r["bound_ms"], r["bound_by"] = bound(
+                    [a, w, bias] + [t for t in (res,) + (ln or ())[:2] if t is not None],
+                    [out], {"bf16": flops})
+                if M == B * L:
+                    for sched in GEMM_SCHEDULES:
+                        r[f"{sched}_device_ms"] = device_ms(
+                            lambda: launch_gemm(sched, a, w, bias, out, res, ln, gelu),
+                            "gemm_wgmma")
+            res_by_layout[layout] = r
+            del a, w, bias, res, ln, out
+            torch.cuda.empty_cache()
+        main, other = res_by_layout[LAYOUTS[0]], res_by_layout[LAYOUTS[1]]
+        tf = "not measured" if main["tflops"] is None else f"{main['tflops']:.1f}"
+        log(f"gemm [{label}] M {M} K {K} N {N} {'+'.join(epilogue) or 'bias'}: route "
+            f"{main['route']} / {other['route']} ({'/'.join(LAYOUTS)}), max|d| "
+            f"{main['max_abs_err']:.3e} / {other['max_abs_err']:.3e} (limit "
+            f"{main['limit']:.3e}); device {_ms(main['device_ms'])} / "
+            f"{_ms(other['device_ms'])}, {tf} TFLOP/s ({flops / 1e9:.1f} GFLOP) against one "
+            f"torch.matmul's {_ms(main['matmul_device_ms'])}; bound {main['bound_ms']:.4f} ms "
+            f"({main['bound_by']})")
+        if M == B * L:
+            log(f"gemm schedules [{label}]: " + ", ".join(
+                f"{s} {_ms(main[s + '_device_ms'])}" for s in GEMM_SCHEDULES))
+        results[label] = dict(main, **{f"{k}_{LAYOUTS[1]}": v for k, v in other.items()
+                                       if k in ("route", "max_abs_err", "device_ms", "tflops")})
+    return results
+
+
+def check_gemm_routes(what, runs_gemm=True):
+    """After a bf16 path's counted run: the GEMM kernel's launches by route;
+    none on "fma" (the f32 kernel), and some on a wgmma route where the
+    path runs the GEMM (``runs_gemm``; the layout path does not)."""
+    from yomitoku_tpu_torch.ops._common import gemm_route_launches
+
+    routes = dict(gemm_route_launches)
+    log(f"{what}: gemm launches by route {routes}")
+    check(routes["fma"] == 0 and (sum(routes.values()) > 0) == runs_gemm,
+          f"{what}: the path's GEMM launches by route are off: {routes}")
 
 
 def _stock_deformable(value, loc, att, shapes, points):
@@ -824,10 +998,12 @@ def host_timed(fn, runs=3):
 
 def decode_profile(model, crops):
     """One recognizer model's decode of ``crops`` under torch.profiler (2
-    calls) -> (device busy ms per batch, of which the attention kernels)."""
+    calls) -> (device busy ms per batch, of which the attention kernels, of
+    which the bf16 GEMM kernel and its LayerNorm pass)."""
     _, device, _ = profiled(lambda: model.forward_tokens(crops), runs=2)
     return (sum(device.values()),
-            sum(v for k, v in device.items() if "attention" in k))
+            sum(v for k, v in device.items() if "attention" in k),
+            sum(v for k, v in device.items() if "gemm_wgmma" in k or "layer_norm_kernel" in k))
 
 
 def _finite_schema(schema, what):
@@ -876,6 +1052,7 @@ def _phase_slice(card):
     check(all(launches[k] > 0 for k in OCR_KERNELS),
           f"a kernel of the OCR path was never launched: {launches}")
     check_attention_routes("slice", "wgmma")
+    check_gemm_routes("slice")
     check(len(result.words) > 0, "OCR schema holds no words")
     for w in result.words:
         check(np.isfinite([w.det_score, w.rec_score]).all(), "OCR score not finite")
@@ -901,9 +1078,11 @@ def _phase_slice(card):
     first_s = host_timed(lambda: rec.forward_tokens(crops), runs=1)
     ids_bf16, _ = rec.forward_tokens(crops)
     model_s = host_timed(lambda: rec.forward_tokens(crops))
-    busy, attn = decode_profile(rec, crops)
-    log(f"slice: bf16 decode on the device (profiler): busy {busy:.2f} ms per batch "
-        f"of 128, of which the attention kernel {attn:.3f} ms")
+    busy, attn, gemm_ms = decode_profile(rec, crops)
+    log(f"slice: bf16 decode {model_s * 1e3:.1f} ms per batch of 128; on the device "
+        f"(profiler) busy {busy:.2f} ms, of which the attention kernel {attn:.3f} ms "
+        f"and the GEMM kernel with its LayerNorm pass {gemm_ms:.3f} ms "
+        f"({gemm_ms / busy:.3f} of busy)")
     log(f"slice: OCR {page_s * 1e3:.1f} ms/page (detector {det_s * 1e3:.1f} ms) "
         f"on sample_text.png; recognizer bf16 batch 128: {128 / rec_s:.1f} "
         f"lines/s end to end ({rec_s * 1e3:.1f} ms, of which host crops "
@@ -1056,6 +1235,7 @@ def phase_layout(card):
     check(all(launches[k] > 0 for k in LAYOUT_KERNELS),
           f"a kernel of the layout path was never launched: {launches}")
     check_attention_routes("layout", "wgmma_small")
+    check_gemm_routes("layout", runs_gemm=False)
     _in_page(result, w, h, "layout")
     data = tsr.preprocess(page, TABLE_BOXES)
     preds = tsr.model(np.stack([d["array"] for d in data]))
@@ -1290,6 +1470,7 @@ def _phase_int8_recognizer(card, ctx):
     check(all(launches[k] > 0 for k in INT8_KERNELS),
           f"a kernel of the int8 recognizer path was never launched: {launches}")
     check_attention_routes("int8", "wgmma")
+    check_gemm_routes("int8")
     check(launches["fused_attention_block_ln"] == 0 and launches["fused_mlp_ln"] == 0,
           f"the int8 path ran a bf16 encoder kernel: {launches}")
     _finite_schema(lines, "int8 recognizer")
@@ -1312,7 +1493,7 @@ def _phase_int8_recognizer(card, ctx):
     rec_s = host_timed(lambda: rec(page, quads[:128]))
     crop_s = host_timed(lambda: ParseqDataset(rec._cfg, page, quads[:128]).as_u8_array())
     model_s = host_timed(lambda: model.forward_tokens(crops))
-    busy, attn = decode_profile(model, crops)
+    busy, attn, _ = decode_profile(model, crops)
     log(f"int8: decode on the device (profiler): busy {busy:.2f} ms per batch of "
         f"128, of which the attention kernel {attn:.3f} ms")
     log(f"int8: recognizer batch 128 (int8 encoder + int8 K/V): {128 / rec_s:.1f} "
@@ -1653,6 +1834,7 @@ def _phase_fused_backbone(card):
     torch.cuda.synchronize()
     launches = dict(ops.launches)
     check_attention_routes("fused")
+    check_gemm_routes("fused")
     on_layout = {k: launches[k] - on_ocr[k] for k in launches}
     log(f"fused: launches on OCR {on_ocr}")
     log(f"fused: launches on layout {on_layout}")
@@ -1771,6 +1953,7 @@ def main():
     try:
         card = phase_card()
         kernels = phase_kernels()
+        gemm_shapes = phase_gemm()
         layout_kernels = phase_layout_kernels()
         kernels.update(phase_int8_kernels())
         shaped = phase_fused_kernels()  # {kernel: {label: numbers}}
@@ -1786,6 +1969,8 @@ def main():
     log(card)  # as nvidia-smi prints it: name, power limit
     for name, at in layout_kernels.items():
         shaped.setdefault(name, {}).update(at)
+    for name, labels in GEMMS_OF.items():  # the GEMM kernel's shapes inside each row
+        shaped.setdefault(name, {}).update({f"gemm_{lb}": gemm_shapes[lb] for lb in labels})
     rows = []
     for name, route, src, more, replaces in KERNELS:
         by_path = {p: n[name] for p, n in paths.items() if n[name]}

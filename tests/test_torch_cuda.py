@@ -261,6 +261,67 @@ def test_attention_routes_match_plain_versions(B, H, Lq, Lk, Dh, layout, dtype, 
     assert err <= rel * top + add, (err, top)
 
 
+GEMM_EPILOGUES = ("ln", "bias", "gelu", "res", "none")
+#: (M, N, K, route, forced): ragged M, N below every unit's width (96),
+#: K not a multiple of 64 (200), on every bf16 route forced through the
+#: launcher, and through the wrapper where its route choice lands: the
+#: small grid and the 128-row one; f32 through the wrapper ("fma")
+GEMM_CASES = (
+    [(200, 96, 200, route, True) for route in ("wgmma", "wgmma_coop", "wgmma_small")]
+    + [(1000, 768, 768, "wgmma_small", False), (33000, 264, 200, "wgmma", False),
+       (200, 96, 200, "fma", False)]
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", GEMM_EPILOGUES)
+@pytest.mark.parametrize("layout", ["out_in.t", "in_out"])
+@pytest.mark.parametrize("M,N,K,route,forced", GEMM_CASES)
+def test_gemm_routes_match_plain_versions(M, N, K, route, forced, layout, epilogue):
+    """The GEMM kernel on each route against the plain product of the same
+    values (LN(a) rounded to the storage type first, as the kernel and the
+    Pallas kernels round it), bf16 within 2e-2 of the largest value, f32
+    within 1e-4 of it plus 1e-5; W as a torch Linear weight .t() and as a
+    row-major (in, out) tensor.  Through the wrapper its launch is counted
+    on the route taken; through the launcher nothing is counted."""
+    import torch.nn.functional as F
+
+    from yomitoku_tpu_torch.ops._common import gemm, gemm_route_launches, launch_gemm
+
+    _require_cuda()
+    dt = torch.float32 if route == "fma" else torch.bfloat16
+    rng = np.random.default_rng(61)
+    a = _dev(rng.standard_normal((M, K)), dt)
+    w = _dev(rng.standard_normal((K, N)) * K ** -0.5, dt)
+    if layout == "out_in.t":
+        w = w.t().contiguous().t()
+    bias = None if epilogue == "none" else _dev(0.1 * rng.standard_normal(N), dt)
+    res = _dev(rng.standard_normal((M, N)), dt) if epilogue == "res" else None
+    ln = None
+    if epilogue == "ln":
+        ln = (_dev(1 + 0.1 * rng.standard_normal(K), dt), _dev(0.1 * rng.standard_normal(K), dt),
+              1e-6)
+    gelu = epilogue == "gelu"
+    out = torch.empty((M, N), dtype=dt, device="cuda")
+    routes0 = dict(gemm_route_launches)
+    if forced:
+        launch_gemm(route, a, w, bias, out, res, ln, gelu)
+    else:
+        gemm(a, w, bias, out, res=res, ln=ln, gelu=gelu)
+    torch.cuda.synchronize()
+    taken = {r: n - routes0[r] for r, n in gemm_route_launches.items()}
+    assert taken == {r: int(r == route and not forced) for r in taken}, taken
+    x = a if ln is None else ops.layer_norm(a, ln[0], ln[1], ln[2])
+    want = x.float() @ w.float() + (0 if bias is None else bias.float())
+    if gelu:
+        want = F.gelu(want)
+    if res is not None:
+        want = want + res.float()
+    rel, add = (1e-4, 1e-5) if dt == torch.float32 else (2e-2, 0.0)
+    err, top = (out.float() - want).abs().max().item(), want.abs().max().item()
+    assert err <= rel * top + add, (err, top)
+
+
 @pytest.mark.cuda
 def test_small_rtdetr_f32_matches_cpu():
     """The layout parser of tests/yaml/layout_small.yaml in f32 on the card

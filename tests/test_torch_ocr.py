@@ -13,6 +13,7 @@ modules take the JAX package's arguments and return its (schema, vis)
 pairs; visualisations are equal pixel for pixel, and the host route's
 180-degree orientation fallback gives the same strings and scores."""
 
+import ast
 import inspect
 import os
 import subprocess
@@ -179,6 +180,22 @@ API_PAIRS = [(TextDetector, JaxTextDetector), (TextRecognizer, JaxTextRecognizer
              (OCR, JaxOCR)]
 
 
+_NO_DEFAULT = object()
+
+
+def _params(cls, method):
+    """{name: default} of ``cls.method`` in the order of its source: read
+    from the module's syntax tree, since instantiating a task module wraps
+    its ``__call__`` in a (*args, **kwargs) timing observer."""
+    tree = ast.parse(inspect.getsource(inspect.getmodule(cls)))
+    node = next(n for n in ast.walk(tree) if isinstance(n, ast.ClassDef) and n.name == cls.__name__)
+    fn = next(n for n in node.body if isinstance(n, ast.FunctionDef) and n.name == method)
+    args = fn.args.args[1:]  # without self
+    defaults = [_NO_DEFAULT] * (len(args) - len(fn.args.defaults)) + [
+        ast.literal_eval(d) for d in fn.args.defaults]
+    return dict(zip((a.arg for a in args), defaults))
+
+
 @pytest.mark.parametrize("method", ["__init__", "__call__"])
 @pytest.mark.parametrize("port_cls, jax_cls", API_PAIRS,
                          ids=[p.__name__ for p, _ in API_PAIRS])
@@ -186,14 +203,13 @@ def test_task_signatures_match_jax(port_cls, jax_cls, method):
     """The same parameter names in the same order and, but for the device
     (CUDA here, the TPU there), the same defaults; ``dtype`` is the port's
     own extra."""
-    got = inspect.signature(getattr(port_cls, method)).parameters
-    want = inspect.signature(getattr(jax_cls, method)).parameters
+    got, want = _params(port_cls, method), _params(jax_cls, method)
     assert [n for n in got if n != "dtype"] == list(want)
-    for name, p in want.items():
+    for name, default in want.items():
         if name != "device":
-            assert got[name].default == p.default, name
+            assert got[name] == default, name
     if "device" in want:
-        assert got["device"].default == "cuda"
+        assert got["device"] == "cuda"
 
 
 def _visualize_on(monkeypatch, *pipelines):

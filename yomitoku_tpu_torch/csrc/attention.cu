@@ -64,7 +64,6 @@
 // the attention of fused_attention_block_ln_int8, whose f32 output is
 // quantized row by row before the out-projection, as the Pallas kernel
 // quantizes its f32 attention.
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <math.h>
 #include <stdint.h>
 
@@ -605,30 +604,6 @@ __global__ void __launch_bounds__(128) attention_combine_kernel(CombineArgs c) {
 }
 
 // ------------------------------------------------------ host side
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime: the library
-// does not link libcuda.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                           cudaEnableDefault, &res);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                                  cudaEnableDefault, &res);
-#endif
-    if (e == cudaSuccess && res == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
 
 // A 4-D map (Dh, H, L, B) of bf16 head-packed rows; boxes of one atom of
 // one head, ``rows`` rows, one batch item.

@@ -31,10 +31,10 @@
 //     the 3x3's zero padding of h1 (not of x, whose 1x1 image relu(b1) is not
 //     zero).  The projection shortcut is a second K segment over x and wd, so
 //     x . wd + bd stays an unrounded f32 sum, as in the Pallas kernel;
-//   * bf16: the tiles of gemm.cu (128x128x32 blocks, 8 warps of 64x32,
-//     mma.sync m16n8k16 fed by ldmatrix, a 4-stage cp.async ring) with the
-//     gathered A rows; each thread computes its two A rows' pixel
-//     coordinates once;
+//   * bf16: 128x128x32 blocks, 8 warps of 64x32, mma.sync m16n8k16 fed by
+//     ldmatrix, a 4-stage cp.async ring (the tiles gemm.cu had before its
+//     TMA + wgmma redesign), with the gathered A rows; each thread computes
+//     its two A rows' pixel coordinates once;
 //   * f32: a 64x64x16 shared-memory tile with 4x4 FMA micro-tiles per thread
 //     (full f32, for the parity checks);
 //   * biases are f32; h1, h2 and the output are rounded to the storage type

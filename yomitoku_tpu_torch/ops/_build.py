@@ -49,7 +49,7 @@ class _Library:
         lib = ctypes.CDLL(str(path))
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.yt_gemm.argtypes = [
-            i32, vp, i64, vp, i64, i32, vp, vp, i64, vp, i64,
+            i32, i32, vp, i64, vp, i64, i32, vp, vp, i64, vp, i64,
             i32, i32, i32, vp, vp, ctypes.c_float, i32, vp, vp,
         ]
         lib.yt_gemm.restype = i32

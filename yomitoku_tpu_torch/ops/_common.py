@@ -28,8 +28,9 @@ launches = {
 def reset_launches():
     for name in launches:
         launches[name] = 0
-    for route in attention_route_launches:
-        attention_route_launches[route] = 0
+    for counts in (attention_route_launches, gemm_route_launches):
+        for route in counts:
+            counts[route] = 0
 
 
 def layer_norm(x, scale, bias, eps, dtype=None):
@@ -98,50 +99,110 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def gemm(a, w, bias, out, res=None, ln=None, gelu=False):
-    """out = epilogue(LN?(a) @ w + bias) on the GEMM kernel (csrc/gemm.cu).
-    a (M, K) and out, res (M, N) with unit column stride; w (K, N) in the
-    JAX (in, out) layout, row-major or the transpose of a row-major (N, K)
-    tensor (a torch Linear weight ``.t()``); ``ln`` = (scale, bias, eps)
-    first normalises a's rows (a LayerNorm pass into a scratch buffer)."""
-    M, K = a.shape
-    if w.dim() != 2 or w.shape[0] != K:
-        raise ValueError(f"gemm: a {tuple(a.shape)} vs w {tuple(w.shape)}")
-    N = w.shape[1]
-    if out.shape != (M, N) or (res is not None and res.shape != (M, N)):
-        raise ValueError("gemm: output / residual shape mismatch")
-    for t in (a, out) + (() if res is None else (res,)):
-        if t.stride(1) != 1:
-            raise ValueError("gemm: rows must have unit column stride")
+#: Routes of the GEMM kernel (csrc/gemm.cu ``yt_gemm``): "fma" f32 FMAs
+#: from shared memory (f32: the parity checks need full f32 products); the
+#: bf16 routes, TMA + wgmma: "wgmma" 128 x 128 output units that two
+#: consumer warpgroups take in turns; "wgmma_small" 64 x 128 units and one
+#: consumer warpgroup, for grids that 128-row units would leave under one
+#: wave; "wgmma_coop" 128 x 256 units that two consumer warpgroups share
+#: (the cooperative schedule, slower at every main-path shape: measured,
+#: never chosen).
+GEMM_ROUTES = {"fma": 0, "wgmma": 1, "wgmma_small": 2, "wgmma_coop": 3}
+#: (rows, columns) of a wgmma route's output unit
+GEMM_TILES = {"wgmma": (128, 128), "wgmma_small": (64, 128), "wgmma_coop": (128, 256)}
+#: launches of the GEMM kernel by route, counted like ``launches``
+gemm_route_launches = dict.fromkeys(GEMM_ROUTES, 0)
+
+
+def gemm_route(dtype, M, N, legal, sms):
+    """The GEMM kernel's route for an (M, K) x (K, N) product in ``dtype``
+    on a card of ``sms`` SMs.  float32 takes "fma"; bfloat16 with TMA-legal
+    operands (``legal``: K, N and row strides % 8, 16-byte aligned bases)
+    takes "wgmma" where its 128 x 128 units fill the card, else
+    "wgmma_small".  Anything else raises: no route takes it."""
+    if dtype == torch.float32:
+        return "fma"
+    if dtype != torch.bfloat16 or not legal:
+        raise ValueError(f"gemm: no route for {dtype} with these strides "
+                         "(bf16 needs K, N and row strides % 8 == 0 and "
+                         "16-byte aligned operands)")
+    if gemm_units("wgmma", M, N) >= sms:
+        return "wgmma"
+    return "wgmma_small"
+
+
+def gemm_units(route, M, N):
+    """Output units (blocks of work) of an (M, N) product on a wgmma route."""
+    bm, bn = GEMM_TILES[route]
+    return -(-M // bm) * -(-N // bn)
+
+
+def _weight_layout(w, K, N):
+    """(w_nk, ldw) of a (K, N) weight: row-major (the JAX (in, out)
+    layout), or the transpose of a row-major (N, K) tensor."""
+    if w.dim() != 2 or w.shape != (K, N):
+        raise ValueError(f"gemm: w {tuple(w.shape)}, expected ({K}, {N})")
     if w.stride(1) == 1 and w.stride(0) >= N:
-        nk, ldw = 0, w.stride(0)
-    elif w.stride(0) == 1 and w.stride(1) >= K:
-        nk, ldw = 1, w.stride(1)
-    else:
-        raise ValueError(f"gemm: unsupported weight strides {w.stride()}")
+        return 0, w.stride(0)
+    if w.stride(0) == 1 and w.stride(1) >= K:
+        return 1, w.stride(1)
+    raise ValueError(f"gemm: unsupported weight strides {w.stride()}")
+
+
+def launch_gemm(route, a, w, bias, out, res=None, ln=None, gelu=False):
+    """One launch of the GEMM kernel by ``route`` on arguments ``gemm`` has
+    checked; the C entry refuses a route not built for them.  Counts
+    nothing."""
+    M, K = a.shape
+    N = out.shape[1]
+    nk, ldw = _weight_layout(w, K, N)
     g = b = normed = None
     eps = 0.0
     if ln is not None:
         g, b, eps = ln
         normed = torch.empty((M, K), dtype=a.dtype, device=a.device)  # LN(a)
-    if a.dtype == torch.bfloat16:
-        # the bf16 kernel moves 16-byte vectors of 8 elements
-        lds = [a.stride(0), ldw, out.stride(0)] + ([] if res is None else [res.stride(0)])
-        if K % 8 or N % 8 or any(s % 8 for s in lds) or any(
-            t is not None and t.data_ptr() % 16 for t in (a, w, out, res, bias, g, b)
-        ):
-            raise ValueError("gemm: bf16 needs K, N and row strides % 8 == 0 "
-                             "and 16-byte aligned operands")
     lib = library()
-    with torch.cuda.device(a.device):
-        rc = lib.lib.yt_gemm(
-            _code(a), a.data_ptr(), a.stride(0), w.data_ptr(), ldw, nk,
-            _ptr(bias), _ptr(res), 0 if res is None else res.stride(0),
-            out.data_ptr(), out.stride(0), M, N, K, _ptr(g), _ptr(b),
-            float(eps), int(gelu), _ptr(normed),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    lib.check(rc, "yt_gemm launch")
+    rc = _launch(
+        a.device, lib.lib.yt_gemm,
+        GEMM_ROUTES[route], _code(a), a.data_ptr(), a.stride(0), w.data_ptr(), ldw, nk,
+        _ptr(bias), _ptr(res), 0 if res is None else res.stride(0),
+        out.data_ptr(), out.stride(0), M, N, K, _ptr(g), _ptr(b),
+        float(eps), int(gelu), _ptr(normed),
+    )
+    if rc:
+        lib.check(rc, f"yt_gemm launch ({route})")
+
+
+def _gemm_legal(a, w, out, res=None, bias=None, ln=None):
+    """TMA-legal bf16 GEMM operands: K, N and every row stride a multiple
+    of 8 elements (16 bytes), every base 16-byte aligned."""
+    M, K = a.shape
+    N = out.shape[1]
+    _, ldw = _weight_layout(w, K, N)
+    lds = [a.stride(0), ldw, out.stride(0)] + ([] if res is None else [res.stride(0)])
+    vecs = () if ln is None else ln[:2]
+    return K % 8 == 0 and N % 8 == 0 and all(s % 8 == 0 for s in lds) and all(
+        t.data_ptr() % 16 == 0 for t in (a, w, out, res, bias, *vecs) if t is not None)
+
+
+def gemm(a, w, bias, out, res=None, ln=None, gelu=False):
+    """out = epilogue(LN?(a) @ w + bias) on the GEMM kernel (csrc/gemm.cu),
+    by the route ``gemm_route`` picks for a's card.  a (M, K) and out, res
+    (M, N) with unit column stride; w (K, N) in the JAX (in, out) layout,
+    row-major or the transpose of a row-major (N, K) tensor (a torch Linear
+    weight ``.t()``); ``ln`` = (scale, bias, eps) first normalises a's rows
+    (a LayerNorm pass into a scratch buffer)."""
+    M, K = a.shape
+    N = out.shape[1]
+    if out.shape != (M, N) or (res is not None and res.shape != (M, N)):
+        raise ValueError("gemm: output / residual shape mismatch")
+    for t in (a, out) + (() if res is None else (res,)):
+        if t.stride(1) != 1:
+            raise ValueError("gemm: rows must have unit column stride")
+    legal = _gemm_legal(a, w, out, res, bias, ln)
+    route = gemm_route(a.dtype, M, N, legal, _sm_count(a.device.index))
+    launch_gemm(route, a, w, bias, out, res, ln, gelu)
+    gemm_route_launches[route] += 1
 
 
 #: Routes of the attention kernel (csrc/attention.cu ``yt_attention``):
