@@ -310,3 +310,6 @@ def test_ocr_configs_override_device():
     ocr = OCR(configs=configs, device="cuda", visualize=True)
     assert ocr.detector.device.type == ocr.recognizer.device.type == "cpu"
     assert ocr.detector.visualize and ocr.recognizer.visualize
+    # the same device in both places: a duplicate keyword before the merge
+    ocr = OCR(configs={**CONFIGS, "text_detector": configs["text_detector"]}, device="cpu")
+    assert ocr.detector.device.type == "cpu" and not ocr.detector.visualize

@@ -52,13 +52,15 @@
 //   "wgmma"       128 x 128 units; two consumer warpgroups take whole units
 //                 in turns (named barriers, as attention.cu's warpgroups
 //                 do), so one's epilogue runs under the other's products:
-//                 the fastest at every main-path shape on the card;
+//                 5-10% ahead of "wgmma_coop" at the ViT's QKV and
+//                 out-projection, within 4% either way at fc1 and fc2;
 //   "wgmma_small" 64 x 128 units, one consumer warpgroup: grids that
 //                 128-row units would leave under one wave;
 //   "wgmma_coop"  128 x 256 units that two consumer warpgroups share, 64
 //                 rows each (CUTLASS's "cooperative" shape): the fewest bytes
 //                 per product, but its epilogue stalls the tensor cores;
-//                 measured (chip_smoke.py), chosen for no shape.
+//                 measured beside "wgmma" (chip_smoke.py), chosen for no
+//                 shape.
 // The C entry obeys the route or returns YT_ERR_ROUTE; nothing falls back.
 //
 // f32: a 64x64x16 shared-memory tile with 4x4 FMA micro-tiles per thread

@@ -105,8 +105,8 @@ def _ptr(t):
 #: consumer warpgroups take in turns; "wgmma_small" 64 x 128 units and one
 #: consumer warpgroup, for grids that 128-row units would leave under one
 #: wave; "wgmma_coop" 128 x 256 units that two consumer warpgroups share
-#: (the cooperative schedule, slower at every main-path shape: measured,
-#: never chosen).
+#: (the cooperative schedule: measured beside "wgmma" by chip_smoke.py,
+#: chosen for no shape).
 GEMM_ROUTES = {"fma": 0, "wgmma": 1, "wgmma_small": 2, "wgmma_coop": 3}
 #: (rows, columns) of a wgmma route's output unit
 GEMM_TILES = {"wgmma": (128, 128), "wgmma_small": (64, 128), "wgmma_coop": (128, 256)}
