@@ -529,8 +529,8 @@ def median_ms(fn, runs=10, warmup=3):
 def profiled(fn, runs=10):
     """torch.profiler over ``runs`` calls of ``fn`` after one warm-up ->
     (wall ms per call, {kernel name: device ms per call}, device kernels
-    per call).  Device times are the CUDA kernels' own (CUPTI); the wall
-    time ends in a sync."""
+    per call, {kernel name: launches in the window}).  Device times are the
+    CUDA kernels' own (CUPTI); the wall time ends in a sync."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -543,21 +543,24 @@ def profiled(fn, runs=10):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / runs
-    device, count = {}, 0
+    device, launched = {}, {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             device[e.key] = (device.get(e.key, 0.0)
                              + e.self_device_time_total / 1e3 / runs)
-            count += e.count
-    return wall, device, count / runs
+            launched[e.key] = launched.get(e.key, 0) + e.count
+    return wall, device, sum(launched.values()) / runs, launched
 
 
-def device_ms(fn, kernel=""):
+def device_ms(fn, kernel="", runs=10):
     """Device time per call of the CUDA kernels (those whose name holds
-    ``kernel``, where given), or None where the profiler saw none."""
-    _, device, _ = profiled(fn)
-    ms = sum(v for k, v in device.items() if kernel in k)
-    return ms or None
+    ``kernel``, where given), or None where the profiler saw none or lost
+    records (their launches in the window not a whole number per call)."""
+    _, device, _, launched = profiled(fn, runs)
+    names = [k for k in device if kernel in k]
+    if not names or sum(launched[k] for k in names) % runs:
+        return None
+    return sum(device[k] for k in names)
 
 
 def route_taken(fn):
@@ -1000,7 +1003,7 @@ def decode_profile(model, crops):
     """One recognizer model's decode of ``crops`` under torch.profiler (2
     calls) -> (device busy ms per batch, of which the attention kernels, of
     which the bf16 GEMM kernel and its LayerNorm pass)."""
-    _, device, _ = profiled(lambda: model.forward_tokens(crops), runs=2)
+    _, device, _, _ = profiled(lambda: model.forward_tokens(crops), runs=2)
     return (sum(device.values()),
             sum(v for k, v in device.items() if "attention" in k),
             sum(v for k, v in device.items() if "gemm_wgmma" in k or "layer_norm_kernel" in k))
@@ -1266,7 +1269,7 @@ def phase_layout(card):
     profile = {}
     for what, fn in (("layout_parser", lambda: lp(page)),
                      ("tsr_4_tables", lambda: tsr(page, TABLE_BOXES))):
-        wall, device, n = profiled(fn, runs=5)
+        wall, device, n, _ = profiled(fn, runs=5)
         busy = sum(device.values())
         top = sorted(device.items(), key=lambda kv: -kv[1])[:6]
         profile[what] = dict(wall_ms=wall, device_busy_ms=busy,
@@ -1871,7 +1874,7 @@ def _phase_fused_backbone(card):
         for fused in (True, False):
             with _env(YOMITOKU_TPU_FUSED_BOTTLENECK="1" if fused else None,
                       YOMITOKU_TPU_FUSED_STAGE="1" if fused else None):
-                wall, device, n = profiled(fn, runs=5)
+                wall, device, n, _ = profiled(fn, runs=5)
             busy["fused" if fused else "default"] = dict(
                 wall_ms=wall, device_busy_ms=sum(device.values()),
                 device_ops_per_call=n,
