@@ -8,7 +8,7 @@ Phases, each printed as it runs; any failure exits non-zero:
 1. Card: name and power limit (nvidia-smi), and the kernel build time
    (the CUDA sources under yomitoku_tpu_torch/csrc compile here), with
    the registers and spills of every attention kernel instantiation
-   (ptxas; a spill fails the run), and of every GEMM kernel (the three
+   (ptxas; a spill fails the run), and of every GEMM kernel (the two
    wgmma schedules in both weight layouts, the f32 and LayerNorm kernels;
    a spill fails the run).
 2. Kernels: each of the four OCR kernels at the recognizer's shapes
@@ -34,16 +34,17 @@ Phases, each printed as it runs; any failure exits non-zero:
    kernels are timed per call and on the device (profiler), beside the
    stock composition's device time.  Then the GEMM kernel alone: a line
    ``gemm [label] ...`` at every bf16 GEMM shape of the main paths (the
-   ViT's QKV, out-projection, fc1 and fc2 at M = 51,200, the refine MLP's
-   fc1 and fc2 at M = 12,928, fused_attention_block's two at M = 400),
-   with the epilogue the path runs, in both weight layouts: its route,
-   max|d| against the f32 product of the same bf16 values (2e-2 of the
-   largest value), device ms and TFLOP/s, one torch.matmul at the same
-   (M, K, N) on the device as cuBLAS's yardstick, and the bound; at the
-   M = 51,200 shapes a line ``gemm schedules [label] ...`` with the device
-   time of every bf16 schedule on the same inputs (the two consumer
-   warpgroups taking 128 x 128 units in turns, "wgmma"; sharing 128 x 256
-   units, "wgmma_coop"; one warpgroup on 64 x 128 units, "wgmma_small").
+   ViT's QKV, out-projection, fc1 and fc2 at M = 51,200, its QKV and
+   out-projection at batch 1, M = 400, the refine MLP's fc1 and fc2 at
+   M = 12,928, fused_attention_block's two at M = 400), with the epilogue
+   the path runs, in both weight layouts: its route, max|d| against the
+   f32 product of the same bf16 values (2e-2 of the largest value), device
+   ms and TFLOP/s, one torch.matmul at the same (M, K, N) on the device as
+   cuBLAS's yardstick, and the bound; and a line ``gemm schedules [label]
+   ...`` with the device time of both bf16 schedules on the same inputs
+   (two consumer warpgroups taking 128 x 128 units in turns, "wgmma"; one
+   warpgroup on 64 x 128 units, "wgmma_small"), the two sides of the
+   route's choice.
 3. The OCR path: ``OCR(device="cuda")`` (DBNet dbnetv2_1 + PARSeq
    parseq-large-v4_1, seed-0 random weights) on demo/sample_text.png, its
    recognizer on a synthetic page of 128+ lines (a full batch of 128), the
@@ -552,15 +553,23 @@ def profiled(fn, runs=10):
     return wall, device, sum(launched.values()) / runs, launched
 
 
+#: profiler windows whose launches were not a whole number per call
+_ragged_windows = []
+
+
 def device_ms(fn, kernel="", runs=10):
     """Device time per call of the CUDA kernels (those whose name holds
-    ``kernel``, where given), or None where the profiler saw none or lost
-    records (their launches in the window not a whole number per call)."""
+    ``kernel``, where given), or None where the profiler saw none.  Each
+    kernel counts its mean time per launch times its launches per call
+    (rounded): a window that lost records at its end, or took in late ones
+    from the window before, shifts a count by a few, not a mean (such
+    windows are listed in ``_ragged_windows`` and counted at the end)."""
     _, device, _, launched = profiled(fn, runs)
     names = [k for k in device if kernel in k]
-    if not names or sum(launched[k] for k in names) % runs:
-        return None
-    return sum(device[k] for k in names)
+    if any(launched[k] % runs for k in names):
+        _ragged_windows.append({k[:48]: launched[k] for k in names})
+    total = sum(device[k] * runs / launched[k] * round(launched[k] / runs) for k in names)
+    return total or None
 
 
 def route_taken(fn):
@@ -702,18 +711,20 @@ GEMM_SHAPES = {
     "vit_out": (B * L, D, D, ("res",)),
     "vit_fc1": (B * L, D, HIDDEN, ("ln", "gelu")),
     "vit_fc2": (B * L, HIDDEN, D, ("res",)),
+    "vit_qkv_b1": (L, D, 3 * D, ("ln",)),
+    "vit_out_b1": (L, D, D, ("res",)),
     "refine_fc1": (B * STEPS, D, HIDDEN, ("gelu",)),
     "refine_fc2": (B * STEPS, HIDDEN, D, ()),
     "block_qkv": (400, 256, 768, ()),
     "block_out": (400, 256, 256, ()),
 }
 #: the GEMM shapes inside each kernel row
-GEMMS_OF = {"fused_attention_block_ln": ("vit_qkv", "vit_out"),
+GEMMS_OF = {"fused_attention_block_ln": ("vit_qkv", "vit_out", "vit_qkv_b1", "vit_out_b1"),
             "fused_mlp_ln": ("vit_fc1", "vit_fc2"),
             "fused_mlp": ("refine_fc1", "refine_fc2"),
             "fused_attention_block": ("block_qkv", "block_out")}
-#: the bf16 routes timed against each other at the M = 51,200 shapes
-GEMM_SCHEDULES = ("wgmma", "wgmma_coop", "wgmma_small")
+#: the bf16 routes timed against each other at every shape
+GEMM_SCHEDULES = ("wgmma", "wgmma_small")
 
 
 def _gemm_inputs(rng, M, K, N, epilogue, layout):
@@ -765,8 +776,8 @@ def phase_gemm():
     f32 plain product of the same bf16 values (2e-2 of the largest value),
     device ms (profiler, the GEMM kernel alone), TFLOP/s, the bound, and
     one torch.matmul at the same (M, K, N) as cuBLAS's yardstick (never
-    called by the port); at the M = 51,200 shapes also every bf16 schedule
-    on the same inputs -> {label: numbers}."""
+    called by the port), and both bf16 schedules on the same inputs ->
+    {label: numbers}."""
     import numpy as np
     import torch
 
@@ -799,11 +810,10 @@ def phase_gemm():
                 r["bound_ms"], r["bound_by"] = bound(
                     [a, w, bias] + [t for t in (res,) + (ln or ())[:2] if t is not None],
                     [out], {"bf16": flops})
-                if M == B * L:
-                    for sched in GEMM_SCHEDULES:
-                        r[f"{sched}_device_ms"] = device_ms(
-                            lambda: launch_gemm(sched, a, w, bias, out, res, ln, gelu),
-                            "gemm_wgmma")
+                for sched in GEMM_SCHEDULES:  # the route taken is timed above
+                    r[f"{sched}_device_ms"] = r["device_ms"] if sched == route else device_ms(
+                        lambda: launch_gemm(sched, a, w, bias, out, res, ln, gelu),
+                        "gemm_wgmma")
             res_by_layout[layout] = r
             del a, w, bias, res, ln, out
             torch.cuda.empty_cache()
@@ -816,9 +826,8 @@ def phase_gemm():
             f"{_ms(other['device_ms'])}, {tf} TFLOP/s ({flops / 1e9:.1f} GFLOP) against one "
             f"torch.matmul's {_ms(main['matmul_device_ms'])}; bound {main['bound_ms']:.4f} ms "
             f"({main['bound_by']})")
-        if M == B * L:
-            log(f"gemm schedules [{label}]: " + ", ".join(
-                f"{s} {_ms(main[s + '_device_ms'])}" for s in GEMM_SCHEDULES))
+        log(f"gemm schedules [{label}]: " + ", ".join(
+            f"{s} {_ms(main[s + '_device_ms'])}" for s in GEMM_SCHEDULES))
         results[label] = dict(main, **{f"{k}_{LAYOUTS[1]}": v for k, v in other.items()
                                        if k in ("route", "max_abs_err", "device_ms", "tflops")})
     return results
@@ -1967,6 +1976,8 @@ def main():
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1
+    log(f"profiler windows with launches not a whole number per call: "
+        f"{len(_ragged_windows)} (kernel: launches in 10 calls) {_ragged_windows[:3]}")
     (OUT / "int8_recognizer.json").write_text(json.dumps(int8_numbers, indent=1))
     (OUT / "fused_backbone.json").write_text(json.dumps(fused_numbers, indent=1))
     log(card)  # as nvidia-smi prints it: name, power limit

@@ -267,7 +267,7 @@ GEMM_EPILOGUES = ("ln", "bias", "gelu", "res", "none")
 #: launcher, and through the wrapper where its route choice lands: the
 #: small grid and the 128-row one; f32 through the wrapper ("fma")
 GEMM_CASES = (
-    [(200, 96, 200, route, True) for route in ("wgmma", "wgmma_coop", "wgmma_small")]
+    [(200, 96, 200, route, True) for route in ("wgmma", "wgmma_small")]
     + [(1000, 768, 768, "wgmma_small", False), (33000, 264, 200, "wgmma", False),
        (200, 96, 200, "fma", False)]
 )

@@ -127,16 +127,17 @@ def test_tma_legality(what, args, ok):
         w = _linear_weight_t(K, N, args.get("w_pad", 0))
     else:
         w = _view(K, N, 0, args.get("w_pad", 0))
-    assert _common._gemm_legal(a, w, out, bias=torch.zeros(N, dtype=BF16)) == ok, what
+    ldw = _common._weight_layout(w, K, N)[1]
+    assert _common._gemm_legal(a, w, ldw, out, bias=torch.zeros(N, dtype=BF16)) == ok, what
 
 
 def test_residual_and_layernorm_vectors_count():
     a, w, out = _view(40, 64), _view(64, 64), _view(40, 64)
-    assert _common._gemm_legal(a, w, out, res=_view(40, 64))
-    assert not _common._gemm_legal(a, w, out, res=_view(40, 64, 4))
+    assert _common._gemm_legal(a, w, 64, out, res=_view(40, 64))
+    assert not _common._gemm_legal(a, w, 64, out, res=_view(40, 64, 4))
     vec = torch.zeros(72, dtype=BF16)
-    assert _common._gemm_legal(a, w, out, ln=(vec[:64], vec[:64], 1e-6))
-    assert not _common._gemm_legal(a, w, out, ln=(vec[4:68], vec[:64], 1e-6))
+    assert _common._gemm_legal(a, w, 64, out, ln=(vec[:64], vec[:64], 1e-6))
+    assert not _common._gemm_legal(a, w, 64, out, ln=(vec[4:68], vec[:64], 1e-6))
 
 
 def test_weight_layouts():

@@ -48,19 +48,15 @@
 //     the instruction cache.  The products alone keep the tensor cores
 //     busy; the epilogue is what the schedules below must hide, and the
 //     GELU one (erff, ~30 instructions a value) is not hidden at fc1.
-// Three schedules (routes, chosen in Python by ops/_common.py gemm_route):
+// Two schedules (routes, chosen in Python by ops/_common.py gemm_route):
 //   "wgmma"       128 x 128 units; two consumer warpgroups take whole units
 //                 in turns (named barriers, as attention.cu's warpgroups
-//                 do), so one's epilogue runs under the other's products:
-//                 5-10% ahead of "wgmma_coop" at the ViT's QKV and
-//                 out-projection, within 4% either way at fc1 and fc2;
+//                 do), so one's epilogue runs under the other's products;
 //   "wgmma_small" 64 x 128 units, one consumer warpgroup: grids that
-//                 128-row units would leave under one wave;
-//   "wgmma_coop"  128 x 256 units that two consumer warpgroups share, 64
-//                 rows each (CUTLASS's "cooperative" shape): the fewest bytes
-//                 per product, but its epilogue stalls the tensor cores;
-//                 measured beside "wgmma" (chip_smoke.py), chosen for no
-//                 shape.
+//                 128-row units would leave under one wave.
+// A cooperative schedule (128 x 256 units, two warpgroups sharing each)
+// was measured beside "wgmma" and lost by 5-10% at the ViT's QKV and
+// out-projection and came within 4% either way at fc1 and fc2, so it went.
 // The C entry obeys the route or returns YT_ERR_ROUTE; nothing falls back.
 //
 // f32: a 64x64x16 shared-memory tile with 4x4 FMA micro-tiles per thread
@@ -171,30 +167,26 @@ struct WgArgs {
   int units;  // m tiles x n tiles
 };
 
-// A schedule: units of BM x BN outputs; NWG consumer warpgroups that split
-// each unit's rows (SPLIT) or take whole units in turns; a ring of STAGES.
-// Each consumer warpgroup also owns two output sub-tiles of 64 x 64 (the
-// epilogue's staging buffers) and a copy of its unit's bias slice.
+// A schedule: units of BM x BN outputs; NWG consumer warpgroups that take
+// whole units in turns; a ring of STAGES.  Each consumer warpgroup also
+// owns two output sub-tiles of 64 x 64 (the epilogue's staging buffers)
+// and a copy of its unit's bias slice.
+constexpr int BN = 128;                // output columns of a unit: one m64n128 wgmma
 constexpr int SUB = 64;                // rows and columns of an output sub-tile
 constexpr int SUB_BYTES = SUB * 128;   // one sub-tile of bf16, 128-byte rows
-template <int BM_, int BN_, int NWG_, bool SPLIT_, int STAGES_>
+template <int BM_, int NWG_, int STAGES_>
 struct Sched {
-  static constexpr int BM = BM_, BN = BN_, NWG = NWG_, STAGES = STAGES_;
-  static constexpr bool SPLIT = SPLIT_;
-  static constexpr int MW = SPLIT ? BM / NWG : BM;  // rows per warpgroup and unit
-  static constexpr int MT = MW / 64;                // its m64 sub-tiles
+  static constexpr int BM = BM_, NWG = NWG_, STAGES = STAGES_;
+  static constexpr int MT = BM / 64;  // m64 sub-tiles of a unit
   static constexpr int A_BYTES = BM * BK * 2;
   static constexpr int STAGE = A_BYTES + BN * BK * 2;
   static constexpr int C0 = STAGES * STAGE;                  // staging buffers
   static constexpr int BIAS0 = C0 + NWG * 2 * SUB_BYTES;     // bias slices
   static constexpr int ALLOC = BIAS0 + NWG * BN * 2 + 1024;  // + alignment slack
   static constexpr int THREADS = (NWG + 1) * 128;
-  static constexpr int RELEASERS = 4 * (SPLIT ? NWG : 1);  // warps that free a stage
-  static constexpr bool TURNS = !SPLIT && NWG == 2;
 };
-using PingPong = Sched<128, 128, 2, false, 6>;  // "wgmma"       (192 KB ring)
-using Small = Sched<64, 128, 1, false, 4>;      // "wgmma_small" (96 KB ring)
-using Coop = Sched<128, 256, 2, true, 4>;       // "wgmma_coop"  (192 KB ring)
+using PingPong = Sched<128, 2, 6>;  // "wgmma"       (192 KB ring)
+using Small = Sched<64, 1, 4>;      // "wgmma_small" (96 KB ring)
 
 // Shared-memory stage: A [BM rows][64 k], then W: NK [BN rows][64 k], else
 // BN / 64 atoms [64 k rows][64 n]; each row 128 bytes, 128-byte swizzled,
@@ -208,7 +200,7 @@ __device__ __forceinline__ void produce(const CUtensorMap* ta, const CUtensorMap
   tma_prefetch_map(tw);
   int it = 0;
   for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
-    const int m0 = u / p.ntn * S::BM, n0 = u % p.ntn * S::BN;
+    const int m0 = u / p.ntn * S::BM, n0 = u % p.ntn * BN;
     for (int kt = 0; kt < p.nk; ++kt, ++it) {
       const int s = it % S::STAGES, use = it / S::STAGES;
       if (use > 0) mbar_wait(empty + s, (use - 1) & 1);
@@ -220,7 +212,7 @@ __device__ __forceinline__ void produce(const CUtensorMap* ta, const CUtensorMap
         tma_load_2d(b, tw, full + s, kt * BK, n0);
       } else {
 #pragma unroll
-        for (int j = 0; j < S::BN / 64; ++j)
+        for (int j = 0; j < BN / 64; ++j)
           tma_load_2d(b + j * (BK * 128), tw, full + s, n0 + j * 64, kt * BK);
       }
     }
@@ -242,8 +234,8 @@ __device__ __forceinline__ float epilogue(float v, float bias, float res) {
 template <class S, bool NK, bool GELU>
 __device__ __forceinline__ void consume(const WgArgs& p, unsigned char* sm, uint64_t* full,
                                         uint64_t* empty, uint64_t* bbar, int w) {
-  constexpr int NA = S::BN / 2;       // accumulator floats per m64 sub-tile
-  constexpr int TN = S::BN / SUB;     // output sub-tiles across a unit
+  constexpr int NA = BN / 2;          // accumulator floats per m64 sub-tile
+  constexpr int TN = BN / SUB;        // output sub-tiles across a unit
   constexpr int NSUB = S::MT * TN;    // and in all
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const bool leader = threadIdx.x % 128 == 0;
@@ -252,25 +244,24 @@ __device__ __forceinline__ void consume(const WgArgs& p, unsigned char* sm, uint
   // epilogue, so the tensor cores work through the other's products.
   const int nu = (p.units - blockIdx.x + gridDim.x - 1) / gridDim.x;  // this block's units
   auto my_turn = [&]() {
-    if constexpr (S::TURNS) named_bar_sync(1 + w, 256);
+    if constexpr (S::NWG == 2) named_bar_sync(1 + w, 256);
   };
   auto pass_turn = [&]() {
-    if constexpr (S::TURNS) named_bar_arrive(2 - w, 256);
+    if constexpr (S::NWG == 2) named_bar_arrive(2 - w, 256);
   };
   auto wg_sync = [&]() { named_bar_sync(3 + w, 128); };  // this warpgroup alone
   if (w == 1) pass_turn();
-  const int wrow = S::SPLIT ? w * S::MW : 0;  // this warpgroup's first row in the unit
   unsigned char* cbuf = sm + S::C0 + w * 2 * SUB_BYTES;
-  bf16* bias_s = reinterpret_cast<bf16*>(sm + S::BIAS0) + w * S::BN;
+  bf16* bias_s = reinterpret_cast<bf16*>(sm + S::BIAS0) + w * BN;
   bbar += w;
   int sub = 0;  // this warpgroup's output sub-tiles so far: staging buffer sub % 2
   int nb = 0;   // its bias copies so far
   float acc[S::MT][NA];
-  for (int i = S::SPLIT ? 0 : w; i < nu; i += S::SPLIT ? 1 : S::NWG) {
+  for (int i = w; i < nu; i += S::NWG) {
     const int u = blockIdx.x + i * gridDim.x;
-    const int m0 = u / p.ntn * S::BM + wrow, n0 = u % p.ntn * S::BN;
+    const int m0 = u / p.ntn * S::BM, n0 = u % p.ntn * BN;
     if (p.bias && leader) {  // the unit's bias slice lands while the products run
-      const uint32_t bytes = min(S::BN, p.n - n0) * 2;
+      const uint32_t bytes = min(BN, p.n - n0) * 2;
       mbar_expect_tx(bbar, bytes);
       bulk_load(bias_s, p.bias + n0, bytes, bbar);
     }
@@ -294,7 +285,7 @@ __device__ __forceinline__ void consume(const WgArgs& p, unsigned char* sm, uint
     for (int kt = 0; kt < p.nk; ++kt, ++it) {
       const int s = it % S::STAGES;
       mbar_wait(full + s, (it / S::STAGES) & 1);
-      const unsigned char* a = sm + s * S::STAGE + wrow * 128;
+      const unsigned char* a = sm + s * S::STAGE;
       const unsigned char* b = sm + s * S::STAGE + S::A_BYTES;
       wgmma_fence();
 #pragma unroll
@@ -305,8 +296,8 @@ __device__ __forceinline__ void consume(const WgArgs& p, unsigned char* sm, uint
                                : wgmma_desc(b + kk * 16 * 128, BK * 128, 1024, 1);
 #pragma unroll
         for (int mt = 0; mt < S::MT; ++mt)
-          wgmma_ss<S::BN, NK ? 0 : 1>(acc[mt], wgmma_desc(a + mt * 64 * 128 + kk * 32, 16, 1024, 1),
-                                      db, kt > 0 || kk > 0);
+          wgmma_ss_n128<NK ? 0 : 1>(acc[mt], wgmma_desc(a + mt * 64 * 128 + kk * 32, 16, 1024, 1),
+                                    db, kt > 0 || kk > 0);
       }
       wgmma_commit();
       if (kt > 0) {  // the previous stage's products are done: free it
@@ -410,7 +401,7 @@ __global__ void __launch_bounds__(S::THREADS, 1)
   if (threadIdx.x == 0) {
     for (int i = 0; i < S::STAGES; ++i) {
       mbar_init(full + i, 1);
-      mbar_init(empty + i, S::RELEASERS);  // lane 0 of every consumer warp
+      mbar_init(empty + i, 4);  // lane 0 of each warp of the consuming warpgroup
     }
     for (int i = 0; i < S::NWG; ++i) mbar_init(bbar + i, 1);
     mbar_fence_init();
@@ -520,7 +511,7 @@ int launch_wgmma(const GemmArgs& g, cudaStream_t s) {
   CUtensorMap ta, tw;
   int rc = make_map_2d(&ta, g.a, g.k, g.m, g.lda, BK, S::BM);
   if (!rc)
-    rc = NK ? make_map_2d(&tw, g.w, g.k, g.n, g.ldw, BK, S::BN)
+    rc = NK ? make_map_2d(&tw, g.w, g.k, g.n, g.ldw, BK, BN)
             : make_map_2d(&tw, g.w, g.n, g.k, g.ldw, 64, BK);
   if (rc) return rc;
   WgArgs p{};
@@ -532,7 +523,7 @@ int launch_wgmma(const GemmArgs& g, cudaStream_t s) {
   p.m = g.m;
   p.n = g.n;
   p.nk = (g.k + BK - 1) / BK;
-  p.ntn = (g.n + S::BN - 1) / S::BN;
+  p.ntn = (g.n + BN - 1) / BN;
   p.units = (g.m + S::BM - 1) / S::BM * p.ntn;
 
   auto kern = gemm_wgmma_kernel<S, NK, GELU>;
@@ -572,7 +563,7 @@ bool tma_ok(const GemmArgs& p) {
 }  // namespace
 
 // Routes (ops/_common.py GEMM_ROUTES): 0 "fma", the f32 kernel; 1 "wgmma",
-// 2 "wgmma_small", 3 "wgmma_coop" (bf16; see the note at the top).
+// 2 "wgmma_small" (bf16; see the note at the top).
 // ln_g / ln_b non-null: A is first normalised into ln_out ((M, K),
 // contiguous scratch of the storage type), which the GEMM then reads.
 extern "C" int yt_gemm(int route, int dtype, const void* a, long long lda, const void* w,
@@ -586,7 +577,7 @@ extern "C" int yt_gemm(int route, int dtype, const void* a, long long lda, const
   if (m <= 0 || n <= 0 || k <= 0 || (ln && (!ln_b || !ln_out)))
     return (int)cudaErrorInvalidValue;
   if (dtype != YT_BF16 && dtype != YT_F32) return (int)cudaErrorInvalidValue;
-  if ((route == 0) != (dtype == YT_F32) || route < 0 || route > 3) return YT_ERR_ROUTE;
+  if ((route == 0) != (dtype == YT_F32) || route < 0 || route > 2) return YT_ERR_ROUTE;
   if (ln) {
     p.a = ln_out;
     p.lda = k;
@@ -602,7 +593,6 @@ extern "C" int yt_gemm(int route, int dtype, const void* a, long long lda, const
   }
   if (route == 1) return route_wgmma<PingPong>(p, w_nk, s);
   if (route == 2) return route_wgmma<Small>(p, w_nk, s);
-  if (route == 3) return route_wgmma<Coop>(p, w_nk, s);
   dim3 grid((n + HF_N - 1) / HF_N, (m + HF_M - 1) / HF_M);
   if (w_nk) gemm_f32_kernel<true><<<grid, 256, 0, s>>>(p);
   else gemm_f32_kernel<false><<<grid, 256, 0, s>>>(p);

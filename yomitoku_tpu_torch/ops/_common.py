@@ -104,12 +104,10 @@ def _ptr(t):
 #: bf16 routes, TMA + wgmma: "wgmma" 128 x 128 output units that two
 #: consumer warpgroups take in turns; "wgmma_small" 64 x 128 units and one
 #: consumer warpgroup, for grids that 128-row units would leave under one
-#: wave; "wgmma_coop" 128 x 256 units that two consumer warpgroups share
-#: (the cooperative schedule: measured beside "wgmma" by chip_smoke.py,
-#: chosen for no shape).
-GEMM_ROUTES = {"fma": 0, "wgmma": 1, "wgmma_small": 2, "wgmma_coop": 3}
+#: wave.
+GEMM_ROUTES = {"fma": 0, "wgmma": 1, "wgmma_small": 2}
 #: (rows, columns) of a wgmma route's output unit
-GEMM_TILES = {"wgmma": (128, 128), "wgmma_small": (64, 128), "wgmma_coop": (128, 256)}
+GEMM_TILES = {"wgmma": (128, 128), "wgmma_small": (64, 128)}
 #: launches of the GEMM kernel by route, counted like ``launches``
 gemm_route_launches = dict.fromkeys(GEMM_ROUTES, 0)
 
@@ -149,13 +147,14 @@ def _weight_layout(w, K, N):
     raise ValueError(f"gemm: unsupported weight strides {w.stride()}")
 
 
-def launch_gemm(route, a, w, bias, out, res=None, ln=None, gelu=False):
+def launch_gemm(route, a, w, bias, out, res=None, ln=None, gelu=False, layout=None):
     """One launch of the GEMM kernel by ``route`` on arguments ``gemm`` has
-    checked; the C entry refuses a route not built for them.  Counts
+    checked, with w's ``layout`` = ``_weight_layout(w, K, N)`` where the
+    caller has it; the C entry refuses a route not built for them.  Counts
     nothing."""
     M, K = a.shape
     N = out.shape[1]
-    nk, ldw = _weight_layout(w, K, N)
+    nk, ldw = layout or _weight_layout(w, K, N)
     g = b = normed = None
     eps = 0.0
     if ln is not None:
@@ -173,16 +172,17 @@ def launch_gemm(route, a, w, bias, out, res=None, ln=None, gelu=False):
         lib.check(rc, f"yt_gemm launch ({route})")
 
 
-def _gemm_legal(a, w, out, res=None, bias=None, ln=None):
-    """TMA-legal bf16 GEMM operands: K, N and every row stride a multiple
-    of 8 elements (16 bytes), every base 16-byte aligned."""
-    M, K = a.shape
-    N = out.shape[1]
-    _, ldw = _weight_layout(w, K, N)
-    lds = [a.stride(0), ldw, out.stride(0)] + ([] if res is None else [res.stride(0)])
-    vecs = () if ln is None else ln[:2]
-    return K % 8 == 0 and N % 8 == 0 and all(s % 8 == 0 for s in lds) and all(
-        t.data_ptr() % 16 == 0 for t in (a, w, out, res, bias, *vecs) if t is not None)
+def _gemm_legal(a, w, ldw, out, res=None, bias=None, ln=None):
+    """TMA-legal bf16 GEMM operands: K and N multiples of 8 elements, and
+    ``_tma_legal`` for one batch: every row stride (w's ``ldw``) a multiple
+    of 8 elements (16 bytes), every base, the vectors' too, 16-byte
+    aligned."""
+    K, N = w.shape
+    rows = [(a, a.stride(0)), (w, ldw), (out, out.stride(0)), (res, 0 if res is None else res.stride(0))]
+    vecs = [(v, 0) for v in (bias, *(ln or (None, None))[:2])]
+    ts = [(t, ld) for t, ld in rows + vecs if t is not None]
+    return K % 8 == 0 and N % 8 == 0 and _tma_legal(
+        1, [t.data_ptr() for t, _ in ts], [(0, ld) for _, ld in ts])
 
 
 def gemm(a, w, bias, out, res=None, ln=None, gelu=False):
@@ -199,9 +199,10 @@ def gemm(a, w, bias, out, res=None, ln=None, gelu=False):
     for t in (a, out) + (() if res is None else (res,)):
         if t.stride(1) != 1:
             raise ValueError("gemm: rows must have unit column stride")
-    legal = _gemm_legal(a, w, out, res, bias, ln)
+    layout = _weight_layout(w, K, N)
+    legal = _gemm_legal(a, w, layout[1], out, res, bias, ln)
     route = gemm_route(a.dtype, M, N, legal, _sm_count(a.device.index))
-    launch_gemm(route, a, w, bias, out, res, ln, gelu)
+    launch_gemm(route, a, w, bias, out, res, ln, gelu, layout)
     gemm_route_launches[route] += 1
 
 
