@@ -8,9 +8,11 @@ Phases, each printed as it runs; any failure exits non-zero:
 1. Card: name and power limit (nvidia-smi), and the kernel build time
    (the CUDA sources under yomitoku_tpu_torch/csrc compile here), with
    the registers and spills of every attention kernel instantiation
-   (ptxas; a spill fails the run), and of every GEMM kernel (the two
-   wgmma schedules in both weight layouts, the f32 and LayerNorm kernels;
-   a spill fails the run).
+   (ptxas; a spill fails the run), of every GEMM kernel (the two
+   wgmma schedules in both weight layouts, the f32 and LayerNorm kernels)
+   and of every int8 GEMM kernel (the two int8 routes for f32 and bf16
+   output, with and without GELU) and the row-quantize kernel (a spill
+   fails the run).
 2. Kernels: each of the four OCR kernels at the recognizer's shapes
    against its plain PyTorch version on the same CUDA inputs (f32 kernel
    vs f32 reference at max|d| <= 1e-4 max|ref| + 1e-5 with TF32 off; bf16
@@ -72,10 +74,26 @@ Phases, each printed as it runs; any failure exits non-zero:
    at most 1%, which stay within 2e-2), then the times of the kernel, the
    plain version and the stock composition (LayerNorm, row quantize,
    ``torch._int_mm``, dequantize), per call and on the device (profiler).
+   Then the int8 GEMM kernel alone: a line ``gemm_int8 [label] ...`` at
+   each int8 GEMM of the two sublayers (QKV, out-projection, fc1 with its
+   f32 GELU output, fc2 with K in three chunks, all at M = 51,200, and the
+   QKV and out-projection at batch 1, M = 400), with the sublayer's
+   epilogue: its route, max|d| against the plain version on the same codes
+   and scales (f32 within 1e-5 of the largest value, bf16 within 2^-8),
+   device ms and TOP/s, one ``torch._int_mm`` at the same (M, K, N) on the
+   device as cuBLASLt's yardstick (int32 out, no epilogue), and the bound;
+   a line ``gemm_int8 routes [label]`` with the device time of each int8
+   route that takes the shape, on the same inputs; and a line
+   ``quantize_rows [label]`` at the row-quantize kernel's three shapes
+   (the LayerNorm of the bf16 input, the f32 attention output, the f32
+   GELU output in three chunks): codes against the plain version's, device
+   ms and bound.
 6. The int8 recognizer path: ``TextRecognizer(device="cuda")`` with
    YOMITOKU_TPU_INT8_ENCODER=1 and the int8 memory-K/V cache at its CUDA
    default, on the synthetic page: the launch counters of that run (and of
-   one batch of 128), lines/s end to end and device decode, the share of
+   one batch of 128), the int8 GEMM's launches by route (two per int8
+   sublayer launch), lines/s end to end and device decode, the device busy
+   time of the decode and the int8 GEMM's share of it, the share of
    greedy ids equal to the bf16 path's (phase 3, full K/V cache), the
    int8-K/V audit's result, and the f32 int8 recognizer on the card against
    the same weights on the CPU (plain int8 path) on 8 lines, in two hops:
@@ -333,6 +351,13 @@ def phase_card():
               "a wgmma GEMM schedule was not built in both weight layouts, with and "
               "without GELU")
         check(all(sp == 0 for _, _, sp in rows), "a GEMM instantiation spills")
+        rows = instantiations(lib.build_log, "gemm_int8_kernel|quantize_rows_kernel")
+        log("gemm_int8 instantiations (ptxas): " + "; ".join(
+            f"{n} {r} regs, {sp} B spilled" for n, r, sp in rows))
+        check(sum("gemm_int8" in n for n, _, _ in rows) == 4 * len(GEMM_INT8_ROUTES),
+              "an int8 GEMM route was not built for both output types, with and "
+              "without GELU")
+        check(all(sp == 0 for _, _, sp in rows), "an int8 GEMM instantiation spills")
     return card
 
 
@@ -725,6 +750,34 @@ GEMMS_OF = {"fused_attention_block_ln": ("vit_qkv", "vit_out", "vit_qkv_b1", "vi
             "fused_attention_block": ("block_qkv", "block_out")}
 #: the bf16 routes timed against each other at every shape
 GEMM_SCHEDULES = ("wgmma", "wgmma_small")
+#: The int8 GEMMs of the W8A8 sublayers: label -> (M, K, K-chunks, N,
+#: epilogue, output dtype): fused_attention_block_ln_int8's QKV and
+#: out-projection at batch 128 and 1, fused_mlp_ln_int8's fc1 (f32 GELU
+#: output, which the chunked row-quantize pass reads) and fc2 (K in three
+#: chunks of 1024)
+INT8_GEMM_SHAPES = {
+    "qkv": (B * L, D, 1, 3 * D, ("bias",), "bfloat16"),
+    "out": (B * L, D, 1, D, ("bias", "res"), "bfloat16"),
+    "fc1": (B * L, D, 1, HIDDEN, ("bias", "gelu"), "float32"),
+    "fc2": (B * L, HIDDEN, 3, D, ("bias", "res"), "bfloat16"),
+    "qkv_b1": (L, D, 1, 3 * D, ("bias",), "bfloat16"),
+    "out_b1": (L, D, 1, D, ("bias", "res"), "bfloat16"),
+}
+#: The row-quantize kernel's shapes: label -> (M, K, K-chunks, input
+#: dtype, LayerNorm first): the sublayers' bf16 input (QKV and fc1), the
+#: f32 attention output (out-projection) and the f32 GELU output (fc2)
+QUANTIZE_SHAPES = {
+    "ln_x": (B * L, D, 1, "bfloat16", True),
+    "attn": (B * L, D, 1, "float32", False),
+    "gelu": (B * L, HIDDEN, 3, "float32", False),
+}
+#: the int8 GEMM and row-quantize shapes inside each kernel row
+INT8_GEMMS_OF = {
+    "fused_attention_block_ln_int8": (("qkv", "out", "qkv_b1", "out_b1"), ("ln_x", "attn")),
+    "fused_mlp_ln_int8": (("fc1", "fc2"), ("ln_x", "gelu")),
+}
+#: the int8 routes (ops/_common.py GEMM_INT8_ROUTES)
+GEMM_INT8_ROUTES = ("wgmma", "wgmma_m64", "wgmma_coop")
 
 
 def _gemm_inputs(rng, M, K, N, epilogue, layout):
@@ -1011,11 +1064,14 @@ def host_timed(fn, runs=3):
 def decode_profile(model, crops):
     """One recognizer model's decode of ``crops`` under torch.profiler (2
     calls) -> (device busy ms per batch, of which the attention kernels, of
-    which the bf16 GEMM kernel and its LayerNorm pass)."""
+    which the bf16 GEMM kernel and its LayerNorm pass, of which the int8
+    GEMM kernel and its row-quantize passes)."""
     _, device, _, _ = profiled(lambda: model.forward_tokens(crops), runs=2)
-    return (sum(device.values()),
-            sum(v for k, v in device.items() if "attention" in k),
-            sum(v for k, v in device.items() if "gemm_wgmma" in k or "layer_norm_kernel" in k))
+    share = lambda *names: sum(v for k, v in device.items()  # noqa: E731
+                               if any(n in k for n in names))
+    return (sum(device.values()), share("attention"),
+            share("gemm_wgmma", "layer_norm_kernel"),
+            share("gemm_int8_kernel", "quantize_rows_kernel"))
 
 
 def _finite_schema(schema, what):
@@ -1090,7 +1146,7 @@ def _phase_slice(card):
     first_s = host_timed(lambda: rec.forward_tokens(crops), runs=1)
     ids_bf16, _ = rec.forward_tokens(crops)
     model_s = host_timed(lambda: rec.forward_tokens(crops))
-    busy, attn, gemm_ms = decode_profile(rec, crops)
+    busy, attn, gemm_ms, _ = decode_profile(rec, crops)
     log(f"slice: bf16 decode {model_s * 1e3:.1f} ms per batch of 128; on the device "
         f"(profiler) busy {busy:.2f} ms, of which the attention kernel {attn:.3f} ms "
         f"and the GEMM kernel with its LayerNorm pass {gemm_ms:.3f} ms "
@@ -1438,6 +1494,152 @@ def phase_int8_kernels():
     return results
 
 
+def _int8_gemm_inputs(gen, M, K, nc, N, epilogue, out_dtype):
+    """Codes and scales on the card, made there from ``gen``: a (M, K), w
+    (K, N) as the transpose of (N, K) rows, sa (M, nc), sw, bias, res."""
+    import torch
+
+    dt = getattr(torch, out_dtype)
+    a = torch.randint(-127, 128, (M, K), dtype=torch.int8, device="cuda", generator=gen)
+    w = torch.randint(-127, 128, (N, K), dtype=torch.int8, device="cuda", generator=gen).t()
+    sa = torch.rand((M, nc), device="cuda", generator=gen) * 1e-3
+    sw = torch.rand(N, device="cuda", generator=gen) * 1e-3
+    bias = torch.randn(N, device="cuda", generator=gen)
+    res = (torch.randn((M, N), device="cuda", generator=gen).to(dt)
+           if "res" in epilogue else None)
+    return a, w, sa, sw, bias, res, torch.empty((M, N), dtype=dt, device="cuda")
+
+
+def _int8_gemm_plain(a, w, sa, sw, bias, res, gelu):
+    """The plain version on the same codes: exact int32 sums per K-chunk
+    (int_matmul), dequantize in the Pallas order, + bias, GELU, + res."""
+    import torch.nn.functional as F
+
+    from yomitoku_tpu_torch.ops.mlp import dequantize, int_matmul
+
+    nc, kc = sa.shape[1], a.shape[1] // sa.shape[1]
+    want = 0
+    for c in range(nc):
+        sl = slice(c * kc, (c + 1) * kc)
+        want = want + dequantize(int_matmul(a[:, sl], w[sl]), sa[:, c:c + 1], sw)
+    want = want + bias
+    if gelu:
+        want = F.gelu(want)
+    return want if res is None else res.float() + want
+
+
+def gemm_int8_route_of(fn):
+    """The int8 GEMM route(s) that one call of ``fn`` launched."""
+    import torch
+
+    from yomitoku_tpu_torch.ops._common import gemm_int8_route_launches
+
+    before = dict(gemm_int8_route_launches)
+    fn()
+    torch.cuda.synchronize()
+    return "+".join(r for r, n in gemm_int8_route_launches.items() if n > before[r]) or None
+
+
+def phase_gemm_int8():
+    """The int8 GEMM kernel alone at every int8 GEMM shape of the W8A8
+    sublayers, with the epilogue the sublayer runs: the route, max|d|
+    against the plain version on the same codes and scales (f32 output
+    within 1e-5 of the largest value, bf16 within 2^-8 of it), device ms
+    (profiler, the kernel alone), TOP/s, the bound, one torch._int_mm at
+    the same (M, K, N) (cuBLASLt, int32 output, no epilogue) as the
+    yardstick (never called by the port), and each route that takes the
+    shape on the same inputs; then the row-quantize kernel at its three
+    shapes (codes against the plain version's: at most one step apart, on
+    at most 1e-3 of them) -> ({label: numbers}, {label: numbers})."""
+    import torch
+
+    from yomitoku_tpu_torch import ops
+    from yomitoku_tpu_torch.ops._common import gemm_int8, launch_gemm_int8, quantize_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    gemms = {}
+    for label, (M, K, nc, N, epilogue, out_dtype) in INT8_GEMM_SHAPES.items():
+        gelu = "gelu" in epilogue
+        a, w, sa, sw, bias, res, out = _int8_gemm_inputs(gen, M, K, nc, N, epilogue, out_dtype)
+        call = lambda: gemm_int8(a, sa, w, sw, bias, out, res=res, gelu=gelu)  # noqa: E731
+        route = gemm_int8_route_of(call)
+        want = _int8_gemm_plain(a, w, sa, sw, bias, res, gelu)
+        err = (out.float() - want).abs().max().item()
+        limit = (1e-5 if out_dtype == "float32" else 2 ** -8) * want.abs().max().item()
+        del want
+        check(math.isfinite(err) and err <= limit,
+              f"gemm_int8 [{label}]: max|d| {err:.3e} over {limit:.3e}")
+        check(route in GEMM_INT8_ROUTES, f"gemm_int8 [{label}] took route {route}")
+        ops_n = 2 * M * K * N
+        r = dict(route=route, max_abs_err=err, limit=limit,
+                 device_ms=device_ms(call, "gemm_int8"),
+                 int_mm_device_ms=device_ms(lambda: torch._int_mm(a, w)))
+        r["tops"] = ops_n / r["device_ms"] / 1e9 if r["device_ms"] else None
+        r["bound_ms"], r["bound_by"] = bound(
+            [t for t in (a, w, sa, sw, bias, res) if t is not None], [out], {"int8": ops_n})
+        for other in GEMM_INT8_ROUTES:  # the route taken is timed above
+            if other == route or (other == "wgmma" and nc > 1):  # "wgmma" holds no fold
+                continue
+            r[f"{other}_device_ms"] = device_ms(
+                lambda: launch_gemm_int8(other, a, sa, w, sw, bias, out, res, gelu), "gemm_int8")
+        r[f"{route}_device_ms"] = r["device_ms"]
+        tops = "not measured" if r["tops"] is None else f"{r['tops']:.1f}"
+        log(f"gemm_int8 [{label}] M {M} K {K} ({nc} chunk{'s' if nc > 1 else ''}) N {N} "
+            f"{'+'.join(epilogue)} -> {out_dtype}: route {route}, max|d| {err:.3e} (limit "
+            f"{limit:.3e}); device {_ms(r['device_ms'])}, {tops} TOP/s ({ops_n / 1e9:.1f} "
+            f"GOP) against one torch._int_mm's {_ms(r['int_mm_device_ms'])}; bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        log(f"gemm_int8 routes [{label}]: " + ", ".join(
+            f"{x} {_ms(r[x + '_device_ms'])}" for x in GEMM_INT8_ROUTES if x + "_device_ms" in r))
+        gemms[label] = r
+        del a, w, sa, sw, bias, res, out
+        torch.cuda.empty_cache()
+
+    quants = {}
+    for label, (M, K, nc, dtype, ln) in QUANTIZE_SHAPES.items():
+        x = (torch.randn((M, K), device="cuda", generator=gen) * 3).to(getattr(torch, dtype))
+        g = 1 + 0.1 * torch.randn(K, device="cuda", generator=gen)
+        b = 0.1 * torch.randn(K, device="cuda", generator=gen)
+        q = torch.empty((M, K), dtype=torch.int8, device="cuda")
+        sc = torch.empty((M, nc), device="cuda")
+        call = lambda: quantize_rows(x, q, sc, ln=(g, b, 1e-6) if ln else None)  # noqa: E731
+        call()
+        v = ops.layer_norm(x, g, b, 1e-6, torch.float32) if ln else x.float()
+        wq, ws = ops.quantize_rows_reference(v, K // nc)
+        d = (q.int() - wq.int()).abs()
+        moved, worst = d.float().mean().item(), d.max().item()
+        s_err = ((sc - ws).abs() / ws).max().item()
+        del v, wq, ws, d
+        check(worst <= 1 and moved <= 1e-3 and s_err <= 1e-6,
+              f"quantize_rows [{label}]: codes {worst} apart on {moved:.2e} of them, "
+              f"scales {s_err:.2e} apart")
+        r = dict(max_code_step=worst, codes_moved=moved, max_scale_rel_err=s_err,
+                 device_ms=device_ms(call, "quantize_rows"))
+        r["bound_ms"], r["bound_by"] = bound([x] + ([g, b] if ln else []), [q, sc], {})
+        log(f"quantize_rows [{label}] M {M} K {K} ({nc} chunk{'s' if nc > 1 else ''}) "
+            f"{dtype}{' + LayerNorm' if ln else ''}: codes {worst} step(s) apart on "
+            f"{moved:.2e} of them, scales within {s_err:.1e}; device "
+            f"{_ms(r['device_ms'])}; bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        quants[label] = r
+        del x, q, sc
+        torch.cuda.empty_cache()
+    ops.reset_launches()
+    return gemms, quants
+
+
+def check_gemm_int8_routes(what, launches):
+    """After the int8 path's counted run: the int8 GEMM kernel's launches by
+    route, two for each launch of an int8 sublayer (its two products), every
+    one on a TMA + wgmma route."""
+    from yomitoku_tpu_torch.ops._common import gemm_int8_route_launches
+
+    routes = dict(gemm_int8_route_launches)
+    log(f"{what}: gemm_int8 launches by route {routes}")
+    want = 2 * (launches["fused_attention_block_ln_int8"] + launches["fused_mlp_ln_int8"])
+    check(set(routes) == set(GEMM_INT8_ROUTES) and sum(routes.values()) == want > 0,
+          f"{what}: the int8 GEMM launches by route are off: {routes} (expected {want})")
+
+
 # ------------------------------------------------------------------ phase 6
 
 
@@ -1483,6 +1685,7 @@ def _phase_int8_recognizer(card, ctx):
           f"a kernel of the int8 recognizer path was never launched: {launches}")
     check_attention_routes("int8", "wgmma")
     check_gemm_routes("int8")
+    check_gemm_int8_routes("int8", launches)
     check(launches["fused_attention_block_ln"] == 0 and launches["fused_mlp_ln"] == 0,
           f"the int8 path ran a bf16 encoder kernel: {launches}")
     _finite_schema(lines, "int8 recognizer")
@@ -1505,9 +1708,10 @@ def _phase_int8_recognizer(card, ctx):
     rec_s = host_timed(lambda: rec(page, quads[:128]))
     crop_s = host_timed(lambda: ParseqDataset(rec._cfg, page, quads[:128]).as_u8_array())
     model_s = host_timed(lambda: model.forward_tokens(crops))
-    busy, attn, _ = decode_profile(model, crops)
+    busy, attn, _, int8_ms = decode_profile(model, crops)
     log(f"int8: decode on the device (profiler): busy {busy:.2f} ms per batch of "
-        f"128, of which the attention kernel {attn:.3f} ms")
+        f"128, of which the attention kernel {attn:.3f} ms and the int8 GEMM with "
+        f"its row-quantize passes {int8_ms:.3f} ms ({int8_ms / busy:.3f} of busy)")
     log(f"int8: recognizer batch 128 (int8 encoder + int8 K/V): {128 / rec_s:.1f} "
         f"lines/s end to end ({rec_s * 1e3:.1f} ms, of which host crops "
         f"{crop_s * 1e3:.1f} ms), {128 / model_s:.1f} lines/s device decode "
@@ -1577,6 +1781,7 @@ def _phase_int8_recognizer(card, ctx):
         f"{parted} lines part at a near-tie (top-2 gap < 1e-3); max|d logit| "
         f"{(got - want).abs().max().item():.3e}")
     return launches, dict(ids_equal_bf16=same, audit_kept=audit,
+                          decode_busy_ms=busy, decode_int8_gemm_ms=int8_ms,
                           f32_memory_max_abs_err=err_m,
                           f32_memory_mean_rel_err=mean_m,
                           f32_lines_parted_at_near_tie=parted,
@@ -1655,14 +1860,16 @@ def _timings(kern, plain, stock, library=None):
     return dict(ms=median_ms(kern), plain_ms=median_ms(plain, runs=3),
                 stock_ms=median_ms(stock), device_ms=device_ms(kern),
                 stock_device_ms=device_ms(stock),
-                library_ms=None if library is None else median_ms(library))
+                library_ms=None if library is None else median_ms(library),
+                library_device_ms=None if library is None else device_ms(library))
 
 
 def _log_timings(name, label, res):
     log(f"kernel {name} [{label}]: bf16 {res['ms']:.4f} ms per call (device "
         f"{_ms(res['device_ms'])}), plain {res['plain_ms']:.4f} ms, stock "
         f"{res['stock_ms']:.4f} ms (device {_ms(res['stock_device_ms'])}), "
-        f"library {'none' if res['library_ms'] is None else _ms(res['library_ms'])}; "
+        f"library {'none' if res['library_ms'] is None else _ms(res['library_ms'])} "
+        f"(device {_ms(res['library_device_ms'])}); "
         f"bound {res['bound_ms']:.4f} ms "
         f"({res['bound_by']})")
 
@@ -1968,6 +2175,7 @@ def main():
         gemm_shapes = phase_gemm()
         layout_kernels = phase_layout_kernels()
         kernels.update(phase_int8_kernels())
+        int8_gemms, quants = phase_gemm_int8()
         shaped = phase_fused_kernels()  # {kernel: {label: numbers}}
         ocr_launches, ctx = phase_slice(card)
         paths = {"ocr": ocr_launches, "layout": phase_layout(card)}
@@ -1985,6 +2193,9 @@ def main():
         shaped.setdefault(name, {}).update(at)
     for name, labels in GEMMS_OF.items():  # the GEMM kernel's shapes inside each row
         shaped.setdefault(name, {}).update({f"gemm_{lb}": gemm_shapes[lb] for lb in labels})
+    for name, (labels, qlabels) in INT8_GEMMS_OF.items():  # and the int8 kernels'
+        shaped.setdefault(name, {}).update({f"gemm_int8_{lb}": int8_gemms[lb] for lb in labels})
+        shaped[name].update({f"quantize_rows_{lb}": quants[lb] for lb in qlabels})
     rows = []
     for name, route, src, more, replaces in KERNELS:
         by_path = {p: n[name] for p, n in paths.items() if n[name]}

@@ -481,6 +481,92 @@ def test_int8_gemm_matches_plain_on_same_codes(out_dtype, gelu, res, kchunk):
     assert (out.float() - want).abs().max().item() <= tol * want.abs().max().item()
 
 
+#: (M, K, kchunk, N, route, forced): ragged M (201, 333), three K-chunks of
+#: 1024, a ragged K of 192 in one chunk (TMA's zero fill), N below a unit's
+#: width (136) and the recognizer's batch-1 projections (M = 400), on every
+#: int8 route forced through the launcher, and through the wrapper where
+#: its route choice lands (small grids on "wgmma_m64", 4096 x 768 on
+#: "wgmma", or "wgmma_coop" with K in chunks); at M = 4096 the blocks take
+#: two or three units each (two warpgroups in turns, chunk by chunk where
+#: K is chunked, and a unit without a partner; or sharing each unit)
+INT8_GEMM_CASES = (
+    [(333, 192, 192, 136, route, True) for route in ("wgmma", "wgmma_m64", "wgmma_coop")]
+    + [(201, 768, 768, 136, "wgmma", True), (201, 3072, 1024, 136, "wgmma_m64", True),
+       (201, 3072, 1024, 136, "wgmma_coop", True), (201, 3072, 1024, 136, "wgmma_m64", False),
+       (400, 768, 768, 2304, "wgmma_m64", False), (400, 768, 768, 768, "wgmma", True),
+       (4096, 768, 768, 768, "wgmma", False), (4096, 768, 768, 768, "wgmma_m64", True),
+       (4096, 3072, 1024, 768, "wgmma_m64", True), (4096, 3072, 1024, 768, "wgmma_coop", False)]
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", ["bias", "gelu", "res", "none"])
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,kchunk,N,route,forced", INT8_GEMM_CASES)
+def test_int8_gemm_routes_match_plain_on_same_codes(M, K, kchunk, N, route, forced, out_dtype,
+                                                    epilogue):
+    """The int8 GEMM on each route against the plain version on the same
+    codes and scales (exact int32 sums per K-chunk, then the f32
+    epilogue): f32 within 1e-5 of the largest value, bf16 within 2^-8 of
+    it.  Through the wrapper its launch is counted on the route taken;
+    through the launcher nothing is counted."""
+    from yomitoku_tpu_torch.ops._common import (
+        gemm_int8,
+        gemm_int8_route_launches,
+        launch_gemm_int8,
+    )
+    from yomitoku_tpu_torch.ops.mlp import dequantize, int_matmul
+
+    _require_cuda()
+    dt = getattr(torch, out_dtype)
+    rng = np.random.default_rng(25)
+    a = torch.from_numpy(rng.integers(-127, 128, (M, K), dtype=np.int8)).cuda()
+    w = torch.from_numpy(rng.integers(-127, 128, (N, K), dtype=np.int8)).cuda().t()
+    nc = K // kchunk
+    sa = _dev(rng.random((M, nc)) * 1e-3)
+    sw = _dev(rng.random(N) * 1e-3)
+    bias = None if epilogue == "none" else _dev(rng.standard_normal(N))
+    r = _dev(rng.standard_normal((M, N)), dt) if epilogue == "res" else None
+    gelu = epilogue == "gelu"
+    out = torch.empty((M, N), dtype=dt, device="cuda")
+    routes0 = dict(gemm_int8_route_launches)
+    if forced:
+        launch_gemm_int8(route, a, sa, w, sw, bias, out, res=r, gelu=gelu)
+    else:
+        gemm_int8(a, sa, w, sw, bias, out, res=r, gelu=gelu)
+    want = 0
+    for c in range(nc):
+        sl = slice(c * kchunk, (c + 1) * kchunk)
+        want = want + dequantize(int_matmul(a[:, sl], w[sl]), sa[:, c:c + 1], sw)
+    if bias is not None:
+        want = want + bias
+    if gelu:
+        want = torch.nn.functional.gelu(want)
+    if r is not None:
+        want = r.float() + want
+    torch.cuda.synchronize()
+    taken = {k: n - routes0[k] for k, n in gemm_int8_route_launches.items()}
+    assert taken == {k: int(k == route and not forced) for k in taken}, taken
+    tol = 1e-5 if out_dtype == "float32" else 2 ** -8
+    err, top = (out.float() - want).abs().max().item(), want.abs().max().item()
+    assert err <= tol * top, (err, top)
+
+
+@pytest.mark.cuda
+def test_int8_gemm_route_refuses_a_chunked_wide_unit():
+    """The C entry obeys the route or refuses it: "wgmma" (128-row units)
+    holds no f32 fold, so a K-chunked product on it raises."""
+    from yomitoku_tpu_torch.ops._common import launch_gemm_int8
+
+    _require_cuda()
+    a = torch.zeros((256, 2048), dtype=torch.int8, device="cuda")
+    w = torch.zeros((128, 2048), dtype=torch.int8, device="cuda").t()
+    sa, sw = torch.ones((256, 2), device="cuda"), torch.ones(128, device="cuda")
+    out = torch.empty((256, 128), device="cuda")
+    with pytest.raises(RuntimeError, match="route not built"):
+        launch_gemm_int8("wgmma", a, sa, w, sw, None, out)
+
+
 @pytest.mark.cuda
 def test_int8_kv_loop_matches_full_cache(monkeypatch):
     """A small PARSeq in f32 on the card with the int8 memory-K/V cache (the

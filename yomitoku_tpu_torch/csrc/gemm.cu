@@ -489,30 +489,14 @@ __global__ void __launch_bounds__(256) gemm_f32_kernel(GemmArgs p) {
   }
 }
 
-// A 2-D map of a bf16 row-major matrix (inner, outer) with a row stride of
-// ``ld`` elements; boxes of box0 x box1, 128-byte swizzled.
-int make_map_2d(CUtensorMap* map, const void* base, int inner, int outer, long long ld,
-                int box0, int box1) {
-  const EncodeTiled fn = encoder();
-  if (!fn) return YT_ERR_TENSOR_MAP;
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)box0, (cuuint32_t)box1};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : YT_ERR_TENSOR_MAP;
-}
-
 template <class S, bool NK, bool GELU>
 int launch_wgmma(const GemmArgs& g, cudaStream_t s) {
   CUtensorMap ta, tw;
-  int rc = make_map_2d(&ta, g.a, g.k, g.m, g.lda, BK, S::BM);
+  constexpr CUtensorMapDataType T = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  int rc = make_map_2d(&ta, T, 2, g.a, g.k, g.m, g.lda, BK, S::BM);
   if (!rc)
-    rc = NK ? make_map_2d(&tw, g.w, g.k, g.n, g.ldw, BK, BN)
-            : make_map_2d(&tw, g.w, g.n, g.k, g.ldw, 64, BK);
+    rc = NK ? make_map_2d(&tw, T, 2, g.w, g.k, g.n, g.ldw, BK, BN)
+            : make_map_2d(&tw, T, 2, g.w, g.n, g.k, g.ldw, 64, BK);
   if (rc) return rc;
   WgArgs p{};
   p.bias = static_cast<const bf16*>(g.bias);

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) primitives in inline PTX: mbarriers, TMA tile loads,
-// warpgroup register reallocation, and wgmma with its shared-memory
-// descriptors.  Used by attention.cu and gemm.cu.
+// warpgroup register reallocation, and wgmma (bf16, and int8 with s32
+// sums) with its shared-memory descriptors.  Used by attention.cu, gemm.cu
+// and gemm_int8.cu.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
@@ -32,6 +33,24 @@ inline EncodeTiled encoder() {
     if (e == cudaSuccess && res == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
   }
   return fn;
+}
+
+// A 2-D map of a row-major matrix of ``elem_bytes``-byte elements of type
+// ``type``, (inner, outer) with a row stride of ``ld`` elements; boxes of
+// box0 x box1, 128-byte swizzled, zero fill past the edges.
+inline int make_map_2d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                       const void* base, int inner, int outer, long long ld, int box0,
+                       int box1) {
+  const EncodeTiled fn = encoder();
+  if (!fn) return YT_ERR_TENSOR_MAP;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box0, (cuuint32_t)box1};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : YT_ERR_TENSOR_MAP;
 }
 
 // ---- mbarriers (shared memory, CTA scope)
@@ -164,6 +183,29 @@ __device__ __forceinline__ void wgmma_wait() {
 // Pins the order of accesses to an accumulator register around the
 // asynchronous wgmma that writes it.
 __device__ __forceinline__ void fence_operand(float& x) { asm volatile("" : "+f"(x)::"memory"); }
+
+__device__ __forceinline__ void fence_operand(int& x) { asm volatile("" : "+r"(x)::"memory"); }
+
+// d (64 x 128, s32) = or += A . B in int8, one k32 step (32 bytes of K),
+// both operands in shared memory, K-major: integer wgmma has no transpose
+// bit, so W is read as rows of (N, K).
+__device__ __forceinline__ void wgmma_ss_s8_n128(int* d, uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
 
 // d (64 x N, f32) = or += A . B in bf16, one k16 step.  ss: A and B from
 // shared memory, both K-major; rs: A from registers (the m16n8k16 A

@@ -68,7 +68,7 @@ class _Library:
         ]
         lib.yt_quantize_rows.restype = i32
         lib.yt_gemm_int8.argtypes = [
-            vp, i64, vp, i64, vp, vp, vp, vp, i64, vp, i64,
+            i32, vp, i64, vp, i64, vp, vp, vp, vp, i64, vp, i64,
             i32, i32, i32, i32, i32, i32, vp,
         ]
         lib.yt_gemm_int8.restype = i32

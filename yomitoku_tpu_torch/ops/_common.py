@@ -28,7 +28,8 @@ launches = {
 def reset_launches():
     for name in launches:
         launches[name] = 0
-    for counts in (attention_route_launches, gemm_route_launches):
+    for counts in (attention_route_launches, gemm_route_launches,
+                   gemm_int8_route_launches):
         for route in counts:
             counts[route] = 0
 
@@ -129,9 +130,10 @@ def gemm_route(dtype, M, N, legal, sms):
     return "wgmma_small"
 
 
-def gemm_units(route, M, N):
-    """Output units (blocks of work) of an (M, N) product on a wgmma route."""
-    bm, bn = GEMM_TILES[route]
+def gemm_units(route, M, N, tiles=None):
+    """Output units (blocks of work) of an (M, N) product on a wgmma route
+    of the bf16 GEMM, or of the int8 one with ``tiles=GEMM_INT8_TILES``."""
+    bm, bn = (tiles or GEMM_TILES)[route]
     return -(-M // bm) * -(-N // bn)
 
 
@@ -338,22 +340,87 @@ def quantize_rows(x, q, s, ln=None):
         if g.dtype != torch.float32 or b.dtype != torch.float32:
             raise TypeError("quantize_rows: LayerNorm vectors must be float32")
     lib = library()
-    with torch.cuda.device(x.device):
-        rc = lib.lib.yt_quantize_rows(
-            _code(x), x.data_ptr(), x.stride(0), _ptr(g), _ptr(b), float(eps),
-            q.data_ptr(), s.data_ptr(), M, K, K // nc,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    lib.check(rc, "yt_quantize_rows launch")
+    rc = _launch(
+        x.device, lib.lib.yt_quantize_rows,
+        _code(x), x.data_ptr(), x.stride(0), _ptr(g), _ptr(b), float(eps),
+        q.data_ptr(), s.data_ptr(), M, K, K // nc,
+    )
+    if rc:
+        lib.check(rc, "yt_quantize_rows launch")
+
+
+#: Routes of the int8 GEMM kernel (csrc/gemm_int8.cu ``yt_gemm_int8``),
+#: all TMA + int8 wgmma with two consumer warpgroups: "wgmma" 128 x 128
+#: output units that they take in turns, K in one chunk; "wgmma_coop" 128 x
+#: 128 units that they share, 64 rows each, for K-chunked products (the f32
+#: fold of the finished chunks sits in registers beside the int32 sums);
+#: "wgmma_m64" 64 x 128 units taken in turns, any K-chunks, for grids that
+#: 128-row units would leave under one wave.
+GEMM_INT8_ROUTES = {"wgmma": 1, "wgmma_m64": 2, "wgmma_coop": 3}
+#: (rows, columns) of an int8 route's output unit
+GEMM_INT8_TILES = {"wgmma": (128, 128), "wgmma_m64": (64, 128), "wgmma_coop": (128, 128)}
+#: launches of the int8 GEMM kernel by route, counted like ``launches``
+gemm_int8_route_launches = dict.fromkeys(GEMM_INT8_ROUTES, 0)
+#: k per stage of the int8 GEMM: K-chunks are whole multiples of it
+INT8_BK = 128
+
+
+def gemm_int8_route(M, N, nchunks, legal, sms):
+    """The int8 GEMM kernel's route for an (M, K) x (K, N) product in
+    ``nchunks`` K-chunks on a card of ``sms`` SMs.  TMA-legal operands
+    (``legal``, ``_gemm_int8_legal``) take 128 x 128 units where they fill
+    the card, "wgmma" for K in one chunk and "wgmma_coop" for a chunked K,
+    else "wgmma_m64".  Anything else raises: no route takes it."""
+    if not legal:
+        raise ValueError("gemm_int8: no route for these operands (K % 16, N % 8, "
+                         "K-chunks of K or a multiple of 128, 16-byte aligned "
+                         "operands and vectors, row strides of 16-byte multiples)")
+    if gemm_units("wgmma", M, N, GEMM_INT8_TILES) < sms:
+        return "wgmma_m64"
+    return "wgmma_coop" if nchunks > 1 else "wgmma"
+
+
+def _gemm_int8_legal(a, w, out, sw, bias=None, res=None, kchunk=None):
+    """TMA-legal int8 GEMM operands: K % 16, N % 8, K-chunks of K or a
+    multiple of ``INT8_BK``; a, w, out, res, sw and bias on 16-byte
+    aligned bases; every row stride (w's: its (N, K) rows) a 16-byte
+    multiple."""
+    K, N = w.shape
+    kchunk = kchunk or K
+    rows = [a.stride(0), w.stride(1), out.stride(0) * out.element_size()]
+    if res is not None:
+        rows.append(res.stride(0) * res.element_size())
+    bases = [t for t in (a, w, out, sw, bias, res) if t is not None]
+    return (K % 16 == 0 and N % 8 == 0 and K % kchunk == 0
+            and (kchunk == K or kchunk % INT8_BK == 0)
+            and all(r % 16 == 0 for r in rows) and all(_aligned(t, 16) for t in bases))
+
+
+def launch_gemm_int8(route, a, sa, w, sw, bias, out, res=None, gelu=False):
+    """One launch of the int8 GEMM kernel by ``route`` on arguments
+    ``gemm_int8`` has checked; the C entry refuses a route not built for
+    them.  Counts nothing."""
+    M, K = a.shape
+    N = out.shape[1]
+    lib = library()
+    rc = _launch(
+        a.device, lib.lib.yt_gemm_int8,
+        GEMM_INT8_ROUTES[route], a.data_ptr(), a.stride(0), w.data_ptr(), w.stride(1),
+        sa.data_ptr(), sw.data_ptr(), _ptr(bias), _ptr(res),
+        0 if res is None else res.stride(0), out.data_ptr(), out.stride(0),
+        _code(out), M, N, K, K // sa.shape[1], int(gelu),
+    )
+    if rc:
+        lib.check(rc, f"yt_gemm_int8 launch ({route})")
 
 
 def gemm_int8(a, sa, w, sw, bias, out, res=None, gelu=False):
     """out = epilogue(sum over K-chunks c of (a_c @ w_c)_int32 * sa[:, c] *
-    sw + bias) on the int8 GEMM kernel (csrc/gemm_int8.cu): a (M, K) int8
-    rows; sa (M, nchunks), sw (N,) and bias (N,) float32; w (K, N) int8 as
-    the transpose of a row-major (N, K) tensor; out and res (M, N) of one
-    dtype (float32 or bfloat16); the epilogue adds bias, then erf-GELU,
-    then res."""
+    sw + bias) on the int8 GEMM kernel (csrc/gemm_int8.cu), by the route
+    ``gemm_int8_route`` picks for a's card: a (M, K) int8 rows; sa (M,
+    nchunks), sw (N,) and bias (N,) float32; w (K, N) int8 as the transpose
+    of a row-major (N, K) tensor; out and res (M, N) of one dtype (float32
+    or bfloat16); the epilogue adds bias, then erf-GELU, then res."""
     M, K = a.shape
     N = w.shape[1]
     nc = sa.shape[1]
@@ -369,26 +436,14 @@ def gemm_int8(a, sa, w, sw, bias, out, res=None, gelu=False):
     for t in (sa, sw) + (() if bias is None else (bias,)):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise TypeError("gemm_int8: scales and bias contiguous float32")
+    if out.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"gemm_int8: output dtype {out.dtype} (float32 or bfloat16)")
     if res is not None and (res.shape != out.shape or res.dtype != out.dtype):
         raise ValueError("gemm_int8: residual must match the output")
     for t in (a, out) + (() if res is None else (res,)):
         if t.stride(1) != 1:
             raise ValueError("gemm_int8: rows must have unit column stride")
-    kchunk = K // nc
-    if (K % 16 or N % 8 or a.stride(0) % 16 or w.stride(1) % 16
-            or out.stride(0) % 2 or (res is not None and res.stride(0) % 2)
-            or (kchunk != K and kchunk % 64)
-            or not all(_aligned(t, 16) for t in (a, w))):
-        raise ValueError("gemm_int8: needs K % 16, N % 8, int8 row strides % 16, "
-                         "16-byte aligned int8 operands and K-chunks of K or a "
-                         "multiple of 64")
-    lib = library()
-    with torch.cuda.device(a.device):
-        rc = lib.lib.yt_gemm_int8(
-            a.data_ptr(), a.stride(0), w.data_ptr(), w.stride(1),
-            sa.data_ptr(), sw.data_ptr(), _ptr(bias), _ptr(res),
-            0 if res is None else res.stride(0), out.data_ptr(), out.stride(0),
-            _code(out), M, N, K, kchunk, int(gelu),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    lib.check(rc, "yt_gemm_int8 launch")
+    legal = _gemm_int8_legal(a, w, out, sw, bias, res, K // nc)
+    route = gemm_int8_route(M, N, nc, legal, _sm_count(a.device.index))
+    launch_gemm_int8(route, a, sa, w, sw, bias, out, res, gelu)
+    gemm_int8_route_launches[route] += 1
