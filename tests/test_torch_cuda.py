@@ -486,7 +486,7 @@ def test_int8_gemm_matches_plain_on_same_codes(out_dtype, gelu, res, kchunk):
 #: width (136) and the recognizer's batch-1 projections (M = 400), on every
 #: int8 route forced through the launcher, and through the wrapper where
 #: its route choice lands (small grids on "wgmma_m64", 4096 x 768 on
-#: "wgmma", or "wgmma_coop" with K in chunks); at M = 4096 the blocks take
+#: "wgmma", or "wgmma_coop" with K in chunks or GELU); at M = 4096 the blocks take
 #: two or three units each (two warpgroups in turns, chunk by chunk where
 #: K is chunked, and a unit without a partner; or sharing each unit)
 INT8_GEMM_CASES = (
@@ -534,6 +534,8 @@ def test_int8_gemm_routes_match_plain_on_same_codes(M, K, kchunk, N, route, forc
         launch_gemm_int8(route, a, sa, w, sw, bias, out, res=r, gelu=gelu)
     else:
         gemm_int8(a, sa, w, sw, bias, out, res=r, gelu=gelu)
+        if gelu and route == "wgmma":  # the wrapper shares GELU units
+            route = "wgmma_coop"
     want = 0
     for c in range(nc):
         sl = slice(c * kchunk, (c + 1) * kchunk)

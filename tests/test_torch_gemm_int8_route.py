@@ -20,42 +20,44 @@ SMS = (132, 114)  # H100 SXM and PCIe
 D, HIDDEN = 768, 3072
 NC2 = HIDDEN // hidden_chunk(HIDDEN)  # fc2's K-chunks: 3 of 1024
 
-#: (what, M, K-chunks, N) of every int8 GEMM of the W8A8 sublayers at 400
-#: tokens per line and batch buckets 1, 8, 32 and 128: the QKV and
+#: (what, M, K-chunks, N, GELU) of every int8 GEMM of the W8A8 sublayers
+#: at 400 tokens per line and batch buckets 1, 8, 32 and 128: the QKV and
 #: out-projection of fused_attention_block_ln_int8, fc1 and fc2 of
 #: fused_mlp_ln_int8
 INT8_PATH = [
-    (f"{what}_b{b}", 400 * b, nc, n)
+    (f"{what}_b{b}", 400 * b, nc, n, gelu)
     for b in (1, 8, 32, 128)
-    for what, nc, n in (("qkv", 1, 3 * D), ("out", 1, D), ("fc1", 1, HIDDEN), ("fc2", NC2, D))
+    for what, nc, n, gelu in (("qkv", 1, 3 * D, False), ("out", 1, D, False),
+                              ("fc1", 1, HIDDEN, True), ("fc2", NC2, D, False))
 ]
 
 
-@pytest.mark.parametrize("what,M,N,nc,want", [
-    ("qkv", 51200, 3 * D, 1, "wgmma"),
-    ("out", 51200, D, 1, "wgmma"),
-    ("fc1", 51200, HIDDEN, 1, "wgmma"),
-    ("fc2", 51200, D, NC2, "wgmma_coop"),     # K in three chunks: the f32 fold
-    ("out_b8", 3200, D, 1, "wgmma"),          # 150 units of 128 x 128
-    ("qkv_b1", 400, 3 * D, 1, "wgmma_m64"),   # 72 of them
-    ("out_b1", 400, D, 1, "wgmma_m64"),       # 24
-    ("fc2_b1", 400, D, NC2, "wgmma_m64"),
+@pytest.mark.parametrize("what,M,N,nc,gelu,want", [
+    ("qkv", 51200, 3 * D, 1, False, "wgmma"),
+    ("out", 51200, D, 1, False, "wgmma"),
+    ("fc1", 51200, HIDDEN, 1, True, "wgmma_coop"),   # the GELU epilogue
+    ("fc2", 51200, D, NC2, False, "wgmma_coop"),     # K in three chunks: the f32 fold
+    ("out_b8", 3200, D, 1, False, "wgmma"),          # 150 units of 128 x 128
+    ("qkv_b1", 400, 3 * D, 1, False, "wgmma_m64"),   # 72 of them
+    ("out_b1", 400, D, 1, False, "wgmma_m64"),       # 24
+    ("fc1_b1", 400, HIDDEN, 1, True, "wgmma_m64"),
+    ("fc2_b1", 400, D, NC2, False, "wgmma_m64"),
 ])
-def test_route_by_shape(what, M, N, nc, want):
-    assert gemm_int8_route(M, N, nc, True, 132) == want, what
+def test_route_by_shape(what, M, N, nc, gelu, want):
+    assert gemm_int8_route(M, N, nc, gelu, True, 132) == want, what
 
 
 @pytest.mark.parametrize("sms", SMS)
-@pytest.mark.parametrize("what,M,nc,N", INT8_PATH, ids=[c[0] for c in INT8_PATH])
-def test_path_shapes_fill_the_card_where_they_can(what, M, nc, N, sms):
+@pytest.mark.parametrize("what,M,nc,N,gelu", INT8_PATH, ids=[c[0] for c in INT8_PATH])
+def test_path_shapes_fill_the_card_where_they_can(what, M, nc, N, gelu, sms):
     """Every int8 GEMM of the path takes a route: 128-row units where they
-    fill the card (taken in turns for one chunk, shared for a chunked K),
-    else 64-row ones, which hold more units."""
-    route = gemm_int8_route(M, N, nc, True, sms)
+    fill the card (taken in turns, or shared for a chunked K or a GELU
+    epilogue), else 64-row ones, which hold more units."""
+    route = gemm_int8_route(M, N, nc, gelu, True, sms)
     assert route in GEMM_INT8_ROUTES
     wide = gemm_units("wgmma", M, N, GEMM_INT8_TILES)
     if wide >= sms:
-        assert route == ("wgmma_coop" if nc > 1 else "wgmma")
+        assert route == ("wgmma_coop" if nc > 1 or gelu else "wgmma")
         assert gemm_units(route, M, N, GEMM_INT8_TILES) == wide
     else:
         assert route == "wgmma_m64"
@@ -66,16 +68,17 @@ def test_no_shape_maps_to_an_unbuilt_route():
     for M in (1, 7, 64, 201, 333, 400, 808, 3200, 12800, 51200):
         for N in (8, 136, 768, 2304, 3072):
             for nc in (1, 2, 3):
-                for sms in SMS:
-                    route = gemm_int8_route(M, N, nc, True, sms)
-                    assert route in GEMM_INT8_ROUTES and route in GEMM_INT8_TILES
-                    assert nc == 1 or route != "wgmma"  # "wgmma" holds no f32 fold
+                for gelu in (False, True):
+                    for sms in SMS:
+                        route = gemm_int8_route(M, N, nc, gelu, True, sms)
+                        assert route in GEMM_INT8_ROUTES and route in GEMM_INT8_TILES
+                        assert nc == 1 or route != "wgmma"  # "wgmma" holds no f32 fold
 
 
 @pytest.mark.parametrize("M,N,nc", [(51200, D, 1), (400, 256, 3), (3, 8, 1)])
 def test_illegal_operands_raise(M, N, nc):
     with pytest.raises(ValueError, match="no route"):
-        gemm_int8_route(M, N, nc, False, 132)
+        gemm_int8_route(M, N, nc, False, False, 132)
 
 
 def _rows(rows, cols, dtype, offset=0, pad=0):

@@ -63,8 +63,10 @@
 //                128 registers a thread (with the f32 fold, 256: too many);
 //   "wgmma_coop" 128 x 128 units shared by the two warpgroups, 64 rows
 //                each (64 + 64 registers with the fold): K-chunked
-//                products.  A W tile feeds 128 rows, half the L2 traffic
-//                of 64-row units, which bound fc2 there;
+//                products (a W tile feeds 128 rows, half the L2 traffic of
+//                64-row units, which bound fc2 there) and GELU epilogues
+//                (erff, ~50 instructions a value, outlasts the products:
+//                both warpgroups run it at once instead of in turns);
 //   "wgmma_m64"  64 x 128 units taken in turns, any K-chunks: grids that
 //                128-row units would leave under one wave.
 // Taking turns goes chunk by chunk, so a warpgroup folds one chunk under
@@ -304,8 +306,9 @@ __device__ __forceinline__ void consume8(const Wg8Args& p, unsigned char* sm, ui
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int g = lane / 4, q = lane % 4;
   const bool leader = threadIdx.x % 128 == 0;
-  // Taking turns (named barrier 1 + x: warpgroup x's turn): a turn is one
-  // K-chunk of a unit (the whole K on "wgmma").  Warpgroup w takes this
+  // Taking turns (not on "wgmma_coop", whose warpgroups share each unit;
+  // named barrier 1 + x: warpgroup x's turn): a turn is one K-chunk of a
+  // unit (the whole K on "wgmma").  Warpgroup w takes this
   // block's units w, w + NWG, ...; a group of NWG units goes chunk by
   // chunk, 0.0, 1.0, 0.1, 1.1, ..., then 2.0, 3.0, ... for two
   // warpgroups; the last group may hold fewer units, and a unit alone
@@ -425,14 +428,15 @@ __device__ __forceinline__ void consume8(const Wg8Args& p, unsigned char* sm, ui
       if constexpr (S::FOLD) {  // fold the chunk: f = f + (i32 * s_row[c]) * s_col
         wait_vec();
 #pragma unroll
-        for (int j = 0; j < QBN / 8; ++j) {
-          const float2 sv = *reinterpret_cast<const float2*>(sw_s + 8 * j + 2 * q);
+        for (int jc = 0; jc < QBN / 8; ++jc) {  // 8-column groups
+          const float2 sv = *reinterpret_cast<const float2*>(sw_s + 8 * jc + 2 * q);
 #pragma unroll
           for (int mt = 0; mt < S::MT; ++mt)
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-              facc[mt][4 * j + e] = __fadd_rn(
-                  facc[mt][4 * j + e], dequant(acc[mt][4 * j + e], sr[mt][e >> 1], e & 1 ? sv.y : sv.x));
+              facc[mt][4 * jc + e] = __fadd_rn(
+                  facc[mt][4 * jc + e],
+                  dequant(acc[mt][4 * jc + e], sr[mt][e >> 1], e & 1 ? sv.y : sv.x));
         }
         if (c + 1 < p.nchunks) row_scales(c + 1);
       }
@@ -460,15 +464,15 @@ __device__ __forceinline__ void consume8(const Wg8Args& p, unsigned char* sm, ui
       for (int r = 0; r < R; ++r) {
 #pragma unroll
         for (int jj = 0; jj < JS; ++jj) {
-          const int j = (t0 + r) % TN * JS + jj, col = 8 * j + 2 * q;
+          const int jc = (t0 + r) % TN * JS + jj, col = 8 * jc + 2 * q;
           const float2 sv = *reinterpret_cast<const float2*>(sw_s + col);
           const float2 bv = p.bias ? *reinterpret_cast<const float2*>(bias_s + col)
                                    : make_float2(0.f, 0.f);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             float x;  // the fold is a sum from 0 already; a single chunk's is 0 + x
-            if constexpr (S::FOLD) x = facc[mt][4 * j + e];
-            else x = dequant(acc[mt][4 * j + e], sr[mt][e >> 1], e & 1 ? sv.y : sv.x);
+            if constexpr (S::FOLD) x = facc[mt][4 * jc + e];
+            else x = dequant(acc[mt][4 * jc + e], sr[mt][e >> 1], e & 1 ? sv.y : sv.x);
             if (p.bias) x = __fadd_rn(x, e & 1 ? bv.y : bv.x);
             else if constexpr (!S::FOLD) x = __fadd_rn(0.f, x);
             if constexpr (GELU) x = 0.5f * x * (1.f + erff(x * 0.70710678118654752f));

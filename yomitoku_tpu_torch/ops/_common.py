@@ -353,9 +353,9 @@ def quantize_rows(x, q, s, ln=None):
 #: all TMA + int8 wgmma with two consumer warpgroups: "wgmma" 128 x 128
 #: output units that they take in turns, K in one chunk; "wgmma_coop" 128 x
 #: 128 units that they share, 64 rows each, for K-chunked products (the f32
-#: fold of the finished chunks sits in registers beside the int32 sums);
-#: "wgmma_m64" 64 x 128 units taken in turns, any K-chunks, for grids that
-#: 128-row units would leave under one wave.
+#: fold of the finished chunks sits in registers beside the int32 sums) and
+#: GELU epilogues; "wgmma_m64" 64 x 128 units taken in turns, any K-chunks,
+#: for grids that 128-row units would leave under one wave.
 GEMM_INT8_ROUTES = {"wgmma": 1, "wgmma_m64": 2, "wgmma_coop": 3}
 #: (rows, columns) of an int8 route's output unit
 GEMM_INT8_TILES = {"wgmma": (128, 128), "wgmma_m64": (64, 128), "wgmma_coop": (128, 128)}
@@ -365,19 +365,21 @@ gemm_int8_route_launches = dict.fromkeys(GEMM_INT8_ROUTES, 0)
 INT8_BK = 128
 
 
-def gemm_int8_route(M, N, nchunks, legal, sms):
+def gemm_int8_route(M, N, nchunks, gelu, legal, sms):
     """The int8 GEMM kernel's route for an (M, K) x (K, N) product in
     ``nchunks`` K-chunks on a card of ``sms`` SMs.  TMA-legal operands
     (``legal``, ``_gemm_int8_legal``) take 128 x 128 units where they fill
-    the card, "wgmma" for K in one chunk and "wgmma_coop" for a chunked K,
-    else "wgmma_m64".  Anything else raises: no route takes it."""
+    the card: "wgmma_coop" for a chunked K, and for a GELU epilogue (its
+    erff, ~50 instructions a value, outlasts the products: both
+    warpgroups run it at once), else "wgmma"; where they do not fill it,
+    "wgmma_m64".  Anything else raises: no route takes it."""
     if not legal:
         raise ValueError("gemm_int8: no route for these operands (K % 16, N % 8, "
                          "K-chunks of K or a multiple of 128, 16-byte aligned "
                          "operands and vectors, row strides of 16-byte multiples)")
     if gemm_units("wgmma", M, N, GEMM_INT8_TILES) < sms:
         return "wgmma_m64"
-    return "wgmma_coop" if nchunks > 1 else "wgmma"
+    return "wgmma_coop" if nchunks > 1 or gelu else "wgmma"
 
 
 def _gemm_int8_legal(a, w, out, sw, bias=None, res=None, kchunk=None):
@@ -444,6 +446,6 @@ def gemm_int8(a, sa, w, sw, bias, out, res=None, gelu=False):
         if t.stride(1) != 1:
             raise ValueError("gemm_int8: rows must have unit column stride")
     legal = _gemm_int8_legal(a, w, out, sw, bias, res, K // nc)
-    route = gemm_int8_route(M, N, nc, legal, _sm_count(a.device.index))
+    route = gemm_int8_route(M, N, nc, gelu, legal, _sm_count(a.device.index))
     launch_gemm_int8(route, a, sa, w, sw, bias, out, res, gelu)
     gemm_int8_route_launches[route] += 1
