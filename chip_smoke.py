@@ -2,8 +2,15 @@
 """Smoke run of the PyTorch/CUDA port (``yomitoku_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --fused-kernels [ROOT]
 
-Phases, each printed as it runs; any failure exits non-zero:
+With no arguments it runs the phases below, each printed as it runs; any
+failure exits non-zero.  ``--fused-kernels [ROOT]`` runs only phase 7's
+bottleneck kernels at their eleven shapes and the fused DBNet forward's
+device busy, on the package of this checkout or of another commit
+unpacked at ROOT (git archive), to compare two trees on one card; it ends
+with a JSON line of their device times.
+
 
 1. Card: name and power limit (nvidia-smi), and the kernel build time
    (the CUDA sources under yomitoku_tpu_torch/csrc compile here), with
@@ -11,8 +18,10 @@ Phases, each printed as it runs; any failure exits non-zero:
    (ptxas; a spill fails the run), of every GEMM kernel (the two
    wgmma schedules in both weight layouts, the f32 and LayerNorm kernels)
    and of every int8 GEMM kernel (the two int8 routes for f32 and bf16
-   output, with and without GELU) and the row-quantize kernel (a spill
-   fails the run).
+   output, with and without GELU) and the row-quantize kernel, and of the
+   convolution kernels of csrc/bottleneck.cu (the four TMA + wgmma unit
+   shapes, the split route's combine pass, the f32 kernel); a spill fails
+   the run.
 2. Kernels: each of the four OCR kernels at the recognizer's shapes
    against its plain PyTorch version on the same CUDA inputs (f32 kernel
    vs f32 reference at max|d| <= 1e-4 max|ref| + 1e-5 with TF32 off; bf16
@@ -110,12 +119,23 @@ Phases, each printed as it runs; any failure exits non-zero:
    same bf16 values, which rounds h1 and h2 where they do), the unfused
    cuDNN blocks in f32 against the same plain version, then the times of
    the kernel, the plain version and the stock op (the unfused modules in
-   channels_last bf16; SDPA; torch ops), per call and on the device.  Then
+   channels_last bf16; SDPA; torch ops), per call and on the device.  At
+   each bottleneck shape, a line ``conv [<shape>/<conv>] ...`` for each of
+   its three convolutions (reduce, conv3x3, expand), launched alone on the
+   route its plan picks: the route, the unit's patch and its padding share,
+   max|d| against the plain version on the same bf16 values (2e-2 of the
+   largest value), device ms, TFLOP/s, the bound, and one F.conv2d call
+   with the folded weight and bias (bf16, channels_last) as cuDNN's
+   yardstick; and a line ``conv routes [<shape>/<conv>] ...`` with the
+   device time of every route that takes it on the same inputs.  Then
    the path: ``OCR(device="cuda")`` on demo/sample_text.png and
    ``LayoutAnalyzer(device="cuda")`` on demo/sample_table.png with its
    recognizer on the 4 fixed boxes, with both switches on: launch counts,
-   ms/page and device time of the detector and layout models against the
-   default backbone in the same run, DBNet's bf16 map fused against
+   the convolution kernel's launches by route (a bf16 convolution on the
+   f32 "fma" kernel fails the run), ms/page and device time of the
+   detector and layout models against the default backbone in the same
+   run, csrc/bottleneck.cu's share of the fused DBNet forward's device
+   busy time, DBNet's bf16 map fused against
    unfused (max|d| <= 3e-2, mean <= 2e-3: the JAX package's in-model
    bound), and DBNet (at 1600x1184) and RT-DETRv2 in f32 on the card
    against the same weights on the CPU with the gates forced open there.
@@ -307,12 +327,13 @@ def instantiations(build_log, kernels):
 
     rows, name = [], None
     for line in build_log.splitlines():
-        m = re.search(rf"Compiling entry function '\w*?\d({kernels})I(\w+?)EEv", line)
+        m = re.search(rf"Compiling entry function '\w*?\d({kernels})(?:I(\w+?)EEv|E)", line)
         if m:
-            args = re.findall(r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16|(?<!N)S\d*_)|(f)", m.group(2))
+            args = re.findall(r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16|(?<!N)S\d*_)|(f)",
+                              m.group(2) or "")
             label = ", ".join(n or ("true" if b == "1" else "false") if n or b else
                               "bf16" if h else "f32" for n, b, h, _ in args)
-            name, spills = f"{m.group(1)}<{label}>", None
+            name, spills = f"{m.group(1)}<{label}>" if m.group(2) else m.group(1), None
             continue
         if name and spills is None and "spill stores" in line:
             spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
@@ -358,6 +379,12 @@ def phase_card():
               "an int8 GEMM route was not built for both output types, with and "
               "without GELU")
         check(all(sp == 0 for _, _, sp in rows), "an int8 GEMM instantiation spills")
+        rows = instantiations(lib.build_log, "conv_wgmma_kernel|conv_combine_kernel|conv_f32_kernel")
+        log("conv instantiations (ptxas): " + "; ".join(
+            f"{n} {r} regs, {sp} B spilled" for n, r, sp in rows))
+        check(sum("conv_wgmma" in n for n, _, _ in rows) == 4,
+              "a convolution unit shape (128 or 64 pixels x 128 or 64 channels) was not built")
+        check(all(sp == 0 for _, _, sp in rows), "a convolution instantiation spills")
     return card
 
 
@@ -1874,11 +1901,12 @@ def _log_timings(name, label, res):
         f"({res['bound_by']})")
 
 
-def phase_fused_kernels():
-    """Kernels 6, 7, 10 and 11 at the main paths' shapes -> {kernel: {label:
-    numbers}}.  The stock op of the bottleneck kernels is the unfused
-    modules (cuDNN) in channels_last bf16; its f32 run is also held to the
-    plain version, an independent check of the BN folding."""
+def phase_fused_kernels(convs=True, attention=True):
+    """Kernels 10 and 11 at the main paths' shapes, with each of their
+    convolutions (``convs``), and kernels 6 and 7 (``attention``) ->
+    {kernel: {label: numbers}}.  The stock op of the bottleneck kernels is
+    the unfused modules (cuDNN) in channels_last bf16; its f32 run is also
+    held to the plain version, an independent check of the BN folding."""
     import copy
 
     import numpy as np
@@ -1922,12 +1950,131 @@ def phase_fused_kernels():
                    stock_f32_max_abs_err=err_s)
         res["bound_ms"], res["bound_by"] = bound(a16, [out16], kernel_ops(name, a16, ()))
         _log_timings(name, label, res)
+        if convs:
+            with torch.no_grad():
+                res["convs"] = conv_numbers(name, label, a16, d)
         results.setdefault(name, {})[label] = res
         del blocks, blocks16, a16, out16, x, xs16
         torch.cuda.empty_cache()
-    results.update(_attention_kernels(rng))
+    if attention:
+        results.update(_attention_kernels(rng))
     ops.reset_launches()
     return results
+
+
+#: the kernels of csrc/bottleneck.cu as the profiler names them
+BOTTLENECK_DEVICE_NAMES = r"\bconv_(?:wgmma|combine|bf16|f32)_kernel"
+
+
+def _conv_cases(name, a16, d):
+    """The three convolutions of the kernel's (first) block on the card, in
+    bf16, as it runs them: {conv: launch_conv's keyword arguments}, each
+    input the plain version's output of the convolution before."""
+    from yomitoku_tpu_torch import ops
+
+    x, w1, b1, w2, b2, w3, b3 = a16[:7]
+    wd, bd = (a16[7], a16[8]) if name == "fused_bottleneck" and a16[7] is not None else (None, None)
+    if name == "fused_identity_stage":
+        w1, b1, w2, b2, w3, b3 = (t[0] for t in (w1, b1, w2, b2, w3, b3))
+    h1 = ops.conv_reference(x, w1, b1)
+    h2 = ops.conv_reference(h1, w2, b2, dilation=d)
+    expand = (dict(x2=x, w2=wd, bias2=bd) if wd is not None else dict(res=x))
+    return {"reduce": dict(x=x, w=w1, bias=b1), "conv3x3": dict(x=h1, w=w2, bias=b2, dilation=d),
+            "expand": dict(x=h2, w=w3, bias=b3, **expand)}
+
+
+def conv_numbers(name, label, a16, d):
+    """Each convolution of the kernel at this shape, launched alone
+    (uncounted) on the route its plan picks: max|d| against the plain
+    version on the same bf16 values (2e-2 of the largest value), device ms
+    (the kernel and, on the split route, its combine pass), TFLOP/s, the
+    bound, the padding share of its units, and one F.conv2d call with the
+    folded weight and bias (bf16, channels_last, no relu) as cuDNN's
+    yardstick; then every route that takes the shape on the same inputs ->
+    {conv: numbers}."""
+    import torch
+    import torch.nn.functional as F
+
+    from yomitoku_tpu_torch import ops
+    from yomitoku_tpu_torch.ops._common import (
+        _MIN_SPLIT_STEPS, _sm_count, conv_k_steps, conv_padding, conv_plan, conv_splits,
+        launch_conv)
+
+    sms = _sm_count(torch.cuda.current_device())
+    out = {}
+    for conv, kw in _conv_cases(name, a16, d).items():
+        x, w = kw["x"], kw["w"]
+        B, H, W, K = x.shape
+        N, taps = w.shape[-1], 9 if w.dim() == 3 else 1
+        K2 = 0 if kw.get("x2") is None else kw["x2"].shape[-1]
+        M, steps = B * H * W, conv_k_steps(K, taps, K2)
+        route, bw, bh, splits = conv_plan(torch.bfloat16, B, H, W, K, N, taps, K2, True, sms)
+        want = ops.conv_reference(**kw)
+        limit = 2e-2 * want.float().abs().max().item()
+        got = torch.empty_like(want)
+
+        def run(r, sp, got=got, kw=kw):
+            return lambda: launch_conv(r, out=got, splits=sp, **kw)
+
+        routes = {"wgmma": 1, "wgmma_small": 1}
+        split = conv_splits(M, N, steps, sms)
+        if split > 1 or steps >= 2 * _MIN_SPLIT_STEPS:
+            routes["wgmma_split"] = max(2, split)
+        times = {}
+        for r, sp in routes.items():
+            got.zero_()
+            run(r, sp)()
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            check(math.isfinite(err) and err <= limit,
+                  f"conv [{label}/{conv}] on {r}: max|d| {err:.3e} over {limit:.3e}")
+            times[f"{r}({sp})" if r == "wgmma_split" else r] = (
+                _device_ms_retried(run(r, sp), "conv_"), err)
+        key = f"{route}({splits})" if route == "wgmma_split" else route
+        dev, err = times[key]
+        flops = 2 * M * N * (taps * K + K2)
+        reads = [kw[k] for k in ("x", "w", "bias", "x2", "w2", "bias2", "res") if kw.get(k) is not None]
+        bms, by = bound(reads, [got], {"bf16": flops})
+        xc = x.permute(0, 3, 1, 2)  # channels_last NCHW
+        wc = w.t()[:, :, None, None] if taps == 1 else w.reshape(3, 3, K, N).permute(3, 2, 0, 1)
+        wc = wc.contiguous(memory_format=torch.channels_last)
+        pad = d if taps == 9 else 0
+        bc = kw["bias"].to(torch.bfloat16)
+        cudnn = _device_ms_retried(lambda: F.conv2d(xc, wc, bc, padding=pad, dilation=pad or 1))
+        r = dict(route=route, splits=splits, patch=(bw, bh), M=M, K=K, K2=K2, N=N, taps=taps,
+                 padding=conv_padding(route, taps, B, H, W), max_abs_err=err, limit=limit,
+                 device_ms=dev, tflops=flops / dev / 1e9 if dev else None, bound_ms=bms,
+                 bound_by=by, conv2d_device_ms=cudnn,
+                 routes={k: v[0] for k, v in times.items()})
+        tf = "not measured" if r["tflops"] is None else f"{r['tflops']:.1f}"
+        log(f"conv [{label}/{conv}] M {M} K {K}{f' + {K2}' if K2 else ''} N {N} "
+            f"{'3x3 d=' + str(d) if taps == 9 else '1x1'}: route {key} (patch {bw}x{bh}, "
+            f"padding {100 * r['padding']:.1f}%), max|d| {err:.3e} (limit {limit:.3e}); device "
+            f"{_ms(dev)}, {tf} TFLOP/s against one F.conv2d's {_ms(cudnn)}; bound {bms:.4f} ms "
+            f"({by})")
+        log(f"conv routes [{label}/{conv}]: " + ", ".join(
+            f"{k} {_ms(v[0])}" for k, v in times.items()))
+        out[conv] = r
+        del want, got
+    return out
+
+
+def _device_ms_retried(fn, kernel="", tries=3):
+    """``device_ms``, taken again (at most ``tries`` times) where a profiler
+    window lost the kernel's records."""
+    for _ in range(tries):
+        ms = device_ms(fn, kernel)
+        if ms is not None:
+            return ms
+    return None
+
+
+def bottleneck_share(device):
+    """Device ms per call of csrc/bottleneck.cu's kernels in a profiler
+    window's {kernel: ms}."""
+    import re
+
+    return sum(v for k, v in device.items() if re.search(BOTTLENECK_DEVICE_NAMES, k))
 
 
 def _attention_kernels(rng):
@@ -2005,6 +2152,15 @@ def _attention_kernels(rng):
     return results
 
 
+def check_conv_routes(what, routes):
+    """After a fused bf16 path's counted run: the convolution kernel's
+    launches by route; none on "fma" (the f32 kernel), some on the wgmma
+    routes."""
+    log(f"{what}: conv launches by route {routes}")
+    check(routes["fma"] == 0 and sum(routes.values()) > 0,
+          f"{what}: a bf16 convolution left the wgmma routes: {routes}")
+
+
 def _both_backbones(fn, runs=3):
     """Median host times (s) of ``fn`` ending in a sync, with the fused
     backbone and with the default one, taken in turns (default, fused,
@@ -2033,6 +2189,7 @@ def _phase_fused_backbone(card):
     from yomitoku_tpu_torch import ops
     from yomitoku_tpu_torch.layout_analyzer import LayoutAnalyzer
     from yomitoku_tpu_torch.ocr import OCR
+    from yomitoku_tpu_torch.ops._common import conv_route_launches
     from yomitoku_tpu_torch.text_detector import TextDetector
 
     ocr = OCR(device="cuda")  # dbnetv2_1 + parseq-large-v4_1, seed-0 weights
@@ -2048,12 +2205,16 @@ def _phase_fused_backbone(card):
     result, _ = ocr(sample)
     torch.cuda.synchronize()
     on_ocr = dict(ops.launches)
+    conv_on_ocr = dict(conv_route_launches)
     layout, _ = la(page)
     tables, _ = tsr(page, TABLE_BOXES)
     torch.cuda.synchronize()
     launches = dict(ops.launches)
     check_attention_routes("fused")
     check_gemm_routes("fused")
+    check_conv_routes("fused: OCR", conv_on_ocr)
+    check_conv_routes("fused: layout", {r: n - conv_on_ocr[r]
+                                        for r, n in conv_route_launches.items()})
     on_layout = {k: launches[k] - on_ocr[k] for k in launches}
     log(f"fused: launches on OCR {on_ocr}")
     log(f"fused: launches on layout {on_layout}")
@@ -2093,9 +2254,13 @@ def _phase_fused_backbone(card):
                 wall, device, n, _ = profiled(fn, runs=5)
             busy["fused" if fused else "default"] = dict(
                 wall_ms=wall, device_busy_ms=sum(device.values()),
-                device_ops_per_call=n,
+                device_ops_per_call=n, bottleneck_kernels_ms=bottleneck_share(device),
                 top_kernels=sorted(device.items(), key=lambda kv: -kv[1])[:5])
         numbers[what] = busy
+        f = busy["fused"]
+        log(f"fused: {what} csrc/bottleneck.cu kernels {f['bottleneck_kernels_ms']:.3f} ms of "
+            f"{f['device_busy_ms']:.3f} ms device busy "
+            f"({100 * f['bottleneck_kernels_ms'] / f['device_busy_ms']:.1f}%)")
         log(f"fused: {what} on the device (profiler): fused "
             f"{busy['fused']['device_busy_ms']:.3f} ms busy of "
             f"{busy['fused']['wall_ms']:.2f} ms, default "
@@ -2156,6 +2321,40 @@ def _phase_fused_backbone(card):
 # ------------------------------------------------------------------ main
 
 
+def fused_kernels_only(root):
+    """``--fused-kernels [ROOT]``: kernels 10 and 11 at their eleven shapes
+    (against their plain versions, then timed against the unfused cuDNN
+    chain) and the fused DBNet forward's device busy with its
+    csrc/bottleneck.cu share, run on the package at ROOT: this checkout's,
+    or another commit's unpacked beside it, to compare the two on one card
+    (the per-convolution lines only for this checkout's)."""
+    import cv2
+    import torch
+
+    from yomitoku_tpu_torch.ops import _build
+    from yomitoku_tpu_torch.text_detector import TextDetector
+
+    card = card_line()
+    log(f"card: {card}")
+    log(f"package: {root}")
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    shaped = phase_fused_kernels(convs=root == ROOT, attention=False)
+    det = TextDetector(device="cuda")  # dbnetv2_1, seed-0 weights, bf16
+    u8 = torch.from_numpy(det.preprocess_u8(cv2.imread(str(ROOT / "demo" / "sample_text.png"))))
+    with _env(YOMITOKU_TPU_FUSED_BOTTLENECK="1", YOMITOKU_TPU_FUSED_STAGE="1"):
+        wall, device, _, _ = profiled(lambda: det.model.forward_u8(u8), runs=5)
+    busy, share = sum(device.values()), bottleneck_share(device)
+    log(f"fused: dbnet_forward csrc/bottleneck.cu kernels {share:.3f} ms of {busy:.3f} ms "
+        f"device busy ({100 * share / busy:.1f}%), {wall:.2f} ms wall")
+    log(card)
+    print(json.dumps({"package": str(root), "device_ms": {
+        name: {label: r["device_ms"] for label, r in at.items()} for name, at in shaped.items()},
+        "dbnet_forward": {"device_busy_ms": busy, "bottleneck_kernels_ms": share}}), flush=True)
+    return 0
+
+
 def main():
     try:
         import torch
@@ -2165,10 +2364,21 @@ def main():
     if not torch.cuda.is_available():
         log("FAIL: torch.cuda.is_available() is false: no GPU to run on")
         return 1
-    if not (ROOT / "yomitoku_tpu_torch" / "csrc").is_dir():
-        log(f"FAIL: {ROOT} holds no yomitoku_tpu_torch checkout")
+    args = sys.argv[1:]
+    root = Path(args[1]).resolve() if args[:1] == ["--fused-kernels"] and len(args) > 1 else ROOT
+    if not (root / "yomitoku_tpu_torch" / "csrc").is_dir():
+        log(f"FAIL: {root} holds no yomitoku_tpu_torch checkout")
         return 1
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(root))
+    if args[:1] == ["--fused-kernels"]:
+        try:
+            return fused_kernels_only(root)
+        except SmokeFailure as e:
+            log(f"FAIL: {e}")
+            return 1
+    if args:
+        log(f"FAIL: unknown arguments {args} (none, or --fused-kernels [ROOT])")
+        return 1
     try:
         card = phase_card()
         kernels = phase_kernels()

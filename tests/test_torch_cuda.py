@@ -634,6 +634,26 @@ def _held(got, want, dtype):
     assert err <= rel * top + add, (err, top)
 
 
+def _planned_routes(dt, B, H, W, Cin, Cm, Cout, proj, blocks=1):
+    """conv_route_launches' moves that one block (or ``blocks`` blocks) on
+    the current card should make: one launch per convolution, on the route
+    the plans pick."""
+    from yomitoku_tpu_torch.ops._common import CONV_ROUTES, _sm_count, block_plans
+
+    plans = block_plans(dt, B, H, W, Cin, Cm, Cout, proj, True,
+                        _sm_count(torch.cuda.current_device()))[0]
+    want = dict.fromkeys(CONV_ROUTES, 0)
+    for plan in plans:
+        want[plan[0]] += blocks
+    return want
+
+
+def _route_moves(before):
+    from yomitoku_tpu_torch.ops._common import conv_route_launches
+
+    return {r: n - before[r] for r, n in conv_route_launches.items()}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,W,Cin,Cm,Cout,d,proj", [
     (2, 13, 10, 32, 16, 64, 2, True),     # odd sizes, dilation 2, projection
@@ -642,40 +662,152 @@ def _held(got, want, dtype):
     (1, 37, 29, 64, 64, 256, 1, True),    # DBNet layer1_0's widths
     (1, 25, 19, 256, 128, 256, 2, False),  # several M and N tiles, d = 2
     (1, 5, 4, 128, 32, 128, 2, False),    # every 3x3 tap partly off the page
+    (1, 20, 20, 2048, 512, 2048, 1, False),  # PResNet stage3: the split route
+    (1, 150, 123, 64, 64, 256, 1, True),  # W no multiple of the patch width, N = 64 units
+    (1, 2, 3, 64, 32, 64, 2, False),      # d = 2: the rows' taps wholly off the page
+    (4, 40, 40, 1024, 256, 1024, 1, False),  # PResNet stage2 at the TSR's batch of 4
+    (1, 160, 160, 256, 64, 256, 1, False),  # Cm = 64 on "wgmma": PResNet stage0
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bottleneck_kernel_matches_plain_version(dtype, B, H, W, Cin, Cm, Cout, d, proj):
+    """One block against the plain version, its launch counted once and
+    each of its three convolutions on the route its plan picks."""
+    from yomitoku_tpu_torch.ops._common import conv_route_launches
+
     _require_cuda()
     dt = getattr(torch, dtype)
     args = _block_args(np.random.default_rng(31), dt, B, H, W, Cin, Cm, Cout, proj)
-    n0 = ops.launches["fused_bottleneck"]
+    n0, routes0 = ops.launches["fused_bottleneck"], dict(conv_route_launches)
     got = ops.fused_bottleneck(*args, dilation=d)
     want = ops.bottleneck_reference(*args, dilation=d)
     torch.cuda.synchronize()
     assert ops.launches["fused_bottleneck"] == n0 + 1
+    assert _route_moves(routes0) == _planned_routes(dt, B, H, W, Cin, Cm, Cout, proj)
     assert got.dtype == dt and got.shape == (B, H, W, Cout)
     _held(got, want, dtype)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,d,H,W", [(3, 1, 13, 10), (2, 2, 13, 10), (1, 2, 6, 7),
-                                     (5, 1, 20, 9)])
+@pytest.mark.parametrize("N,d,H,W,B,C,Cm", [
+    (3, 1, 13, 10, 2, 64, 16), (2, 2, 13, 10, 2, 64, 16), (1, 2, 6, 7, 2, 64, 16),
+    (5, 1, 20, 9, 2, 64, 16),
+    (5, 1, 100, 74, 1, 1024, 256),  # DBNet layer3
+    (2, 1, 20, 20, 1, 2048, 512),   # PResNet stage3's widths: the split route
+    (2, 2, 9, 11, 4, 256, 64),      # batch 4, d = 2, Cm = 64 units
+])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_identity_stage_kernel_matches_plain_version(dtype, N, d, H, W):
+def test_identity_stage_kernel_matches_plain_version(dtype, N, d, H, W, B, C, Cm):
+    """N identity blocks against the plain version, one launch counted and
+    3 N convolutions on the routes the plans pick."""
+    from yomitoku_tpu_torch.ops._common import conv_route_launches
+
     _require_cuda()
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(32)
-    C, Cm = 64, 16
-    blocks = [_block_args(rng, dt, 2, H, W, C, Cm, C, False) for _ in range(N)]
+    blocks = [_block_args(rng, dt, B, H, W, C, Cm, C, False) for _ in range(N)]
     x = blocks[0][0]
     stacks = [torch.stack([blk[i] for blk in blocks]) for i in range(1, 7)]
-    n0 = ops.launches["fused_identity_stage"]
+    n0, routes0 = ops.launches["fused_identity_stage"], dict(conv_route_launches)
     got = ops.fused_identity_stage(x, *stacks, dilation=d)
     want = ops.fused_identity_stage_reference(x, *stacks, dilation=d)
     torch.cuda.synchronize()
     assert ops.launches["fused_identity_stage"] == n0 + 1
+    assert _route_moves(routes0) == _planned_routes(dt, B, H, W, C, Cm, C, False, N)
     assert got.shape == x.shape
     _held(got, want, dtype)
+
+
+#: (B, H, W, K, N, taps, d, segment 2, residual): the 3x3 at dilations 1
+#: and 2 with a ragged page, a 1x1 reduce with K not a multiple of 64, the
+#: expand with the projection's second K segment and with a residual, N =
+#: 64 (its own instantiation) and N = 192 (a partial 128-wide n tile)
+CONV_CASES = [
+    (2, 13, 21, 128, 192, 9, 2, False, False),
+    (1, 30, 17, 64, 64, 9, 1, False, False),
+    (3, 11, 7, 200, 96, 1, 1, False, False),
+    (1, 29, 31, 64, 256, 1, 1, True, False),
+    (2, 9, 14, 128, 512, 1, 1, False, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,splits", [("wgmma", 1), ("wgmma_small", 1),
+                                          ("wgmma_split", 3), ("fma", 1)])
+@pytest.mark.parametrize("B,H,W,K,N,taps,d,seg2,res", CONV_CASES)
+def test_conv_routes_match_plain_versions(B, H, W, K, N, taps, d, seg2, res, route, splits):
+    """Every route of the convolution kernel forced through ``launch_conv``
+    against ``conv_reference`` on the same values (bf16 within 2e-2 of the
+    largest value; "fma" in f32 within 1e-4 of it plus 1e-5); nothing is
+    counted."""
+    from yomitoku_tpu_torch.ops._common import conv_route_launches, launch_conv
+
+    _require_cuda()
+    dt = torch.float32 if route == "fma" else torch.bfloat16
+    rng = np.random.default_rng(37)
+    x = _dev(rng.standard_normal((B, H, W, K)), dt)
+    w = _dev(rng.standard_normal((9, K, N) if taps == 9 else (K, N)) * (taps * K) ** -0.5, dt)
+    bias = _dev(0.1 * rng.standard_normal(N))
+    x2 = w2 = b2 = r = None
+    if seg2:
+        x2 = _dev(rng.standard_normal((B, H, W, 72)), dt)
+        w2, b2 = _dev(rng.standard_normal((72, N)) / 8.5, dt), _dev(0.1 * rng.standard_normal(N))
+    if res:
+        r = _dev(rng.standard_normal((B, H, W, N)), dt)
+    out = torch.empty((B, H, W, N), dtype=dt, device="cuda")
+    routes0 = dict(conv_route_launches)
+    launch_conv(route, x, w, bias, out, d, x2, w2, b2, r, splits)
+    torch.cuda.synchronize()
+    assert not any(_route_moves(routes0).values())
+    want = ops.conv_reference(x, w, bias, d, x2, w2, b2, r)
+    _held(out, want, "float32" if route == "fma" else "bfloat16")
+
+
+@pytest.mark.cuda
+def test_split_route_repeats_bit_for_bit():
+    """The split route sums its K splits in a fixed order: two runs agree
+    bit for bit."""
+    from yomitoku_tpu_torch.ops._common import launch_conv
+
+    _require_cuda()
+    rng = np.random.default_rng(38)
+    x = _dev(rng.standard_normal((1, 20, 20, 512)), torch.bfloat16)
+    w = _dev(rng.standard_normal((9, 512, 512)) / 68, torch.bfloat16)
+    bias = _dev(0.1 * rng.standard_normal(512))
+    outs = [torch.empty((1, 20, 20, 512), dtype=torch.bfloat16, device="cuda") for _ in range(2)]
+    for out in outs:
+        launch_conv("wgmma_split", x, w, bias, out, 1, splits=5)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+def test_wrappers_launch_with_another_device_current():
+    """The bottleneck, stage and deformable wrappers launch on their
+    tensors' card while another card is current (``_launch``'s guard), and
+    leave the current card as it was."""
+    _require_cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA device")
+    rng = np.random.default_rng(39)
+    dev = torch.device("cuda", 1)
+    args = [None if a is None else a.to(dev)
+            for a in _block_args(rng, torch.bfloat16, 1, 13, 10, 64, 16, 64, False)]
+    stacks = [a[None] for a in args[1:7]]
+    shapes, points = ((8, 8), (4, 4)), (2, 2)
+    value = torch.from_numpy(rng.standard_normal((1, 80, 2, 32)).astype(np.float32)).to(dev)
+    loc = torch.from_numpy(rng.random((1, 5, 2, 4, 2)).astype(np.float32)).to(dev)
+    att = torch.from_numpy(rng.random((1, 5, 2, 4)).astype(np.float32)).to(dev)
+    with torch.cuda.device(0):
+        got = [ops.fused_bottleneck(*args[:7]), ops.fused_identity_stage(args[0], *stacks),
+               ops.ms_deformable_attention(value, loc, att, shapes, points)]
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(dev)
+    want = [ops.bottleneck_reference(*args[:7]),
+            ops.fused_identity_stage_reference(args[0], *stacks),
+            ops.ms_deformable_attention_reference(value, loc, att, shapes, points)]
+    for g, w, dt in zip(got, want, ("bfloat16", "bfloat16", "float32")):
+        assert g.device == dev
+        _held(g, w, dt)
 
 
 @pytest.mark.cuda

@@ -17,7 +17,7 @@ from .attention import (
     fused_attention_heads_reference,
     fused_attention_reference,
 )
-from .bottleneck import bottleneck_reference, fold_bn, fused_bottleneck
+from .bottleneck import bottleneck_reference, conv_reference, fold_bn, fused_bottleneck
 from .deformable_attention import (
     ms_deformable_attention,
     ms_deformable_attention_reference,
@@ -37,6 +37,7 @@ from .stage import fused_identity_stage, fused_identity_stage_reference
 
 __all__ = [
     "bottleneck_reference",
+    "conv_reference",
     "fold_bn",
     "fused_attention",
     "fused_attention_block",

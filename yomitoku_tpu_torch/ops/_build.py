@@ -72,14 +72,19 @@ class _Library:
             i32, i32, i32, i32, i32, i32, vp,
         ]
         lib.yt_gemm_int8.restype = i32
+        lib.yt_conv.argtypes = [
+            i32, ip, vp, i32, vp, vp, vp, i32, vp, vp, vp, vp,
+            i32, i32, i32, i32, i32, i32, vp, vp,
+        ]
+        lib.yt_conv.restype = i32
         lib.yt_bottleneck.argtypes = [
             i32, vp, i32, i32, i32, i32, i32, i32, i32,
-            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ip, vp, vp,
         ]
         lib.yt_bottleneck.restype = i32
         lib.yt_identity_stage.argtypes = [
             i32, vp, i32, i32, i32, i32, i32, i32, i32,
-            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ip, vp, vp,
         ]
         lib.yt_identity_stage.restype = i32
         lib.yt_error_string.argtypes = [i32]

@@ -1,6 +1,7 @@
 """What the kernel wrappers share: launch counts, the LayerNorm formula,
 argument checks and the launchers of the C interface."""
 
+import ctypes
 import functools
 
 import torch
@@ -29,7 +30,7 @@ def reset_launches():
     for name in launches:
         launches[name] = 0
     for counts in (attention_route_launches, gemm_route_launches,
-                   gemm_int8_route_launches):
+                   gemm_int8_route_launches, conv_route_launches):
         for route in counts:
             counts[route] = 0
 
@@ -449,3 +450,169 @@ def gemm_int8(a, sa, w, sw, bias, out, res=None, gelu=False):
     route = gemm_int8_route(M, N, nc, gelu, legal, _sm_count(a.device.index))
     launch_gemm_int8(route, a, sa, w, sw, bias, out, res, gelu)
     gemm_int8_route_launches[route] += 1
+
+
+#: Routes of the implicit-GEMM convolution kernel (csrc/bottleneck.cu), one
+#: per convolution of a bottleneck block: "fma" f32 FMAs from shared memory
+#: (f32: the parity checks need full f32 products); the bf16 routes, TMA +
+#: wgmma with two consumer warpgroups taking output units (a patch of
+#: pixels by 128 channels, or 64 where N <= 64) in turns: "wgmma" 128-pixel
+#: units; "wgmma_small" 64-pixel units, for grids that 128-pixel units would
+#: leave under one wave; "wgmma_split" 64-pixel units with the K steps split
+#: over up to ``_MAX_CONV_SPLITS`` blocks into an f32 workspace and a
+#: combine pass, for grids that stay under one wave even so.
+CONV_ROUTES = {"fma": 0, "wgmma": 1, "wgmma_small": 2, "wgmma_split": 3}
+#: output pixels of a wgmma route's unit
+CONV_TILE_ROWS = {"wgmma": 128, "wgmma_small": 64, "wgmma_split": 64}
+#: launches of the convolution kernel by route, one per convolution,
+#: counted like ``launches``
+conv_route_launches = dict.fromkeys(CONV_ROUTES, 0)
+#: channels of one K step of the wgmma routes (one 128-byte TMA box row)
+CONV_BK = 64
+_MAX_CONV_SPLITS = 8
+#: the fewest K steps a split of the split route takes
+_MIN_SPLIT_STEPS = 4
+
+
+def conv_tile_cols(N):
+    """Output channels of a wgmma unit: 64 where N <= 64 (an instantiation
+    of its own, DBNet layer1's and PResNet stage0's Cm), else 128."""
+    return 64 if N <= 64 else 128
+
+
+def conv_units(route, M, N):
+    """Output units of a convolution of M pixels and N channels on a wgmma
+    route, counting the pixels in whole units as a 1x1 does."""
+    return -(-M // CONV_TILE_ROWS[route]) * -(-N // conv_tile_cols(N))
+
+
+def conv_k_steps(K, taps=1, K2=0):
+    """K steps of a convolution: ``taps`` taps of K channels in tiles of
+    ``CONV_BK``, then a second segment of K2 (the projection shortcut)."""
+    return taps * -(-K // CONV_BK) + -(-K2 // CONV_BK)
+
+
+def conv_splits(M, N, k_steps, sms):
+    """K splits of the split route for a card of ``sms`` SMs: as many as
+    its 64-pixel units fit in one wave (a second, partial wave costs more
+    than the splits gain), at most ``_MAX_CONV_SPLITS``, each of at least
+    ``_MIN_SPLIT_STEPS`` K steps; 1 where that leaves one."""
+    fit = sms // conv_units("wgmma_split", M, N)
+    return max(1, min(_MAX_CONV_SPLITS, fit, k_steps // _MIN_SPLIT_STEPS))
+
+
+def conv_route(dtype, M, N, k_steps, legal, sms):
+    """The convolution kernel's route for M output pixels, N channels and
+    ``k_steps`` K steps on a card of ``sms`` SMs -> (route, splits).
+    float32 takes "fma"; bfloat16 with TMA-legal operands (``legal``:
+    channel counts % 8, 16-byte aligned tensors) takes "wgmma" where its
+    128-pixel units fill at least three quarters of the card (one wave of
+    them beat two of 64-pixel units there, DBNet layer3 on the H100), else
+    "wgmma_small" where 64-pixel ones fill it, else "wgmma_split" with
+    ``conv_splits`` splits (or "wgmma_small" where the K steps allow no
+    split).  Anything else raises: no route takes it."""
+    if dtype == torch.float32:
+        return "fma", 1
+    if dtype != torch.bfloat16 or not legal:
+        raise ValueError(f"conv: no route for {dtype} with these operands (bf16 needs "
+                         "channel counts % 8 == 0 and 16-byte aligned operands)")
+    if 4 * conv_units("wgmma", M, N) >= 3 * sms:
+        return "wgmma", 1
+    if conv_units("wgmma_small", M, N) >= sms:
+        return "wgmma_small", 1
+    splits = conv_splits(M, N, k_steps, sms)
+    return ("wgmma_split", splits) if splits > 1 else ("wgmma_small", 1)
+
+
+@functools.lru_cache(maxsize=None)
+def conv_patch(route, taps, H, W):
+    """The patch (bw, bh) of pixels of one output unit on a wgmma route,
+    bw bh <= its rows.  A 1x1 reads its pixels as one line: (rows, 1).  The
+    3x3 takes the patch with the fewest units on an H x W page (the widest
+    among equals): each unit's nine taps are the same box, shifted."""
+    rows = CONV_TILE_ROWS[route]
+    if taps == 1:
+        return rows, 1
+    best = None
+    for bw in range(1, min(W, rows) + 1):
+        bh = min(rows // bw, H)
+        key = (-(-H // bh) * -(-W // bw), -bw)
+        if best is None or key < best[0]:
+            best = (key, bw, bh)
+    return best[1], best[2]
+
+
+def conv_padding(route, taps, B, H, W):
+    """The share of a wgmma route's computed rows (units x unit rows) that
+    lie off the page."""
+    bw, bh = conv_patch(route, taps, H, W)
+    rows = CONV_TILE_ROWS[route]
+    M = B * H * W
+    units = -(-M // rows) if taps == 1 else B * -(-H // bh) * -(-W // bw)
+    return 1 - M / (units * rows)
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(dtype, B, H, W, K, N, taps=1, K2=0, legal=True, sms=132):
+    """How the kernel runs one convolution of a (B, H, W, K) input to N
+    channels with ``taps`` taps (and a second K2-channel segment) ->
+    (route, bw, bh, splits), the C interface's plan (bw = bh = 0 on
+    "fma")."""
+    route, splits = conv_route(dtype, B * H * W, N, conv_k_steps(K, taps, K2), legal, sms)
+    if route == "fma":
+        return route, 0, 0, 1
+    return (route, *conv_patch(route, taps, H, W), splits)
+
+
+@functools.lru_cache(maxsize=None)
+def block_plans(dtype, B, H, W, Cin, Cm, Cout, proj, legal, sms):
+    """The plans of a bottleneck block's three convolutions (reduce, 3x3,
+    expand with the projection's K segment where ``proj``) -> (plans, the
+    C interface's int[12], f32 workspace elements the split routes need)."""
+    M = B * H * W
+    plans = (conv_plan(dtype, B, H, W, Cin, Cm, 1, 0, legal, sms),
+             conv_plan(dtype, B, H, W, Cm, Cm, 9, 0, legal, sms),
+             conv_plan(dtype, B, H, W, Cm, Cout, 1, Cin if proj else 0, legal, sms))
+    ws = max([plan[3] * M * n for plan, n in zip(plans, (Cm, Cm, Cout)) if plan[3] > 1],
+             default=0)
+    flat = [CONV_ROUTES[plans[i][0]] if j == 0 else plans[i][j] for i in range(3) for j in range(4)]
+    return plans, (ctypes.c_int * 12)(*flat), ws
+
+
+def conv_legal(tensors, channels):
+    """TMA-legal bf16 convolution operands: every channel count % 8 (16-byte
+    pixel rows), every tensor on a 16-byte aligned base."""
+    return (all(c % 8 == 0 for c in channels)
+            and all(t.data_ptr() % 16 == 0 for t in tensors if t is not None))
+
+
+def conv_workspace(elements, device):
+    """The split routes' f32 partials, or None where no plan splits."""
+    return torch.empty(elements, dtype=torch.float32, device=device) if elements else None
+
+
+def launch_conv(route, x, w, bias, out, dilation=1, x2=None, w2=None, bias2=None, res=None,
+                splits=1):
+    """One launch of the convolution kernel by ``route`` (with ``splits``
+    K splits on "wgmma_split"): out = relu(conv(x, w) + bias [+ x2 . w2 +
+    bias2] [+ res]) on contiguous NHWC x (B, H, W, K), out and res (B, H,
+    W, N), x2 (B, H, W, K2); w (K, N) for a 1x1 or (9, K, N) for the 3x3 at
+    ``dilation``; f32 biases.  The C entry refuses a route not built for
+    the arguments.  Counts nothing: for measurements and tests."""
+    B, H, W, K = x.shape
+    N = out.shape[-1]
+    if not all(t.is_contiguous() for t in (x, w, out, x2, w2, res) if t is not None):
+        raise ValueError("launch_conv: contiguous NHWC tensors and weights")
+    taps = 9 if w.dim() == 3 else 1
+    bw, bh = (0, 0) if route == "fma" else conv_patch(route, taps, H, W)
+    ws = conv_workspace(splits * B * H * W * N if splits > 1 else 0, x.device)
+    plan = (ctypes.c_int * 4)(CONV_ROUTES[route], bw, bh, splits)
+    lib = library()
+    rc = _launch(
+        x.device, lib.lib.yt_conv,
+        _code(x), plan, x.data_ptr(), taps, w.data_ptr(), bias.data_ptr(), _ptr(x2),
+        0 if x2 is None else x2.shape[-1], _ptr(w2), _ptr(bias2), _ptr(res), out.data_ptr(),
+        B, H, W, K, N, int(dilation), _ptr(ws),
+    )
+    if rc:
+        lib.check(rc, f"yt_conv launch ({route}, {splits} splits)")

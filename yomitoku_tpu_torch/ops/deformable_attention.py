@@ -22,7 +22,7 @@ import ctypes
 import torch
 
 from ._build import library
-from ._common import _code, launches, on_cpu, require_cuda
+from ._common import _code, _launch, launches, on_cpu, require_cuda
 
 
 def _check(value, loc, att, spatial_shapes, num_points_list):
@@ -111,12 +111,11 @@ def ms_deformable_attention(
     lib = library()
     hw = (ctypes.c_int * (2 * len(shapes)))(*[n for s in shapes for n in s])
     npts = (ctypes.c_int * len(points))(*points)
-    with torch.cuda.device(value.device):
-        rc = lib.lib.yt_ms_deformable_attention(
-            _code(value), value.data_ptr(), loc.data_ptr(), att.data_ptr(),
-            out.data_ptr(), B, Len_v, nh, c, Lq, len(shapes), hw, npts,
-            torch.cuda.current_stream().cuda_stream,
-        )
+    rc = _launch(
+        value.device, lib.lib.yt_ms_deformable_attention,
+        _code(value), value.data_ptr(), loc.data_ptr(), att.data_ptr(),
+        out.data_ptr(), B, Len_v, nh, c, Lq, len(shapes), hw, npts,
+    )
     lib.check(rc, "yt_ms_deformable_attention launch")
     launches[name] += 1
     return out

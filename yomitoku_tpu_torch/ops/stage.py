@@ -14,8 +14,9 @@ image.  So on CUDA tensors one C call (``yt_identity_stage``,
 csrc/bottleneck.cu) runs the N blocks one after the other, three launches
 each, between two ping-pong activation buffers, with one h1 / h2 scratch
 allocated once per call: one Python call per stage, and every block's
-output makes one round trip through device memory.  A persistent
-multi-block kernel is later work.  On CPU tensors: the plain version, N
+output makes one round trip through device memory.  Each convolution runs
+on the route ``ops._common.conv_plan`` picks (the same for every block of
+the stage).  A persistent multi-block kernel is later work.  On CPU tensors: the plain version, N
 ``bottleneck_reference`` blocks, each output rounded to x's dtype as the
 Pallas kernel rounds it.
 """
@@ -23,8 +24,19 @@ Pallas kernel rounds it.
 import torch
 
 from ._build import library
-from ._common import _code, launches, on_cpu, require_cuda
-from .bottleneck import bottleneck_reference, check_bf16, nhwc_input, weight
+from ._common import (
+    _code,
+    _launch,
+    _ptr,
+    _sm_count,
+    block_plans,
+    conv_legal,
+    conv_workspace,
+    launches,
+    on_cpu,
+    require_cuda,
+)
+from .bottleneck import bottleneck_reference, count_conv_routes, nhwc_input, weight
 
 
 def fused_identity_stage_reference(x, w1s, b1s, w2s, b2s, w3s, b3s,
@@ -59,20 +71,22 @@ def fused_identity_stage(x, w1s, b1s, w2s, b2s, w3s, b3s, dilation=1):
                              f"expected ({N}, {n}) on {x.device}")
         biases.append(b.to(f32).contiguous())
     b1s, b2s, b3s = biases
-    if x.dtype == torch.bfloat16:
-        check_bf16(name, [x, w1s, w2s, w3s], (C, Cm))
     out = torch.empty_like(x)
     tmp = torch.empty_like(x) if N > 1 else None
     scratch = torch.empty((2, B * H * W, Cm), dtype=x.dtype, device=x.device)
+    legal = conv_legal([x, w1s, w2s, w3s], (C, Cm))
+    plans, plan_arg, ws = block_plans(x.dtype, B, H, W, C, Cm, C, False, legal,
+                                      _sm_count(x.device.index))
+    ws = conv_workspace(ws, x.device)
     lib = library()
-    with torch.cuda.device(x.device):
-        rc = lib.lib.yt_identity_stage(
-            _code(x), x.data_ptr(), B, H, W, C, Cm, N, int(dilation),
-            w1s.data_ptr(), b1s.data_ptr(), w2s.data_ptr(), b2s.data_ptr(),
-            w3s.data_ptr(), b3s.data_ptr(), scratch[0].data_ptr(),
-            scratch[1].data_ptr(), None if tmp is None else tmp.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
+    rc = _launch(
+        x.device, lib.lib.yt_identity_stage,
+        _code(x), x.data_ptr(), B, H, W, C, Cm, N, int(dilation),
+        w1s.data_ptr(), b1s.data_ptr(), w2s.data_ptr(), b2s.data_ptr(),
+        w3s.data_ptr(), b3s.data_ptr(), scratch[0].data_ptr(),
+        scratch[1].data_ptr(), _ptr(tmp), out.data_ptr(), plan_arg, _ptr(ws),
+    )
     lib.check(rc, "yt_identity_stage launch")
     launches[name] += 1
+    count_conv_routes(plans, N)
     return out
