@@ -75,9 +75,8 @@
 //     products; f32 bias (+ bias2), the residual, relu and one rounding
 //     overwrite it element by element; one TMA store per 64 channels
 //     writes it back and clips the patch's overhang past the page and N.
-//     (A first version staged 64 x 64 sub-tiles to 16-byte stores with one
-//     residual sub-tile in flight; the 1x1 expands, which move the most
-//     bytes, ran at 1.4-2 TB/s there.);
+//     A whole residual tile in flight per warpgroup is what the 1x1
+//     expands, which move the most bytes, need to stream;
 //   * routes (chosen in Python, ops/_common.py conv_route): "wgmma"
 //     128-pixel units where they fill three quarters of the card;
 //     "wgmma_small" 64-pixel units where they would not; "wgmma_split"

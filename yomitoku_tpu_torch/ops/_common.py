@@ -553,7 +553,7 @@ def conv_padding(route, taps, B, H, W):
 
 
 @functools.lru_cache(maxsize=None)
-def conv_plan(dtype, B, H, W, K, N, taps=1, K2=0, legal=True, sms=132):
+def conv_plan(dtype, B, H, W, K, N, taps, K2, legal, sms):
     """How the kernel runs one convolution of a (B, H, W, K) input to N
     channels with ``taps`` taps (and a second K2-channel segment) ->
     (route, bw, bh, splits), the C interface's plan (bw = bh = 0 on
