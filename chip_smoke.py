@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --fused-kernels [ROOT]
+    python3 chip_smoke.py --deform-kernels [ROOT]
 
 With no arguments it runs the phases below, each printed as it runs; any
 failure exits non-zero.  ``--fused-kernels [ROOT]`` runs only phase 7's
 bottleneck kernels at their eleven shapes and the fused DBNet forward's
-device busy, on the package of this checkout or of another commit
-unpacked at ROOT (git archive), to compare two trees on one card; it ends
-with a JSON line of their device times.
+device busy, and ``--deform-kernels [ROOT]`` only ms_deformable_attention
+at its three shapes in bf16 and f32 (checked against the plain version,
+device and per-call times), on the package of this checkout or of another
+commit unpacked at ROOT (git archive), to compare two trees on one card;
+each ends with a JSON line of its times.
 
 
 1. Card: name and power limit (nvidia-smi), and the kernel build time
@@ -20,8 +23,10 @@ with a JSON line of their device times.
    and of every int8 GEMM kernel (the two int8 routes for f32 and bf16
    output, with and without GELU) and the row-quantize kernel, and of the
    convolution kernels of csrc/bottleneck.cu (the four TMA + wgmma unit
-   shapes, the split route's combine pass, the f32 kernel); a spill fails
-   the run.
+   shapes, the split route's combine pass, the f32 kernel), and of the 13
+   deformable gather kernels (``deform_gather_kernel<T, G, V, E>``: G lanes
+   per tap row, V elements per load, E loads per lane and tap); a spill
+   fails the run.
 2. Kernels: each of the four OCR kernels at the recognizer's shapes
    against its plain PyTorch version on the same CUDA inputs (f32 kernel
    vs f32 reference at max|d| <= 1e-4 max|ref| + 1e-5 with TF32 off; bf16
@@ -33,7 +38,11 @@ with a JSON line of their device times.
    warm-up.  The same for the layout kernels at RT-DETR's shapes:
    ``ms_deformable_attention`` at the layout decoder's (B=1, Lq=300), the
    table recognizer's (B=4, Lq=300) and the cell detector's Lq=2500 (stock:
-   ``F.grid_sample`` per level), and ``fused_attention_heads`` at the AIFI
+   ``F.grid_sample`` per level; a line each with the route of the bf16 and
+   f32 calls, bf16 and f32 device times, the tap bytes B Lq nh P 4 c
+   itemsize and the achieved tap GB/s beside the bound, and the scalar
+   route on value passed one element off 16-byte alignment, held to the
+   plain version and timed), and ``fused_attention_heads`` at the AIFI
    (L=400) and decoder (L=300) self-attention, 8 heads of 32, at B=1 and
    B=4 (stock: SDPA).  At each attention shape (the refine, AIFI and
    decoder at B=1 and 4, and the ViT's in phase 7) a line ``attention
@@ -71,7 +80,9 @@ with a JSON line of their device times.
    rtdetrv2v2 layout parser + rtdetrv2 table structure recognizer, 640x640,
    300 queries, seed-0 random weights) on demo/sample_table.png, then its
    recognizer batched over 4 fixed table boxes of that page, the launch
-   counters of that run, ms/page, a torch.profiler window over the layout
+   counters of that run, the deformable kernel's launches by route (a
+   bf16 launch on the scalar route fails the run), ms/page, a
+   torch.profiler window over the layout
    parser and the recognizer (device busy time, idle share, device
    operations per call), and an f32 RT-DETRv2 on the card against the
    same weights on the CPU (selected-query sets, logits and boxes).
@@ -252,8 +263,13 @@ MAIN_SHAPE = {"ms_deformable_attention": "lq300",
               "fused_bottleneck": "dbnet_layer1_0",
               "fused_identity_stage": "dbnet_layer3"}
 #: CUDA kernel names (as the profiler shows them) of each wrapper
-DEVICE_NAMES = {"ms_deformable_attention": "deform_kernel",
+DEVICE_NAMES = {"ms_deformable_attention": "deform_gather_kernel",
                 "fused_attention_heads": "attention"}
+#: the deformable kernel's CUDA name, and its instantiations
+#: (csrc/deformable_attention.cu): the vector route at 1, 2, 4, 8, 16 lanes
+#: per tap row in bf16 and 1-32 in f32, the scalar route in each type
+DEFORM_KERNEL = DEVICE_NAMES["ms_deformable_attention"]
+DEFORM_INSTANTIATIONS = 13
 #: fixed table boxes of demo/sample_table.png (960x1280) for the batched
 #: table structure recognizer, whatever the random layout parser finds
 TABLE_BOXES = [[40, 120, 920, 560], [40, 600, 920, 1180], [0, 0, 480, 640],
@@ -385,6 +401,12 @@ def phase_card():
         check(sum("conv_wgmma" in n for n, _, _ in rows) == 4,
               "a convolution unit shape (128 or 64 pixels x 128 or 64 channels) was not built")
         check(all(sp == 0 for _, _, sp in rows), "a convolution instantiation spills")
+        rows = instantiations(lib.build_log, DEFORM_KERNEL)
+        log("deform instantiations (ptxas): " + "; ".join(
+            f"{n} {r} regs, {sp} B spilled" for n, r, sp in rows))
+        check(len(rows) == DEFORM_INSTANTIATIONS,
+              f"{len(rows)} deformable instantiations built, {DEFORM_INSTANTIATIONS} expected")
+        check(all(sp == 0 for _, _, sp in rows), "a deformable instantiation spills")
     return card
 
 
@@ -560,6 +582,23 @@ def sdpa_call(q, k, v, h):
     split = lambda t: t.view(b, -1, h, d // h).transpose(1, 2)  # noqa: E731
     qs, ks, vs = split(q), split(k), split(v)
     return lambda: F.scaled_dot_product_attention(qs, ks, vs)
+
+
+def host_us(fn, runs=1000):
+    """Host time per call of ``fn`` in microseconds: ``runs`` calls back to
+    back after a warm-up, without a sync inside (what one call costs the
+    host when the device keeps up), then one sync outside the clock."""
+    import torch
+
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    us = (time.perf_counter() - t0) / runs * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def median_ms(fn, runs=10, warmup=3):
@@ -1021,6 +1060,9 @@ def phase_layout_kernels():
                 res.update(attention_numbers(lambda: kern(*bf, *tail), sdpa_call(*bf, *tail),
                                              kernel_ops(name, bf, tail)["bf16"]))
             log_attention(name, label, res)
+        else:
+            with torch.no_grad():
+                res.update(deform_numbers(label, ref, f32, bf, tail, res))
 
         def ms(key):
             return "not measured" if res[key] is None else f"{res[key]:.4f} ms"
@@ -1035,6 +1077,83 @@ def phase_layout_kernels():
         torch.cuda.empty_cache()
     ops.reset_launches()
     return results
+
+
+def deform_tap_bytes(value, loc):
+    """Bytes of the tap rows one deformable call reads: B Lq nh P points x 4
+    taps x c channels of value's itemsize."""
+    B, Lq, nh, P = loc.shape[:4]
+    return B * Lq * nh * P * 4 * value.shape[-1] * value.element_size()
+
+
+def deform_route_of(fn):
+    """The deformable kernel's route(s) that one call of ``fn`` launched, or
+    None where it launched none."""
+    import torch
+
+    from yomitoku_tpu_torch.ops._common import deform_route_launches
+
+    before = dict(deform_route_launches)
+    fn()
+    torch.cuda.synchronize()
+    return "+".join(r for r, n in deform_route_launches.items() if n > before[r]) or None
+
+
+def deform_numbers(label, ref, f32, bf, tail, res):
+    """ms_deformable_attention's own numbers at one shape, beside ``res``
+    (phase_layout_kernels'): the routes of the bf16 and f32 calls (bf16 at
+    c = 32 must take "vector"), the tap bytes and the achieved tap GB/s of
+    the bf16 device time, the f32 device time, and the scalar route on the
+    same bf16 values passed as a view one element off 16-byte alignment:
+    held to the plain version (2e-2 of the largest value) and timed."""
+    import torch
+
+    from yomitoku_tpu_torch import ops
+
+    kern = ops.ms_deformable_attention
+    v = bf[0]
+    off = torch.empty(v.numel() + 1, dtype=v.dtype, device=v.device)[1:].view(v.shape)
+    off.copy_(v)
+    scalar = [off, *bf[1:]]
+    taps = deform_tap_bytes(bf[0], bf[1])
+    dev = res["device_ms"]
+    out = dict(
+        deform_route=deform_route_of(lambda: kern(*bf, *tail)),
+        deform_route_f32=deform_route_of(lambda: kern(*f32, *tail)),
+        deform_route_offset=deform_route_of(lambda: kern(*scalar, *tail)),
+        tap_bytes=taps, tap_gb_s=None if dev is None else taps / dev / 1e6,
+        device_ms_f32=device_ms(lambda: kern(*f32, *tail), DEFORM_KERNEL),
+        scalar_device_ms=device_ms(lambda: kern(*scalar, *tail), DEFORM_KERNEL),
+        host_us=host_us(lambda: kern(*bf, *tail)),
+    )
+    err, ok, text = _held(kern(*scalar, *tail), ref(*[a.float() for a in bf], *tail),
+                          None, 2e-2, 0.0, 0.0)
+    out["scalar_max_abs_err"] = err
+    gbs = "not measured" if out["tap_gb_s"] is None else f"{out['tap_gb_s']:.1f} GB/s"
+    log(f"kernel ms_deformable_attention [{label}]: route {out['deform_route']} (f32 "
+        f"{out['deform_route_f32']}), device {_ms(dev)} bf16 / "
+        f"{_ms(out['device_ms_f32'])} f32 against the bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}); tap reads {taps / 1e6:.2f} MB bf16 at {gbs}; host "
+        f"{out['host_us']:.1f} us per call (enqueue, no sync); route "
+        f"{out['deform_route_offset']} with value one element off: device "
+        f"{_ms(out['scalar_device_ms'])}, bf16 {text} {'ok' if ok else 'FAIL'}")
+    check(out["deform_route"] == "vector" and out["deform_route_offset"] == "scalar" and ok,
+          f"ms_deformable_attention [{label}]: routes {out['deform_route']} / "
+          f"{out['deform_route_offset']} (vector / scalar expected), scalar route {text}")
+    return out
+
+
+def check_deform_routes(what, launched):
+    """After a bf16 RT-DETR path's counted run (``launched`` deformable
+    launches, 6 per RT-DETR call): every deformable launch on the vector
+    route (c = 32 in bf16 is whole 16-byte pieces), none on the scalar one."""
+    from yomitoku_tpu_torch.ops._common import deform_route_launches
+
+    routes = dict(deform_route_launches)
+    log(f"{what}: deformable launches by route {routes}")
+    check(routes["scalar"] == 0 and routes["vector"] == launched > 0 and launched % 6 == 0,
+          f"{what}: the bf16 deformable launches left the vector route: {routes} "
+          f"of {launched}")
 
 
 # ------------------------------------------------------------------ phase 3
@@ -1331,6 +1450,7 @@ def phase_layout(card):
           f"a kernel of the layout path was never launched: {launches}")
     check_attention_routes("layout", "wgmma_small")
     check_gemm_routes("layout", runs_gemm=False)
+    check_deform_routes("layout", launches["ms_deformable_attention"])
     _in_page(result, w, h, "layout")
     data = tsr.preprocess(page, TABLE_BOXES)
     preds = tsr.model(np.stack([d["array"] for d in data]))
@@ -2212,6 +2332,7 @@ def _phase_fused_backbone(card):
     launches = dict(ops.launches)
     check_attention_routes("fused")
     check_gemm_routes("fused")
+    check_deform_routes("fused", launches["ms_deformable_attention"])
     check_conv_routes("fused: OCR", conv_on_ocr)
     check_conv_routes("fused: layout", {r: n - conv_on_ocr[r]
                                         for r, n in conv_route_launches.items()})
@@ -2355,6 +2476,63 @@ def fused_kernels_only(root):
     return 0
 
 
+def deform_kernels_only(root):
+    """``--deform-kernels [ROOT]``: ms_deformable_attention at its three
+    shapes (lq300, b4_lq300, lq2500) in bf16 and f32, against its plain
+    version (f32 1e-4 of the largest value + 1e-5, bf16 2e-2 of it), then
+    its device time (profiler: every kernel of the call), its time per call
+    (CUDA events around one Python call, median of 50) and the host time of
+    one bf16 call (``host_us``), on the package
+    at ROOT: this checkout's, or another commit's unpacked beside it, to
+    compare the two on one card in turns."""
+    import numpy as np
+    import torch
+
+    from yomitoku_tpu_torch import ops
+    from yomitoku_tpu_torch.ops import _build
+
+    card = card_line()
+    log(f"card: {card}")
+    log(f"package: {root}")
+    t0 = time.perf_counter()
+    lib = _build.library()
+    log(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    rows = instantiations(lib.build_log, r"deform\w*_kernel")  # this tree's or the parent's
+    log("deform instantiations (ptxas): " + "; ".join(
+        f"{n} {r} regs, {sp} B spilled" for n, r, sp in rows))
+    kern = ops.ms_deformable_attention
+    numbers = {}
+    for (name, label), (ref, _, args, tail) in _layout_kernel_cases(
+            np.random.default_rng(1)).items():
+        if name != "ms_deformable_attention":
+            continue
+        f32 = [torch.from_numpy(a).cuda() for a in args]
+        bf = [a.to(torch.bfloat16) for a in f32]
+        with torch.no_grad():
+            _, ok32, text32 = _held(kern(*f32, *tail), ref(*f32, *tail), None, 1e-4, 1e-5, 0.0)
+            _, ok16, text16 = _held(kern(*bf, *tail), ref(*[a.float() for a in bf], *tail),
+                                    None, 2e-2, 0.0, 0.0)
+            check(ok32 and ok16, f"{name} [{label}] disagrees with its plain version: "
+                  f"f32 {text32}, bf16 {text16}")
+            res = numbers[label] = dict(
+                device_ms=device_ms(lambda: kern(*bf, *tail)),
+                device_ms_f32=device_ms(lambda: kern(*f32, *tail)),
+                ms=median_ms(lambda: kern(*bf, *tail), runs=50),
+                ms_f32=median_ms(lambda: kern(*f32, *tail), runs=50),
+                host_us=host_us(lambda: kern(*bf, *tail)))
+        log(f"deform [{label}]: device {_ms(res['device_ms'])} bf16, "
+            f"{_ms(res['device_ms_f32'])} f32; per call {res['ms']:.4f} ms bf16, "
+            f"{res['ms_f32']:.4f} ms f32; host {res['host_us']:.1f} us per bf16 call "
+            f"(enqueue, no sync); f32 {text32}, bf16 {text16}")
+    log(card)
+    print(json.dumps({"package": str(root), "deform": numbers}), flush=True)
+    return 0
+
+
+#: the modes that run one part on the package at ROOT
+MODES = {"--fused-kernels": fused_kernels_only, "--deform-kernels": deform_kernels_only}
+
+
 def main():
     try:
         import torch
@@ -2365,19 +2543,21 @@ def main():
         log("FAIL: torch.cuda.is_available() is false: no GPU to run on")
         return 1
     args = sys.argv[1:]
-    root = Path(args[1]).resolve() if args[:1] == ["--fused-kernels"] and len(args) > 1 else ROOT
+    mode = MODES.get(args[0]) if args else None
+    root = Path(args[1]).resolve() if mode and len(args) > 1 else ROOT
     if not (root / "yomitoku_tpu_torch" / "csrc").is_dir():
         log(f"FAIL: {root} holds no yomitoku_tpu_torch checkout")
         return 1
     sys.path.insert(0, str(root))
-    if args[:1] == ["--fused-kernels"]:
+    if mode:
         try:
-            return fused_kernels_only(root)
+            return mode(root)
         except SmokeFailure as e:
             log(f"FAIL: {e}")
             return 1
     if args:
-        log(f"FAIL: unknown arguments {args} (none, or --fused-kernels [ROOT])")
+        log(f"FAIL: unknown arguments {args} (none, or --fused-kernels [ROOT], "
+            "or --deform-kernels [ROOT])")
         return 1
     try:
         card = phase_card()

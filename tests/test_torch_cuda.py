@@ -128,35 +128,85 @@ def test_small_recognizer_f32_matches_cpu(monkeypatch):
         np.testing.assert_allclose(p_g, p_c, atol=1e-4)
 
 
+#: (batch, Lq, heads, c, pyramid, points, value layout): RT-DETR's 640x640
+#: pyramid (80, 40, 20) at 8 heads of 32 (the layout decoder's 300 queries,
+#: the cell detector's 2500, the table recognizer's batch of 4, uneven points
+#: at a ragged Lq and batch 3), every c from 16 to 128 (c = 24: 3 of 4 lanes
+#: of a bf16 tap group, 6 of 8 in f32) on a small pyramid, c = 4, 8 and 20
+#: (a tap row on one lane; bf16 rows of 8 and 40 bytes take the scalar
+#: route), more points than one chunk holds ((16, 12, 8): 36, against 16
+#: per chunk at c = 32 in bf16 and 4 at c = 128), a single query, and value
+#: passed as a view one element off 16-byte alignment ("offset"), which
+#: takes the scalar route.
+DETR, SMALL = ((80, 80), (40, 40), (20, 20)), ((12, 16), (6, 8), (3, 4))
+DEFORM_CASES = [
+    (1, 300, 8, 32, DETR, (4, 4, 4), "contiguous"),
+    (1, 2500, 8, 32, DETR, (4, 4, 4), "contiguous"),
+    (1, 37, 8, 32, DETR, (4, 2, 1), "contiguous"),
+    (4, 300, 8, 32, DETR, (4, 4, 4), "contiguous"),
+    (3, 37, 8, 32, DETR, (4, 2, 1), "contiguous"),
+    (1, 300, 8, 32, DETR, (4, 4, 4), "offset"),
+    *[(2, 45, 4, c, SMALL, (4, 4, 4), layout)
+      for c in (16, 24, 32, 64, 128) for layout in ("contiguous", "offset")],
+    *[(2, 45, 4, c, SMALL, (4, 4, 4), "contiguous") for c in (4, 8, 20)],
+    (2, 50, 4, 32, SMALL, (16, 12, 8), "contiguous"),
+    (2, 50, 4, 128, SMALL, (16, 12, 8), "contiguous"),
+    (2, 50, 4, 24, SMALL, (16, 12, 8), "offset"),
+    (1, 1, 2, 32, SMALL, (4, 4, 4), "contiguous"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,lq,points", [
-    (1, 300, (4, 4, 4)), (1, 2500, (4, 4, 4)), (1, 37, (4, 2, 1)),
-    (4, 300, (4, 4, 4)), (3, 37, (4, 2, 1))])
+@pytest.mark.parametrize("batch,lq,heads,c,shapes,points,layout", DEFORM_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_deformable_kernel_matches_plain_version(dtype, batch, lq, points):
-    """ms_deformable_attention at RT-DETR's 640x640 pyramid (80, 40, 20), 8
-    heads of 32, some locations off the map: the layout decoder's 300
-    queries, the cell detector's 2500, uneven points at a ragged Lq, and
-    the table recognizer's batch of 4 crops (each image its own value)."""
+def test_deformable_kernel_matches_plain_version(dtype, batch, lq, heads, c, shapes, points,
+                                                 layout):
+    """ms_deformable_attention against its plain version, some locations off
+    the map (loc * 1.3 - 0.15).  Query 0's locations are all NaN and query
+    1's all far off the map (+-1e30, inf): their output rows are exactly 0;
+    a scattering of other points is NaN or far off too, held against the
+    plain version on locations moved to 10 (off the map: zero weight, where
+    NaN would make the plain version's 0 * NaN).  The route the wrapper
+    reports, "vector" for whole 16-byte rows on an aligned value, else
+    "scalar", and one launch are asserted; two calls agree bit for bit."""
     _require_cuda()
+    from yomitoku_tpu_torch.ops._common import deform_route_launches
+
     dt = getattr(torch, dtype)
-    shapes = ((80, 80), (40, 40), (20, 20))
     rng = np.random.default_rng(11)
     P = sum(points)
-    att = rng.random((batch, lq, 8, P))
-    args = [rng.standard_normal((batch, 8400, 8, 32)),
-            rng.random((batch, lq, 8, P, 2)) * 1.3 - 0.15,
+    len_v = sum(h * w for h, w in shapes)
+    att = rng.random((batch, lq, heads, P))
+    loc = rng.random((batch, lq, heads, P, 2)) * 1.3 - 0.15
+    odd = rng.random((batch, lq, heads, P)) < 0.02
+    loc[odd] = rng.choice([np.nan, 1e30, -np.inf, 7.0], size=(int(odd.sum()), 2))
+    loc[:, 0] = np.nan
+    loc[:, 1:2, :, :, 0] = 1e30
+    loc[:, 1:2, :, :, 1] = -np.inf
+    args = [rng.standard_normal((batch, len_v, heads, c)), loc,
             att / att.sum(-1, keepdims=True)]
     args = [torch.from_numpy(a.astype(np.float32)).to("cuda", dt) for a in args]
-    n0 = ops.launches["ms_deformable_attention"]
-    got = ops.ms_deformable_attention(*args, shapes, points).float()
-    want = ops.ms_deformable_attention_reference(*[a.float() for a in args],
-                                                 shapes, points)
+    if layout == "offset":
+        v = torch.empty(args[0].numel() + 1, dtype=dt, device="cuda")[1:]
+        args[0] = v.view(args[0].shape).copy_(args[0])
+    route = ("vector" if layout == "contiguous" and c * args[0].element_size() % 16 == 0
+             else "scalar")
+    n0, r0 = ops.launches["ms_deformable_attention"], deform_route_launches[route]
+    got = ops.ms_deformable_attention(*args, shapes, points)
+    again = ops.ms_deformable_attention(*args, shapes, points)
+    finite = [a.float() for a in args]
+    finite[1] = torch.where(torch.isfinite(finite[1]) & (finite[1].abs() < 1e3), finite[1],
+                            torch.full_like(finite[1], 10.0))
+    want = ops.ms_deformable_attention_reference(*finite, shapes, points)
     torch.cuda.synchronize()
-    assert ops.launches["ms_deformable_attention"] == n0 + 1
+    assert ops.launches["ms_deformable_attention"] == n0 + 2
+    assert deform_route_launches[route] == r0 + 2, dict(deform_route_launches)
+    assert got.dtype == dt and got.shape == (batch, lq, heads * c)
+    assert torch.equal(got, again)
+    assert not got[:, :min(lq, 2)].any()
     rel, add = (1e-4, 1e-5) if dtype == "float32" else (2e-2, 0.0)
     limit = rel * want.abs().max().item() + add
-    assert (got - want).abs().max().item() <= limit
+    assert (got.float() - want).abs().max().item() <= limit
 
 
 #: (B, H, Lq, Lk, Dh, layout, input dtype, output dtype, route): the main

@@ -54,6 +54,9 @@ def _port(value, loc, att, points):
         (1, 33, 8, 32, (4, 2, 1), True),   # uneven points per level
         (2, 17, 4, 16, (3, 1, 2), False),  # all locations inside the map
         (1, 600, 2, 32, (4, 4, 4), True),  # Lq above the 512-query tile
+        (1, 19, 2, 24, (4, 4, 4), True),   # c = 24: 48-byte bf16 rows
+        (2, 23, 2, 32, (16, 12, 8), True),  # 36 points: more than 32
+        (1, 9, 3, 24, (16, 12, 8), True),
     ],
 )
 def test_matches_jax_gather(B, Lq, nh, c, points, oob):
@@ -73,6 +76,19 @@ def test_matches_pallas_interpret(Lq, points):
         jnp.asarray(value), jnp.asarray(loc), jnp.asarray(att), SHAPES,
         points, interpret=True))
     np.testing.assert_allclose(_port(value, loc, att, points), want, **TOL)
+
+
+@pytest.mark.parametrize("c,points", [(24, (4, 4, 4)), (32, (16, 12, 8)), (24, (16, 12, 8))])
+def test_more_points_and_other_widths_match_pallas_interpret(c, points):
+    """The plain version at the widths and point counts the kernel's routes
+    and chunks cover beyond RT-DETR's: c = 24, more than 32 points."""
+    value, loc, att = _inputs(1, 21, 2, c, points, seed=c + sum(points))
+    want = np.asarray(pallas_ms_deformable_attention(
+        jnp.asarray(value), jnp.asarray(loc), jnp.asarray(att), SHAPES,
+        points, interpret=True))
+    got = _port(value, loc, att, points)
+    assert got.shape == (1, 21, 2 * c)
+    np.testing.assert_allclose(got, want, **TOL)
 
 
 def test_bf16_inputs_upcast_and_round_once():

@@ -60,7 +60,7 @@ class _Library:
         lib.yt_attention.restype = i32
         ip = ctypes.POINTER(ctypes.c_int)
         lib.yt_ms_deformable_attention.argtypes = [
-            i32, vp, vp, vp, vp, i32, i64, i32, i32, i32, i32, ip, ip, vp,
+            i32, i32, vp, vp, vp, vp, i32, i64, i32, i32, i32, i32, ip, ip, vp,
         ]
         lib.yt_ms_deformable_attention.restype = i32
         lib.yt_quantize_rows.argtypes = [

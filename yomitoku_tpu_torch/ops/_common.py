@@ -30,7 +30,8 @@ def reset_launches():
     for name in launches:
         launches[name] = 0
     for counts in (attention_route_launches, gemm_route_launches,
-                   gemm_int8_route_launches, conv_route_launches):
+                   gemm_int8_route_launches, conv_route_launches,
+                   deform_route_launches):
         for route in counts:
             counts[route] = 0
 
@@ -99,6 +100,32 @@ def _launch(device, fn, *args):
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+#: Routes of the deformable attention kernel (csrc/deformable_attention.cu
+#: ``yt_ms_deformable_attention``): "vector" 16-byte loads, a tap row's
+#: channels over the fewest lanes that hold it; "scalar" single-element
+#: loads, 32 lanes over the row.
+DEFORM_ROUTES = {"vector": 1, "scalar": 2}
+#: launches of the deformable attention kernel by route, counted like
+#: ``launches``
+deform_route_launches = dict.fromkeys(DEFORM_ROUTES, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def deform_route(dtype, c, aligned):
+    """The deformable attention kernel's route for ``c`` channels per head
+    of ``dtype`` (float32 or bfloat16): "vector" where a tap row is whole
+    16-byte pieces (c * itemsize % 16 == 0) and the value's base is 16-byte
+    ``aligned``, else "scalar".  Anything else (another dtype, c outside
+    1-128) raises: no route takes it."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"ms_deformable_attention: dtype {dtype} (kernel takes "
+                        "float32, bfloat16)")
+    if not 0 < c <= 128:
+        raise ValueError(f"ms_deformable_attention: {c} channels per head (1 to 128)")
+    itemsize = 4 if dtype == torch.float32 else 2
+    return "vector" if aligned and c * itemsize % 16 == 0 else "scalar"
 
 
 #: Routes of the GEMM kernel (csrc/gemm.cu ``yt_gemm``): "fma" f32 FMAs

@@ -11,39 +11,74 @@ does (bilinear, zeros padding, align_corners=False) at
 
 On CPU tensors it runs the plain version ``ms_deformable_attention_reference``
 (the JAX package's gather, ``deformable_attention_core``, in f32); on CUDA
-tensors it launches the direct-gather kernel (csrc/deformable_attention.cu)
-or raises.  Both upcast the locations and weights to f32, accumulate every
-point of every level in f32 and round once to value's dtype, as the Pallas
-kernel does.
+tensors it launches the gather kernel (csrc/deformable_attention.cu) by the
+route ``ops._common.deform_route`` picks, or raises.  Both upcast the
+locations and weights to f32, accumulate every point of every level in f32
+and round once to value's dtype, as the Pallas kernel does.
 """
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from ._build import library
-from ._common import _code, _launch, launches, on_cpu, require_cuda
+from ._common import (
+    DEFORM_ROUTES,
+    _code,
+    _launch,
+    deform_route,
+    deform_route_launches,
+    launches,
+    on_cpu,
+    require_cuda,
+)
+
+
+class _Plan(NamedTuple):
+    """The level layout of one (spatial_shapes, num_points_list)."""
+
+    shapes: tuple  # ((H, W), ...) as ints
+    points: tuple  # points per level, as ints
+    len_v: int  # rows of value: sum of H * W
+    total: int  # P: sum of the points
+    hw: object  # ctypes int[2 * levels]: (H, W) per level
+    npts: object  # ctypes int[levels]
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(shapes, points):
+    """The cached ``_Plan`` of hashable (shapes, points): built once per
+    layout, so a call makes no ctypes array and sums no level sizes."""
+    shapes = tuple((int(h), int(w)) for h, w in shapes)
+    points = tuple(int(n) for n in points)
+    return _Plan(
+        shapes, points, sum(h * w for h, w in shapes), sum(points),
+        (ctypes.c_int * (2 * len(shapes)))(*[n for s in shapes for n in s]),
+        (ctypes.c_int * len(points))(*points),
+    )
 
 
 def _check(value, loc, att, spatial_shapes, num_points_list):
-    """Shapes as int tuples, after checking that the arguments agree."""
-    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
-    points = tuple(int(n) for n in num_points_list)
+    """The plan of (spatial_shapes, num_points_list), after checking that
+    the arguments agree."""
+    plan = _plan(tuple(map(tuple, spatial_shapes)), tuple(num_points_list))
     if value.dim() != 4:
         raise ValueError(f"value must be (B, Len_v, nh, c), got {tuple(value.shape)}")
     B, Len_v, nh, c = value.shape
-    P = sum(points)
+    P = plan.total
     Lq = loc.shape[1] if loc.dim() == 5 else -1
-    if tuple(loc.shape) != (B, Lq, nh, P, 2) or tuple(att.shape) != (B, Lq, nh, P):
+    if loc.shape != (B, Lq, nh, P, 2) or att.shape != (B, Lq, nh, P):
         raise ValueError(
             f"locations {tuple(loc.shape)} / weights {tuple(att.shape)} do not "
             f"match value {tuple(value.shape)} and {P} points"
         )
-    if len(shapes) != len(points) or sum(h * w for h, w in shapes) != Len_v:
+    if len(plan.shapes) != len(plan.points) or plan.len_v != Len_v:
         raise ValueError(
-            f"spatial shapes {shapes} (points {points}) do not cover Len_v={Len_v}"
+            f"spatial shapes {plan.shapes} (points {plan.points}) do not cover Len_v={Len_v}"
         )
-    return shapes, points
+    return plan
 
 
 def ms_deformable_attention_reference(
@@ -51,13 +86,13 @@ def ms_deformable_attention_reference(
 ):
     """Plain PyTorch version of ``ms_deformable_attention``: per level, the
     four bilinear taps as gathers, each masked to zero outside the map."""
-    shapes, points = _check(value, sampling_locations, attention_weights,
-                            spatial_shapes, num_points_list)
+    plan = _check(value, sampling_locations, attention_weights, spatial_shapes,
+                  num_points_list)
     B, _, nh, c = value.shape
     Lq = sampling_locations.shape[1]
     out = torch.zeros((B * nh, Lq, c), dtype=torch.float32, device=value.device)
     start = p0 = 0
-    for (h, w), P in zip(shapes, points):
+    for (h, w), P in zip(plan.shapes, plan.points):
         v = value[:, start:start + h * w].float().permute(0, 2, 1, 3)
         v = v.reshape(B * nh, h * w, c)
 
@@ -91,31 +126,31 @@ def ms_deformable_attention(
     value, sampling_locations, attention_weights, spatial_shapes, num_points_list
 ):
     """Multi-scale deformable attention -> (B, Lq, nh * c) in value's dtype.
-    One launch for all levels and any Lq."""
-    shapes, points = _check(value, sampling_locations, attention_weights,
-                            spatial_shapes, num_points_list)
+    One launch for all levels, any Lq and any points, c <= 128."""
+    plan = _check(value, sampling_locations, attention_weights, spatial_shapes,
+                  num_points_list)
     if on_cpu(value, sampling_locations, attention_weights):
         return ms_deformable_attention_reference(
-            value, sampling_locations, attention_weights, shapes, points
+            value, sampling_locations, attention_weights, plan.shapes, plan.points
         )
     name = "ms_deformable_attention"
     require_cuda(name, value, sampling_locations, attention_weights)
     B, Len_v, nh, c = value.shape
     Lq = sampling_locations.shape[1]
-    if c > 128:
-        raise ValueError(f"{name}: {c} channels per head > 128")
     value = value.contiguous()
     loc = sampling_locations.contiguous()
     att = attention_weights.contiguous()
-    out = torch.empty((B, Lq, nh * c), dtype=value.dtype, device=value.device)
+    ptr = value.data_ptr()
+    route = deform_route(value.dtype, c, ptr % 16 == 0)
+    out = value.new_empty((B, Lq, nh * c))
     lib = library()
-    hw = (ctypes.c_int * (2 * len(shapes)))(*[n for s in shapes for n in s])
-    npts = (ctypes.c_int * len(points))(*points)
     rc = _launch(
         value.device, lib.lib.yt_ms_deformable_attention,
-        _code(value), value.data_ptr(), loc.data_ptr(), att.data_ptr(),
-        out.data_ptr(), B, Len_v, nh, c, Lq, len(shapes), hw, npts,
+        DEFORM_ROUTES[route], _code(value), ptr, loc.data_ptr(), att.data_ptr(),
+        out.data_ptr(), B, Len_v, nh, c, Lq, len(plan.shapes), plan.hw, plan.npts,
     )
-    lib.check(rc, "yt_ms_deformable_attention launch")
+    if rc:
+        lib.check(rc, f"yt_ms_deformable_attention launch ({route})")
     launches[name] += 1
+    deform_route_launches[route] += 1
     return out
