@@ -8,9 +8,8 @@
 With no arguments it runs the phases below, each printed as it runs; any
 failure exits non-zero.  ``--fused-kernels [ROOT]`` runs only phase 7's
 bottleneck kernels at their eleven shapes and the fused DBNet forward's
-device busy, and ``--deform-kernels [ROOT]`` only ms_deformable_attention
-at its three shapes in bf16 and f32 (checked against the plain version,
-device and per-call times), on the package of this checkout or of another
+device busy, and ``--deform-kernels [ROOT]`` only phase 2's
+ms_deformable_attention lines at its three shapes, on the package of this checkout or of another
 commit unpacked at ROOT (git archive), to compare two trees on one card;
 each ends with a JSON line of its times.
 
@@ -39,10 +38,13 @@ each ends with a JSON line of its times.
    ``ms_deformable_attention`` at the layout decoder's (B=1, Lq=300), the
    table recognizer's (B=4, Lq=300) and the cell detector's Lq=2500 (stock:
    ``F.grid_sample`` per level; a line each with the route of the bf16 and
-   f32 calls, bf16 and f32 device times, the tap bytes B Lq nh P 4 c
-   itemsize and the achieved tap GB/s beside the bound, and the scalar
-   route on value passed one element off 16-byte alignment, held to the
-   plain version and timed), and ``fused_attention_heads`` at the AIFI
+   f32 calls, bf16 and f32 device and per-call times, the tap bytes B Lq
+   nh P 4 c itemsize and the achieved tap GB/s beside the bound (the value
+   rows the in-map taps need, counted on these inputs, beside the bound
+   with all of value read), the host time per call with the level plan
+   cached and built per call, and the scalar route on value passed one
+   element off 16-byte alignment, held to the plain version and timed),
+   and ``fused_attention_heads`` at the AIFI
    (L=400) and decoder (L=300) self-attention, 8 heads of 32, at B=1 and
    B=4 (stock: SDPA).  At each attention shape (the refine, AIFI and
    decoder at B=1 and 4, and the ViT's in phase 7) a line ``attention
@@ -1008,10 +1010,14 @@ def _layout_kernel_cases(rng):
     return cases
 
 
-def phase_layout_kernels():
-    """The layout path's kernels at RT-DETR's shapes -> {kernel: {label:
-    numbers}}.  The stock op is also held to the plain version in f32, as
-    an independent check of the plain version's semantics."""
+def phase_layout_kernels(names=None, own=True):
+    """The layout path's kernels at RT-DETR's shapes (``names``: only
+    these) -> {kernel: {label: numbers}}.  The stock op is also held to the
+    plain version in f32, as an independent check of the plain version's
+    semantics.  ``own``: the package is this checkout's; another commit's
+    may name its kernels otherwise and lack the route counters, so there the
+    device time is every kernel of the call and the deformable kernel's
+    route lines are left out."""
     import numpy as np
     import torch
 
@@ -1022,6 +1028,8 @@ def phase_layout_kernels():
     results = {}
     for (name, label), (ref, stock, args, tail) in _layout_kernel_cases(
             np.random.default_rng(1)).items():
+        if names and name not in names:
+            continue
         kern = getattr(ops, name)
         f32 = [torch.from_numpy(a).cuda() for a in args]
         bf = [a.to(torch.bfloat16) for a in f32]
@@ -1041,16 +1049,19 @@ def phase_layout_kernels():
         check(ok32 and ok16 and oks, f"{name} [{label}] disagrees with its plain version")
         with torch.no_grad():
             out16 = kern(*bf, *tail)
-            bound_ms, bound_by = bound(bf, [out16], kernel_ops(name, bf, tail))
+            if name == "ms_deformable_attention":
+                bounds = deform_bound(bf, out16, *tail)
+            else:
+                bounds = dict(zip(("bound_ms", "bound_by"),
+                                  bound(bf, [out16], kernel_ops(name, bf, tail))))
             res = dict(
-                max_abs_err=err16, max_abs_err_f32=err32,
-                bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=err16, max_abs_err_f32=err32, **bounds,
                 library_ms=(median_ms(sdpa_call(*bf, *tail))
                             if name == "fused_attention_heads" else None),
                 ms=median_ms(lambda: kern(*bf, *tail)),
                 plain_ms=median_ms(lambda: ref(*bf, *tail)),
                 stock_ms=median_ms(lambda: stock(*bf, *tail)),
-                device_ms=device_ms(lambda: kern(*bf, *tail), DEVICE_NAMES[name]),
+                device_ms=device_ms(lambda: kern(*bf, *tail), DEVICE_NAMES[name] if own else ""),
                 plain_device_ms=device_ms(lambda: ref(*bf, *tail)),
                 stock_device_ms=device_ms(lambda: stock(*bf, *tail)),
             )
@@ -1062,7 +1073,7 @@ def phase_layout_kernels():
             log_attention(name, label, res)
         else:
             with torch.no_grad():
-                res.update(deform_numbers(label, ref, f32, bf, tail, res))
+                res.update(deform_numbers(label, ref, f32, bf, tail, res, own))
 
         def ms(key):
             return "not measured" if res[key] is None else f"{res[key]:.4f} ms"
@@ -1086,6 +1097,54 @@ def deform_tap_bytes(value, loc):
     return B * Lq * nh * P * 4 * value.shape[-1] * value.element_size()
 
 
+def deform_needed(value, loc, att, shapes, points):
+    """What ms_deformable_attention needs at these inputs: (distinct
+    (batch, value row, head) rows, taps) of the bilinear corners that lie
+    on their level's map with a weight (bilinear x attention) other than 0.
+    A corner off the map, or of a NaN location, contributes nothing."""
+    import torch
+
+    B, len_v, nh, _ = value.shape
+    batch = torch.arange(B, device=value.device).view(B, 1, 1, 1)
+    head = torch.arange(nh, device=value.device).view(1, 1, nh, 1)
+    keys, taps, start, p0 = [], 0, 0, 0
+    for (h, w), n in zip(shapes, points):
+        px = loc[:, :, :, p0:p0 + n, 0].float() * w - 0.5
+        py = loc[:, :, :, p0:p0 + n, 1].float() * h - 0.5
+        a = att[:, :, :, p0:p0 + n].float()
+        x0, y0 = torch.floor(px), torch.floor(py)
+        for dy in (0, 1):
+            for dx in (0, 1):
+                xi, yi = x0 + dx, y0 + dy
+                wt = (1 - (px - x0 - dx).abs()) * (1 - (py - y0 - dy).abs()) * a
+                need = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1) & (wt != 0)
+                row = start + yi.clamp(0, h - 1).long() * w + xi.clamp(0, w - 1).long()
+                keys.append(((batch * len_v + row) * nh + head)[need])
+                taps += int(need.sum())
+        start += h * w
+        p0 += n
+    return int(torch.unique(torch.cat(keys)).numel()), taps
+
+
+def deform_bound(args, out, shapes, points):
+    """ms_deformable_attention's bound at these inputs: the value rows its
+    taps need (``deform_needed``), the locations and weights read once and
+    the output written once over the memory rate, against its needed taps'
+    multiply-adds over the f32 rate; beside it the bound with all of value
+    read, for comparison with records that used that one."""
+    value, loc, att = args
+    rows, taps = deform_needed(value, loc, att, shapes, points)
+    row_bytes = value.shape[-1] * value.element_size()
+    t_bytes = (rows * row_bytes + sum(t.numel() * t.element_size() for t in (loc, att, out))
+               ) / HBM_BYTES_S
+    t_ops = taps * value.shape[-1] * 2 / F32_FLOP_S
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_rows=rows, value_rows=value.numel() // value.shape[-1],
+                bound_taps=taps,
+                bound_all_rows_ms=bound(args, [out], {"f32": taps * value.shape[-1] * 2})[0])
+
+
 def deform_route_of(fn):
     """The deformable kernel's route(s) that one call of ``fn`` launched, or
     None where it launched none."""
@@ -1099,47 +1158,80 @@ def deform_route_of(fn):
     return "+".join(r for r, n in deform_route_launches.items() if n > before[r]) or None
 
 
-def deform_numbers(label, ref, f32, bf, tail, res):
+@contextlib.contextmanager
+def plan_per_call():
+    """Inside the block the deformable wrapper builds its level plan on
+    every call (its cache bypassed), for a paired host-time measurement of
+    the cache."""
+    from yomitoku_tpu_torch.ops import deformable_attention as da
+
+    cached, da._plan = da._plan, da._plan.__wrapped__
+    try:
+        yield
+    finally:
+        da._plan = cached
+
+
+def deform_numbers(label, ref, f32, bf, tail, res, own=True):
     """ms_deformable_attention's own numbers at one shape, beside ``res``
-    (phase_layout_kernels'): the routes of the bf16 and f32 calls (bf16 at
-    c = 32 must take "vector"), the tap bytes and the achieved tap GB/s of
-    the bf16 device time, the f32 device time, and the scalar route on the
-    same bf16 values passed as a view one element off 16-byte alignment:
-    held to the plain version (2e-2 of the largest value) and timed."""
+    (phase_layout_kernels'): the tap bytes and the achieved tap GB/s of the
+    bf16 device time, the f32 device and per-call times, the host time of
+    one bf16 call; on this checkout's package (``own``) also the routes of
+    the bf16 and f32 calls (bf16 at c = 32 must take "vector"), the host
+    time with the level plan built per call (the cache bypassed; measured
+    cached, per call, per call, cached), and the scalar route on the same
+    bf16 values passed as a view one element off 16-byte alignment: held to
+    the plain version (2e-2 of the largest value) and timed."""
     import torch
 
     from yomitoku_tpu_torch import ops
 
     kern = ops.ms_deformable_attention
+    taps = deform_tap_bytes(bf[0], bf[1])
+    dev = res["device_ms"]
+    out = dict(
+        tap_bytes=taps, tap_gb_s=None if dev is None else taps / dev / 1e6,
+        device_ms_f32=device_ms(lambda: kern(*f32, *tail), DEFORM_KERNEL if own else ""),
+        ms_f32=median_ms(lambda: kern(*f32, *tail)),
+    )
+    gbs = "not measured" if out["tap_gb_s"] is None else f"{out['tap_gb_s']:.1f} GB/s"
+    text = (f"kernel ms_deformable_attention [{label}]: device {_ms(dev)} bf16 / "
+            f"{_ms(out['device_ms_f32'])} f32, per call {res['ms']:.4f} / "
+            f"{out['ms_f32']:.4f} ms, against the bound {res['bound_ms']:.4f} ms "
+            f"({res['bound_by']}: {res['bound_rows']} of {res['value_rows']} value rows "
+            f"needed; {res['bound_all_rows_ms']:.4f} ms with all of value); tap reads "
+            f"{taps / 1e6:.2f} MB bf16 at {gbs}")
+    if not own:
+        out["host_us"] = host_us(lambda: kern(*bf, *tail))
+        log(f"{text}; host {out['host_us']:.1f} us per call (enqueue, no sync)")
+        return out
     v = bf[0]
     off = torch.empty(v.numel() + 1, dtype=v.dtype, device=v.device)[1:].view(v.shape)
     off.copy_(v)
     scalar = [off, *bf[1:]]
-    taps = deform_tap_bytes(bf[0], bf[1])
-    dev = res["device_ms"]
-    out = dict(
+    hosts, uncached = [], []
+    for cached in (True, False, False, True):
+        with contextlib.nullcontext() if cached else plan_per_call():
+            (hosts if cached else uncached).append(host_us(lambda: kern(*bf, *tail)))
+    out.update(
         deform_route=deform_route_of(lambda: kern(*bf, *tail)),
         deform_route_f32=deform_route_of(lambda: kern(*f32, *tail)),
         deform_route_offset=deform_route_of(lambda: kern(*scalar, *tail)),
-        tap_bytes=taps, tap_gb_s=None if dev is None else taps / dev / 1e6,
-        device_ms_f32=device_ms(lambda: kern(*f32, *tail), DEFORM_KERNEL),
         scalar_device_ms=device_ms(lambda: kern(*scalar, *tail), DEFORM_KERNEL),
-        host_us=host_us(lambda: kern(*bf, *tail)),
+        host_us=statistics.mean(hosts), host_us_plan_per_call=statistics.mean(uncached),
+        host_us_runs=hosts, host_us_plan_per_call_runs=uncached,
     )
-    err, ok, text = _held(kern(*scalar, *tail), ref(*[a.float() for a in bf], *tail),
+    err, ok, held = _held(kern(*scalar, *tail), ref(*[a.float() for a in bf], *tail),
                           None, 2e-2, 0.0, 0.0)
     out["scalar_max_abs_err"] = err
-    gbs = "not measured" if out["tap_gb_s"] is None else f"{out['tap_gb_s']:.1f} GB/s"
-    log(f"kernel ms_deformable_attention [{label}]: route {out['deform_route']} (f32 "
-        f"{out['deform_route_f32']}), device {_ms(dev)} bf16 / "
-        f"{_ms(out['device_ms_f32'])} f32 against the bound {res['bound_ms']:.4f} ms "
-        f"({res['bound_by']}); tap reads {taps / 1e6:.2f} MB bf16 at {gbs}; host "
-        f"{out['host_us']:.1f} us per call (enqueue, no sync); route "
-        f"{out['deform_route_offset']} with value one element off: device "
-        f"{_ms(out['scalar_device_ms'])}, bf16 {text} {'ok' if ok else 'FAIL'}")
+    log(f"{text}; route {out['deform_route']} (f32 {out['deform_route_f32']}); host "
+        f"{' / '.join(f'{h:.1f}' for h in hosts)} us per call (enqueue, no sync), "
+        f"{' / '.join(f'{h:.1f}' for h in uncached)} with the level plan built per call; "
+        f"route {out['deform_route_offset']} with value one element off: device "
+        f"{_ms(out['scalar_device_ms'])}, bf16 {held} {'ok' if ok else 'FAIL'}")
     check(out["deform_route"] == "vector" and out["deform_route_offset"] == "scalar" and ok,
           f"ms_deformable_attention [{label}]: routes {out['deform_route']} / "
-          f"{out['deform_route_offset']} (vector / scalar expected), scalar route {text}")
+          f"{out['deform_route_offset']} (vector / scalar expected), scalar route {held}")
     return out
 
 
@@ -2477,55 +2569,23 @@ def fused_kernels_only(root):
 
 
 def deform_kernels_only(root):
-    """``--deform-kernels [ROOT]``: ms_deformable_attention at its three
-    shapes (lq300, b4_lq300, lq2500) in bf16 and f32, against its plain
-    version (f32 1e-4 of the largest value + 1e-5, bf16 2e-2 of it), then
-    its device time (profiler: every kernel of the call), its time per call
-    (CUDA events around one Python call, median of 50) and the host time of
-    one bf16 call (``host_us``), on the package
-    at ROOT: this checkout's, or another commit's unpacked beside it, to
-    compare the two on one card in turns."""
-    import numpy as np
-    import torch
-
-    from yomitoku_tpu_torch import ops
+    """``--deform-kernels [ROOT]``: phase 2's ms_deformable_attention lines
+    alone, at its three shapes (lq300, b4_lq300, lq2500), on the package at
+    ROOT: this checkout's, or another commit's unpacked beside it, to
+    compare the two on one card in turns (the route and scalar-route lines
+    only for this checkout's)."""
     from yomitoku_tpu_torch.ops import _build
 
     card = card_line()
     log(f"card: {card}")
     log(f"package: {root}")
     t0 = time.perf_counter()
-    lib = _build.library()
+    _build.library()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
-    rows = instantiations(lib.build_log, r"deform\w*_kernel")  # this tree's or the parent's
-    log("deform instantiations (ptxas): " + "; ".join(
-        f"{n} {r} regs, {sp} B spilled" for n, r, sp in rows))
-    kern = ops.ms_deformable_attention
-    numbers = {}
-    for (name, label), (ref, _, args, tail) in _layout_kernel_cases(
-            np.random.default_rng(1)).items():
-        if name != "ms_deformable_attention":
-            continue
-        f32 = [torch.from_numpy(a).cuda() for a in args]
-        bf = [a.to(torch.bfloat16) for a in f32]
-        with torch.no_grad():
-            _, ok32, text32 = _held(kern(*f32, *tail), ref(*f32, *tail), None, 1e-4, 1e-5, 0.0)
-            _, ok16, text16 = _held(kern(*bf, *tail), ref(*[a.float() for a in bf], *tail),
-                                    None, 2e-2, 0.0, 0.0)
-            check(ok32 and ok16, f"{name} [{label}] disagrees with its plain version: "
-                  f"f32 {text32}, bf16 {text16}")
-            res = numbers[label] = dict(
-                device_ms=device_ms(lambda: kern(*bf, *tail)),
-                device_ms_f32=device_ms(lambda: kern(*f32, *tail)),
-                ms=median_ms(lambda: kern(*bf, *tail), runs=50),
-                ms_f32=median_ms(lambda: kern(*f32, *tail), runs=50),
-                host_us=host_us(lambda: kern(*bf, *tail)))
-        log(f"deform [{label}]: device {_ms(res['device_ms'])} bf16, "
-            f"{_ms(res['device_ms_f32'])} f32; per call {res['ms']:.4f} ms bf16, "
-            f"{res['ms_f32']:.4f} ms f32; host {res['host_us']:.1f} us per bf16 call "
-            f"(enqueue, no sync); f32 {text32}, bf16 {text16}")
+    name = "ms_deformable_attention"
+    at = phase_layout_kernels((name,), own=root == ROOT)[name]
     log(card)
-    print(json.dumps({"package": str(root), "deform": numbers}), flush=True)
+    print(json.dumps({"package": str(root), "deform": at}), flush=True)
     return 0
 
 

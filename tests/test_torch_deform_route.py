@@ -202,3 +202,36 @@ def test_cpu_tensors_take_the_plain_version(dtype):
     assert torch.equal(got, ops.ms_deformable_attention_reference(*args, SHAPES, POINTS))
     assert not any(ops.launches.values())
     assert not any(_common.deform_route_launches.values())
+
+
+def test_plain_version_walks_the_levels_without_the_plan(monkeypatch):
+    """The plain version derives the level layout itself, so a wrong cached
+    plan cannot agree with it."""
+    args = _inputs(seed=4)
+    want = ops.ms_deformable_attention_reference(*args, SHAPES, POINTS)
+
+    def no_plan(*a):
+        raise AssertionError("the plain version reached the kernel's plan")
+
+    monkeypatch.setattr(deformable_attention, "_plan", no_plan)
+    assert torch.equal(ops.ms_deformable_attention_reference(*args, SHAPES, POINTS), want)
+
+
+@pytest.mark.parametrize("spread", [1.0, 1.6])
+def test_bound_counts_the_value_rows_the_taps_need(spread):
+    """chip_smoke's deformable bound counts the value rows whose gradient
+    through the plain version is not 0 (every weight is positive, so
+    nothing cancels): in-map corners with a weight, off-map and zero-weight
+    corners left out."""
+    value, loc, att = _inputs(seed=5)
+    loc = loc * spread - (spread - 1) / 2
+    att[0, 0, 0, 0] = 0
+    v = value.clone().requires_grad_(True)
+    ops.ms_deformable_attention_reference(v, loc, att, SHAPES, POINTS).sum().backward()
+    rows, taps = chip_smoke.deform_needed(value, loc, att, SHAPES, POINTS)
+    assert rows == int((v.grad.abs().sum(-1) != 0).sum())
+    assert rows <= taps <= value.shape[0] * loc.shape[1] * value.shape[2] * sum(POINTS) * 4
+    out = torch.empty(2, 5, 64)
+    bounds = chip_smoke.deform_bound([value, loc, att], out, SHAPES, POINTS)
+    assert bounds["bound_rows"] == rows and bounds["value_rows"] == 2 * 84 * 2
+    assert bounds["bound_ms"] <= bounds["bound_all_rows_ms"]

@@ -85,14 +85,15 @@ def ms_deformable_attention_reference(
     value, sampling_locations, attention_weights, spatial_shapes, num_points_list
 ):
     """Plain PyTorch version of ``ms_deformable_attention``: per level, the
-    four bilinear taps as gathers, each masked to zero outside the map."""
-    plan = _check(value, sampling_locations, attention_weights, spatial_shapes,
-                  num_points_list)
+    four bilinear taps as gathers, each masked to zero outside the map.  It
+    walks (spatial_shapes, num_points_list) itself, apart from the kernel's
+    cached plan."""
     B, _, nh, c = value.shape
     Lq = sampling_locations.shape[1]
     out = torch.zeros((B * nh, Lq, c), dtype=torch.float32, device=value.device)
     start = p0 = 0
-    for (h, w), P in zip(plan.shapes, plan.points):
+    for (h, w), P in zip(spatial_shapes, num_points_list):
+        h, w, P = int(h), int(w), int(P)
         v = value[:, start:start + h * w].float().permute(0, 2, 1, 3)
         v = v.reshape(B * nh, h * w, c)
 
@@ -131,7 +132,7 @@ def ms_deformable_attention(
                   num_points_list)
     if on_cpu(value, sampling_locations, attention_weights):
         return ms_deformable_attention_reference(
-            value, sampling_locations, attention_weights, plan.shapes, plan.points
+            value, sampling_locations, attention_weights, spatial_shapes, num_points_list
         )
     name = "ms_deformable_attention"
     require_cuda(name, value, sampling_locations, attention_weights)
