@@ -4,9 +4,10 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --fused-kernels [ROOT]
     python3 chip_smoke.py --deform-kernels [ROOT]
+    python3 chip_smoke.py --page
 
 With no arguments it runs the phases below, each printed as it runs; any
-failure exits non-zero.  ``--fused-kernels [ROOT]`` runs only phase 7's
+failure exits non-zero.  ``--page`` runs phase 8 alone.  ``--fused-kernels [ROOT]`` runs only phase 7's
 bottleneck kernels at their eleven shapes and the fused DBNet forward's
 device busy, and ``--deform-kernels [ROOT]`` only phase 2's
 ms_deformable_attention lines at its three shapes, on the package of this checkout or of another
@@ -152,6 +153,32 @@ each ends with a JSON line of its times.
    unfused (max|d| <= 3e-2, mean <= 2e-3: the JAX package's in-model
    bound), and DBNet (at 1600x1184) and RT-DETRv2 in f32 on the card
    against the same weights on the CPU with the gates forced open there.
+8. The device-page route, the CUDA default (phases 3-7 pin the host-crop
+   route, YOMITOKU_TPU_HOST_CROPS=1, so their numbers stay comparable):
+   ``sample_lines`` and ``sample_regions_separable`` on the card against
+   the CPU (the synthetic page's lines with skewed, perspective, vertical
+   and resampled ones; the detector's and layout parser's page maps; five
+   table boxes; max|d| <= 0.1 and mean <= 1e-3 on the 0-255 scale); then,
+   counted, with ParseqDataset made to raise: ``OCR(device="cuda")`` on
+   demo/sample_text.png and its recognizer on the synthetic page (path
+   ``ocr_page``: kernels 1-4), ``LayoutAnalyzer(device="cuda")`` with a
+   DevicePage of demo/sample_table.png and the table recognizer on 4 and
+   5 boxes (path ``layout_page``: kernels 3 and 5); the crop time of each
+   route (ParseqDataset, the line gather) and of the region resizes (their
+   float64 matmuls, with TFLOP/s), recognizer lines/s, OCR, layout
+   parser, analyzer and TSR ms/page on both routes, and the device busy
+   and idle share of the page route; the 400-wide width bucket forced
+   (the narrow crop equal to the left slice of the full one, the routed
+   lines equal to the model called at that width (path ``width_bucket``),
+   batch 128 at 400 and 800 each capturing its own AR graph and each
+   replay equal to an eager decode, the decode at 400 against 800, and
+   kernels 1-4 and 8-9 at its shapes against their plain versions, the
+   int8 block in f32 held as its card test holds it: its LayerNorm codes
+   against the plain quantizer's, the 1%-of-rows rule on the sequences no
+   flipped code reaches, and on every row against the plain version on
+   the kernel's own codes); and the f32 recognizer,
+   DBNet (u8 map within one quantum) and RT-DETRv2 from the page on the
+   card against the CPU.
 
 Phase 3 pins YOMITOKU_TPU_INT8_KV=0 (the full cache, which its f32
 card-vs-CPU check compares with the CPU's), phase 6 leaves it at its
@@ -431,10 +458,11 @@ def stock_attn_heads(q, k, v, h):
     return o.transpose(1, 2).reshape(b, lq, d)
 
 
-def _kernel_cases(rng):
+def _kernel_cases(rng, L=L):
     """name -> (plain version, stock bf16 torch ops, inputs): numpy args in
     the (in, out) layout, the indices of the weights among them, and the
-    trailing non-tensor args."""
+    trailing non-tensor args.  ``L``: the ViT's tokens per line (400 on the
+    full canvas, 200 in the 400-wide width bucket), the refine's keys."""
     import torch.nn.functional as F
 
     from yomitoku_tpu_torch import ops
@@ -1264,10 +1292,11 @@ def check_attention_routes(what, route=None):
           f"{what}: the bf16 path's attention left the wgmma routes: {routes}")
 
 
-def synthetic_lines_page(n_lines=136, seed=0):
+def synthetic_lines_page(n_lines=136, seed=0, chars=(8, 40)):
     """A white page of ``n_lines`` printed lines (numpy + cv2) and one quad
     per line: enough for a full recognizer batch of 128 whatever the
-    random detector finds."""
+    random detector finds.  Each line holds ``chars`` = (fewest, most + 1)
+    characters, per line or as one pair for all."""
     import cv2
     import numpy as np
 
@@ -1276,14 +1305,34 @@ def synthetic_lines_page(n_lines=136, seed=0):
     pitch, width = 28, 900
     page = np.full((n_lines * pitch + 16, width, 3), 255, np.uint8)
     quads = []
+    spans = chars if isinstance(chars, list) else [chars] * n_lines
     for i in range(n_lines):
-        text = "".join(rng.choice(alphabet, rng.integers(8, 40)))
+        text = "".join(rng.choice(alphabet, rng.integers(*spans[i])))
         y = 8 + i * pitch
         cv2.putText(page, text, (10, y + 20), cv2.FONT_HERSHEY_SIMPLEX, 0.7,
                     (0, 0, 0), 2)
         x1 = min(width - 1, 16 + 17 * len(text))
         quads.append([[6, y], [x1, y], [x1, y + pitch - 2], [6, y + pitch - 2]])
     return page, quads
+
+
+def interleaved(fns, runs=5):
+    """Median host wall time (s) of each of ``fns`` (key -> fn), each ending
+    in a device sync, after one warm-up call each: the calls run in turns,
+    so that a comparison's sides share the host's noise."""
+    import torch
+
+    times = {k: [] for k in fns}
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(runs):
+        for k, fn in fns.items():
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[k].append(time.perf_counter() - t0)
+    return {k: statistics.median(v) for k, v in times.items()}
 
 
 def host_timed(fn, runs=3):
@@ -1321,7 +1370,8 @@ def _finite_schema(schema, what):
 def phase_slice(card):
     """The OCR path with the full memory-K/V cache -> (launches, the
     synthetic page, its quads, 128 crops and their bf16 greedy ids)."""
-    with _env(YOMITOKU_TPU_INT8_KV="0", YOMITOKU_TPU_INT8_ENCODER=None):
+    with _env(YOMITOKU_TPU_INT8_KV="0", YOMITOKU_TPU_INT8_ENCODER=None,
+              YOMITOKU_TPU_HOST_CROPS="1"):
         return _phase_slice(card)
 
 
@@ -1443,14 +1493,16 @@ def _in_page(schema, w, h, what):
               f"{what}: box {el.box} / score {el.score} off the page")
 
 
-def _rtdetr_f32_vs_cpu(cfg, images, fused=False):
+def _rtdetr_f32_vs_cpu(cfg, images, fused=False, page=None):
     """One RT-DETRv2 in f32 on the card and on the CPU, seed-0 weights on
     both: the same top-k selected queries outside near-ties (scores within
     1e-3 of the k-th's magnitude), then, over the queries both sides
     selected (at least 90% of k), logits within 1e-3 of the largest and
     boxes within 1e-3, matched by query index.  ``fused``: the card runs
     the fused backbone (its switch set by the caller) and the CPU the
-    plain versions of its kernels, the gates forced open."""
+    plain versions of its kernels, the gates forced open.  ``page``: a
+    padded uint8 page, cropped on each device by the page route
+    (``forward_from_page``) with ``images`` = (maps, out_hw)."""
     import numpy as np
     import torch
 
@@ -1469,7 +1521,10 @@ def _rtdetr_f32_vs_cpu(cfg, images, fused=False):
         n0 = dict(ops.launches)
         undo = _force_fused_on_cpu() if fused and device == "cpu" else None
         try:
-            out = model(images)
+            if page is None:
+                out = model(images)
+            else:
+                out = model.forward_from_page(torch.from_numpy(page).to(device), *images)
         finally:
             if undo:
                 undo()
@@ -1501,8 +1556,10 @@ def _rtdetr_f32_vs_cpu(cfg, images, fused=False):
     d_logit = float(np.abs(got["pred_logits"][rg] - want["pred_logits"][rc]).max())
     d_box = float(np.abs(got["pred_boxes"][rg] - want["pred_boxes"][rc]).max())
     limit = 1e-3 * float(np.abs(want["pred_logits"]).max())
-    log(f"{'fused' if fused else 'layout'}: f32 RT-DETRv2 card vs CPU at "
-        f"{images.shape[1]}x{images.shape[2]}: "
+    at = (f"{images[1][0]}x{images[1][1]} from the page" if page is not None
+          else f"{images.shape[1]}x{images.shape[2]}")
+    log(f"{'fused' if fused else 'page' if page is not None else 'layout'}: f32 RT-DETRv2 "
+        f"card vs CPU at {at}: "
         f"selection score max|d| {d_score:.3e}; k-th/(k+1)-th gap "
         f"{kth - s_c[order_c[k]]:.3e}; {len(differ)} selected queries differ"
         f"{' (all near-ties)' if differ else ''}; over the {len(common)} "
@@ -1512,6 +1569,11 @@ def _rtdetr_f32_vs_cpu(cfg, images, fused=False):
 
 
 def phase_layout(card):
+    with _env(YOMITOKU_TPU_HOST_CROPS="1"):
+        return _phase_layout(card)
+
+
+def _phase_layout(card):
     import cv2
     import numpy as np
     import torch
@@ -1595,10 +1657,10 @@ def phase_layout(card):
 # ------------------------------------------------------------------ phase 5
 
 
-def _int8_cases(rng):
+def _int8_cases(rng, L=L):
     """name -> (numpy args as (value, kind), trailing args): kind "x" is the
     activation (the dtype under test), "w" a float weight to quantize, "v"
-    a float32 vector."""
+    a float32 vector; ``L`` tokens per line."""
     ws = D ** -0.5
     nrm = lambda shape, std=1.0: (rng.standard_normal(shape) * std).astype("float32")  # noqa: E731
     vec = lambda n, c=0.0, std=0.02: (c + rng.standard_normal(n) * std).astype("float32")  # noqa: E731
@@ -1642,6 +1704,49 @@ def _held_int8(got, want):
     ok = share <= 1e-2 and err <= 2e-2 * top and math.isfinite(err)
     return err, share, ok, (f"max|d| {err:.3e}, rows past 1e-4 of max "
                             f"{share:.2e} (limit 1e-2; max limit {2e-2 * top:.3e})")
+
+
+def _held_int8_block(f32, tail, got):
+    """The int8 attention block in f32 at a full batch, where the row-quantize
+    kernel's codes of LayerNorm(x) differ from the plain quantizer's in about
+    one code in a million (one step, at a tie the two f32 LayerNorms round
+    to either side of), and each such code moves every row of its line:
+    the codes at most one step off and at most 1e-4 of them moved, the
+    1%-of-rows rule (``_held_int8``) on the lines no moved code reaches,
+    and on every row against the plain version on the kernel's own codes
+    -> (max|d| against the plain version, its share of rows past 1e-4,
+    ok, text)."""
+    import torch
+
+    from yomitoku_tpu_torch import ops
+    from yomitoku_tpu_torch.ops._common import layer_norm, quantize_rows
+    from yomitoku_tpu_torch.ops.mlp import quantize_rows_reference
+
+    x, g, b = f32[:3]
+    B, Lx, Dx = x.shape
+    ref = ops.fused_attention_block_ln_int8_reference
+    xq = torch.empty((B * Lx, Dx), dtype=torch.int8, device=x.device)
+    sx = torch.empty((B * Lx, 1), dtype=torch.float32, device=x.device)
+    quantize_rows(x.view(B * Lx, Dx), xq, sx, ln=(g, b, 1e-6))
+    hq, _ = quantize_rows_reference(layer_norm(x, g, b, 1e-6, torch.float32).view(B * Lx, Dx))
+    step = (xq.int() - hq.int()).abs()
+    moved = (step > 0).float().mean().item()
+    flipped = (step > 0).view(B, Lx * Dx).any(1)
+    want = ref(*f32, *tail)
+    top = want.abs().max().item()
+    d = (got.float() - want).abs().reshape(B, Lx, Dx).amax(-1)
+    share = (d > 1e-4 * top + 1e-5).float().mean().item()
+    clean = (d[~flipped] > 1e-4 * top + 1e-5).float().mean().item()
+    err = d.max().item()
+    err_same, share_same, ok_same, _ = _held_int8(got, ref(*f32, *tail, ln_codes=(xq, sx)))
+    ok = (step.max().item() <= 1 and moved <= 1e-4 and clean <= 1e-2 and ok_same
+          and err <= 2e-2 * top and math.isfinite(err))
+    return err, share, ok, (
+        f"LayerNorm codes moved {moved:.2e} (limit 1e-4, max step {step.max().item()}) in "
+        f"{int(flipped.sum())}/{B} lines; max|d| {err:.3e} (limit {2e-2 * top:.3e}), rows "
+        f"past 1e-4 of max {share:.2e}, on the lines no moved code reaches {clean:.2e} "
+        f"(limit 1e-2); on the kernel's codes max|d| {err_same:.3e}, rows past 1e-4 "
+        f"{share_same:.2e} (limit 1e-2)")
 
 
 def _stock_int8(name, args, tail):
@@ -1896,7 +2001,8 @@ def _force_int8_on_cpu():
 
 
 def phase_int8_recognizer(card, ctx):
-    with _env(YOMITOKU_TPU_INT8_ENCODER="1", YOMITOKU_TPU_INT8_KV=None):
+    with _env(YOMITOKU_TPU_INT8_ENCODER="1", YOMITOKU_TPU_INT8_KV=None,
+              YOMITOKU_TPU_HOST_CROPS="1"):
         return _phase_int8_recognizer(card, ctx)
 
 
@@ -1937,7 +2043,7 @@ def _phase_int8_recognizer(card, ctx):
           and per_batch["fused_mlp_ln_int8"] == 12,
           f"expected 12 launches of each int8 kernel per batch: {per_batch}")
     check(np.isfinite(probs8).all(), "int8 probs not finite")
-    loop = model._ar_loops[128]
+    loop = model._ar_loops[(128, L)]
     check(loop.graph is not None and loop.mem[0].dtype == torch.int8,
           "the batch-128 AR loop is not one CUDA graph over an int8 memory cache")
     same = float((ids8 == ctx["ids_bf16"]).mean())
@@ -2389,7 +2495,8 @@ def _both_backbones(fn, runs=3):
 def phase_fused_backbone(card):
     """The fused-backbone path -> (launches, numbers)."""
     with _env(YOMITOKU_TPU_FUSED_BOTTLENECK="1", YOMITOKU_TPU_FUSED_STAGE="1",
-              YOMITOKU_TPU_INT8_KV="0", YOMITOKU_TPU_INT8_ENCODER=None):
+              YOMITOKU_TPU_INT8_KV="0", YOMITOKU_TPU_INT8_ENCODER=None,
+              YOMITOKU_TPU_HOST_CROPS="1"):
         return _phase_fused_backbone(card)
 
 
@@ -2534,6 +2641,385 @@ def _phase_fused_backbone(card):
 # ------------------------------------------------------------------ main
 
 
+# ------------------------------------------------------------------ phase 8
+
+
+#: a fifth table box: the table recognizer also runs a batch of 5
+TABLE_BOX_5 = [120, 200, 840, 1000]
+#: the forced recognizer width bucket (half the 800-wide canvas)
+WIDTH_BUCKET = 400
+
+
+def _refuse_host_crops(*args, **kwargs):
+    raise SmokeFailure("the device route built a ParseqDataset (host crops)")
+
+
+@contextlib.contextmanager
+def _no_host_crops():
+    """ParseqDataset raises for the block: the device route never builds it."""
+    from yomitoku_tpu_torch import text_recognizer
+
+    orig = text_recognizer.ParseqDataset
+    text_recognizer.ParseqDataset = _refuse_host_crops
+    try:
+        yield
+    finally:
+        text_recognizer.ParseqDataset = orig
+
+
+def eager_decode(model, fn):
+    """``fn()`` with every AR step run eagerly (no CUDA graph), on fresh
+    loop state; the model's loops and their graphs are restored after."""
+    from yomitoku_tpu_torch.models import parseq
+
+    saved = dict(model._ar_loops)
+    model._ar_loops.clear()
+    capture = parseq._CachedARLoop._capture
+    parseq._CachedARLoop._capture = parseq._CachedARLoop.step  # step 0, not captured
+    try:
+        return fn()
+    finally:
+        parseq._CachedARLoop._capture = capture
+        model._ar_loops.clear()
+        model._ar_loops.update(saved)
+
+
+def _crop_err(got, want):
+    d = (got.float().cpu() - want).abs()
+    return d.max().item(), d.mean().item()
+
+
+def region_flop(page_hw, out_hw, n):
+    """float64 operations of sample_regions_separable on ``n`` regions
+    (multiply-adds as two, three channels, the cheaper order it takes)."""
+    (H, W), (oh, ow) = page_hw, out_hw
+    return 2 * 3 * n * min(H * W * ow + H * ow * oh, H * W * oh + oh * W * ow)
+
+
+def phase_page(card, ctx):
+    """The device-page route, the CUDA default -> (launches by path,
+    numbers)."""
+    with _env(YOMITOKU_TPU_INT8_KV="0", YOMITOKU_TPU_INT8_ENCODER=None,
+              YOMITOKU_TPU_HOST_CROPS=None, YOMITOKU_TPU_DEVICE_CROPS=None,
+              YOMITOKU_TPU_REC_WIDTH_BUCKETS=None):
+        return _phase_page(card, ctx)
+
+
+def _phase_page(card, ctx):
+    import cv2
+    import numpy as np
+    import torch
+
+    from yomitoku_tpu_torch import ops
+    from yomitoku_tpu_torch.data.dataset import ParseqDataset
+    from yomitoku_tpu_torch.data.functions import shortest_edge_size
+    from yomitoku_tpu_torch.layout_analyzer import LayoutAnalyzer
+    from yomitoku_tpu_torch.ocr import OCR
+    from yomitoku_tpu_torch.ops import device_crop as dc
+    from yomitoku_tpu_torch.ops import separable_resize as sr
+    from yomitoku_tpu_torch.text_detector import TextDetector
+    from yomitoku_tpu_torch.text_recognizer import TextRecognizer
+
+    numbers = {}
+    sample = cv2.imread(str(ROOT / "demo" / "sample_text.png"))
+    table = cv2.imread(str(ROOT / "demo" / "sample_table.png"))
+    lines_page, quads = ctx["page"], ctx["quads"]
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+
+    # gate 1: the crop functions on the card against the CPU
+    extra = [[[20, 60], [400, 80], [398, 110], [18, 90]],       # skewed
+             [[500, 300], [850, 270], [853, 306], [503, 336]],  # skewed
+             [[100, 500], [700, 520], [690, 580], [95, 555]],   # perspective
+             [[860, 40], [890, 40], [890, 400], [860, 400]],    # vertical
+             [[10, 100], [500, 100], [500, 160], [10, 160]],    # shrunk to 32 rows
+             [[5, 200], [895, 200], [895, 230], [5, 230]]]      # shrunk to 800 columns
+    padded = dc.pad_page(lines_page)
+    mats_all, wh_all = dc.line_homographies(quads + extra, (32, 800))
+    regions = {
+        "det_page": (sample, [(0, 0, sample.shape[1], sample.shape[0])],
+                     shortest_edge_size(*sample.shape[:2], 1280, 1600), False),
+        "layout_page": (table, [(0, 0, table.shape[1], table.shape[0])], (640, 640), True),
+        "tsr_boxes": (table, [tuple(b) for b in TABLE_BOXES + [TABLE_BOX_5]], (640, 640), True),
+    }
+    t = {dev: torch.from_numpy(padded).to(dev) for dev in (cpu, cuda)}
+    crops = {}
+    for dev in (cpu, cuda):
+        m, w = torch.from_numpy(mats_all), torch.from_numpy(wh_all)
+        crops[dev] = {"sample_lines": dc.sample_lines(t[dev], m, w)}
+        for label, (img, rs, hw, flip) in regions.items():
+            mats_r, _ = dc.region_mats(rs, hw)
+            crops[dev][label] = sr.sample_regions_separable(
+                torch.from_numpy(dc.pad_page(img)).to(dev), torch.from_numpy(mats_r), hw,
+                flip_bgr=flip)
+    torch.cuda.synchronize()
+    for label in crops[cpu]:
+        err, mean = _crop_err(crops[cuda][label], crops[cpu][label])
+        log(f"page: crop {label} card vs CPU {tuple(crops[cpu][label].shape)}: max|d| "
+            f"{err:.3e} (limit 0.1), mean|d| {mean:.3e} (limit 1e-3), 0-255 scale")
+        check(err <= 0.1 and mean <= 1e-3, f"crop {label}: card and CPU disagree")
+        numbers[f"crop_{label}_max_abs_err"] = err
+    del crops
+
+    # the main path, counted: OCR on the sample page and the recognizer on
+    # the synthetic page (a batch of 128 + a bucket-8 remainder), then the
+    # layout analyzer and the table recognizer (4 and 5 tables), all on the
+    # default route; ParseqDataset raises throughout
+    ocr = OCR(device="cuda")
+    la = LayoutAnalyzer(device="cuda")
+    rec, lp, tsr = ocr.recognizer, la.layout_parser, la.table_structure_recognizer
+    check(rec._use_device_crops(), "device crops are not the CUDA default")
+    paths = {}
+    with _no_host_crops():
+        ops.reset_launches()
+        result, _ = ocr(sample)
+        lines, _ = rec(lines_page, quads)
+        torch.cuda.synchronize()
+        paths["ocr_page"] = dict(ops.launches)
+        log(f"page: OCR path launches {paths['ocr_page']}")
+        check(all(paths["ocr_page"][k] > 0 for k in OCR_KERNELS),
+              f"a kernel of the OCR page path was never launched: {paths['ocr_page']}")
+        check_attention_routes("page: OCR", "wgmma")
+        check_gemm_routes("page: OCR")
+        check(len(result.words) > 0 and len(lines.contents) == len(quads),
+              "OCR page route lost its words or lines")
+        _finite_schema(lines, "page: recognizer")
+        ops.reset_launches()
+        page_t = dc.DevicePage(table, "cuda")
+        layout, _ = la(table, page=page_t)
+        tables4, _ = tsr(table, TABLE_BOXES, page=page_t)
+        tables5, _ = tsr(table, TABLE_BOXES + [TABLE_BOX_5], page=page_t)
+        torch.cuda.synchronize()
+        paths["layout_page"] = dict(ops.launches)
+        log(f"page: layout path launches {paths['layout_page']}")
+        check(all(paths["layout_page"][k] > 0 for k in LAYOUT_KERNELS),
+              f"a kernel of the layout page path was never launched: {paths['layout_page']}")
+        check_attention_routes("page: layout")
+        check_gemm_routes("page: layout", runs_gemm=False)
+        check_deform_routes("page: layout", paths["layout_page"]["ms_deformable_attention"])
+        _in_page(layout, table.shape[1], table.shape[0], "page: layout")
+        log(f"page: OCR on sample_text.png {len(result.words)} words; recognizer "
+            f"{len(lines.contents)} lines; layout {len(layout.paragraphs)} paragraphs, "
+            f"{len(layout.tables)} tables; table recognizer on 4 / 5 boxes: "
+            f"{len(tables4)} / {len(tables5)} tables with rows and columns")
+
+        prof = {}
+        for what, fn in (("layout_parser", lambda: lp(table, page=dc.DevicePage(table, "cuda"))),
+                         ("tsr_4_tables", lambda: tsr(table, TABLE_BOXES, page=page_t)),
+                         ("ocr", lambda: ocr(sample))):
+            wall, device, _, _ = profiled(fn, runs=5)
+            busy = sum(device.values())
+            prof[what] = dict(wall_ms=wall, device_busy_ms=busy, idle_share=1 - busy / wall)
+            log(f"page: {what} profiled: {wall:.1f} ms/call wall, device busy {busy:.1f} ms "
+                f"(idle share {1 - busy / wall:.2f})")
+
+    # numbers (not gated): each call on the device route (a fresh DevicePage
+    # where the caller would make one) and on the host route, in turns
+    def on_device(fn):
+        def run():
+            with _no_host_crops():
+                return fn()
+        return run
+
+    def on_host(fn):
+        def run():
+            with _env(YOMITOKU_TPU_HOST_CROPS="1"):
+                return fn()
+        return run
+
+    calls = {
+        "ocr": (lambda: ocr(sample),) * 2,
+        "recognizer_128": (lambda: rec(lines_page, quads[:128]),) * 2,
+        "layout_analyzer": (lambda: la(table, page=dc.DevicePage(table, "cuda")),
+                            lambda: la(table)),
+        "layout_parser": (lambda: lp(table, page=dc.DevicePage(table, "cuda")),
+                          lambda: lp(table)),
+        "tsr_4_tables": (lambda: tsr(table, TABLE_BOXES, page=dc.DevicePage(table, "cuda")),
+                         lambda: tsr(table, TABLE_BOXES)),
+    }
+    fns = {}
+    for what, (dev_fn, host_fn) in calls.items():
+        fns[(what, "device")], fns[(what, "host")] = on_device(dev_fn), on_host(host_fn)
+    ms = {k: v * 1e3 for k, v in interleaved(fns).items()}
+    page_ms, host_page_ms = ms[("ocr", "device")], ms[("ocr", "host")]
+    rec_s, host_rec_s = ms[("recognizer_128", "device")] / 1e3, ms[("recognizer_128", "host")] / 1e3
+    layout_ms, host_layout_ms = ms[("layout_analyzer", "device")], ms[("layout_analyzer", "host")]
+    lp_ms, host_lp_ms = ms[("layout_parser", "device")], ms[("layout_parser", "host")]
+    tsr_ms, host_tsr_ms = ms[("tsr_4_tables", "device")], ms[("tsr_4_tables", "host")]
+    crop_host = host_timed(lambda: ParseqDataset(rec._cfg, lines_page, quads[:128])
+                           .as_u8_array()) * 1e3
+    m128, w128 = torch.from_numpy(mats_all[:128]), torch.from_numpy(wh_all[:128])
+    pt = t[cuda]
+    crop_gather = median_ms(lambda: dc.sample_lines(pt, m128, w128), runs=5)
+    gather_dev = device_ms(lambda: dc.sample_lines(pt, m128, w128), runs=5)
+    log(f"page: crops of 128 lines ({padded.shape[0]}x{padded.shape[1]} page): host "
+        f"ParseqDataset {crop_host:.1f} ms; device gather {crop_gather:.2f} ms (device "
+        f"{_ms(gather_dev)}); card {card}")
+    resize = {}
+    for label, (img, rs, hw, flip) in regions.items():
+        pg = torch.from_numpy(dc.pad_page(img)).to(cuda)
+        mr = torch.from_numpy(dc.region_mats(rs, hw)[0])
+        fn = (lambda pg=pg, mr=mr, hw=hw, flip=flip:
+              sr.sample_regions_separable(pg, mr, hw, flip_bgr=flip))
+        wall, dev_ms = median_ms(fn, runs=5), device_ms(fn, runs=5)
+        flop = region_flop(pg.shape[:2], hw, len(rs))
+        resize[label] = dict(ms=wall, device_ms=dev_ms, tflop=flop / 1e12)
+        log(f"page: region resize {label} ({len(rs)} x {hw[0]}x{hw[1]} from "
+            f"{pg.shape[0]}x{pg.shape[1]}): {wall:.2f} ms, device {_ms(dev_ms)}, "
+            f"{flop / 1e12:.4f} TFLOP f64, "
+            f"{'not measured' if not dev_ms else f'{flop / dev_ms / 1e9:.1f} TFLOP/s'}; "
+            f"card {card}")
+    log(f"page: recognizer batch 128 end to end: device route {128 / rec_s:.1f} lines/s "
+        f"({rec_s * 1e3:.1f} ms), host route {128 / host_rec_s:.1f} lines/s "
+        f"({host_rec_s * 1e3:.1f} ms); OCR {page_ms:.1f} ms/page device route, "
+        f"{host_page_ms:.1f} ms/page host route; layout analyzer {layout_ms:.1f} / "
+        f"{host_layout_ms:.1f} ms/page, layout parser {lp_ms:.1f} / {host_lp_ms:.1f} ms, "
+        f"table recognizer on 4 tables {tsr_ms:.1f} / {host_tsr_ms:.1f} ms (device / host "
+        f"route); median of 5, the two routes in turns; card {card}")
+    numbers.update(
+        crop_ms=dict(host_parseq_dataset=crop_host, device_gather=crop_gather,
+                     device_gather_device=gather_dev),
+        region_resize=resize,
+        lines_s=dict(device_route=128 / rec_s, host_route=128 / host_rec_s),
+        ocr_ms_per_page=dict(device_route=page_ms, host_route=host_page_ms),
+        layout_ms=dict(analyzer=[layout_ms, host_layout_ms], parser=[lp_ms, host_lp_ms],
+                       tsr_4_tables=[tsr_ms, host_tsr_ms]),
+        profile=prof,
+    )
+
+    # gate 5: the 400-wide width bucket, forced
+    model = rec.model
+    with _no_host_crops():
+        short_page, short_q = synthetic_lines_page(
+            136, seed=1, chars=[(8, 21)] * 128 + [(30, 40)] * 8)
+        mats_s, wh_s = dc.line_homographies(short_q, (32, 800))
+        fits = wh_s[:, 0] <= WIDTH_BUCKET
+        check(fits[:128].all() and not fits[128:].any(), "the bucket page's widths")
+        page_s = dc.DevicePage(short_page, "cuda").dev
+        full_c = dc.sample_lines(page_s, torch.from_numpy(mats_s[:128]),
+                                 torch.from_numpy(wh_s[:128]))
+        narrow_c = dc.sample_lines(page_s, torch.from_numpy(mats_s[:128]),
+                                   torch.from_numpy(wh_s[:128]), out_hw=(32, WIDTH_BUCKET))
+        same = torch.equal(narrow_c, full_c[:, :, :WIDTH_BUCKET])
+        log(f"page: the {WIDTH_BUCKET}-wide crop of 128 lines equals the left slice of the "
+            f"full crop bit for bit: {same}")
+        check(same, "the narrow crop is not the left slice of the full crop")
+        del full_c, narrow_c
+        with _env(YOMITOKU_TPU_REC_WIDTH_BUCKETS=str(WIDTH_BUCKET)):
+            check(rec._width_buckets() == [WIDTH_BUCKET], "the forced bucket")
+            ops.reset_launches()
+            routed = rec._call_device(short_page, short_q)
+            torch.cuda.synchronize()
+            paths["width_bucket"] = dict(ops.launches)
+        ids_n, probs_n = model.forward_tokens_from_page(page_s, mats_s[:128], wh_s[:128],
+                                                        out_w=WIDTH_BUCKET)
+        want, want_s = rec.tokenizer.decode_ids(ids_n, probs_n)
+        import unicodedata
+
+        want = [unicodedata.normalize("NFKC", p) for p in want]
+        check(routed[0][:128] == want and np.allclose(routed[1][:128], want_s, rtol=1e-6),
+              "the routed narrow lines differ from the model run at width 400")
+        log(f"page: {WIDTH_BUCKET}-wide bucket forced: 128 lines routed narrow and 8 full; "
+            f"the narrow lines' strings equal the model's at out_w={WIDTH_BUCKET} called "
+            f"directly; launches {paths['width_bucket']}")
+        # each width captures its own graph, and a replay equals an eager decode
+        m128s, w128s = mats_s[:128], wh_s[:128]
+        dec = {w: (lambda w=w: model.forward_tokens_from_page(page_s, m128s, w128s, out_w=w))
+               for w in (WIDTH_BUCKET, None)}
+        model._ar_loops.clear()
+        for w in (WIDTH_BUCKET, None):
+            dec[w]()  # captures
+        loops = {k: v for k, v in model._ar_loops.items() if k[0] == 128}
+        check(set(loops) == {(128, L // 2), (128, L)}
+              and all(v.graph is not None for v in loops.values())
+              and loops[(128, L // 2)].graph is not loops[(128, L)].graph,
+              f"batch 128 at 400 and 800 did not capture a graph each: {sorted(loops)}")
+        for w in (WIDTH_BUCKET, None):
+            replay = dec[w]()
+            eager = eager_decode(model, dec[w])
+            check(np.array_equal(replay[0], eager[0]),
+                  f"width {w or 800}: the replayed graph's ids differ from an eager decode")
+        log("page: batch 128 at 400 and 800 each captured its own AR graph; after a "
+            "replay both give ids equal to an eager decode")
+        s_narrow = host_timed(dec[WIDTH_BUCKET])
+        s_full = host_timed(dec[None])
+        log(f"page: decode of 128 lines from the page at width 400 {s_narrow * 1e3:.1f} ms, "
+            f"at 800 {s_full * 1e3:.1f} ms ({s_full / s_narrow:.2f}x); card {card}")
+        numbers["decode_ms"] = {"400": s_narrow * 1e3, "800": s_full * 1e3}
+    lp_cfg = lp._cfg
+    del ocr, la, rec, lp, tsr, model
+    torch.cuda.empty_cache()
+
+    # gate 5: kernels 1-4 and 8-9 at the narrow canvas against plain versions
+    for name, (ref, _, case) in _kernel_cases(np.random.default_rng(8), L // 2).items():
+        args = _on_card(case, torch.bfloat16, "out_in.t")
+        fn, kargs = _kernel_call(name, args, "out_in.t")
+        with torch.no_grad():
+            got = fn(*kargs, *case["tail"])
+            want = ref(*[a.float() for a in args], *case["tail"])
+        x = args[0] if name.endswith("_ln") else None
+        err, ok, text = _held(got, want, x, 2e-2, 0.0, 2.0 ** -8)
+        log(f"page: kernel {name} at the {WIDTH_BUCKET}-wide bucket "
+            f"{tuple(args[0].shape)} bf16: {text} {'ok' if ok else 'FAIL'}")
+        check(ok, f"{name} at the narrow canvas disagrees with its plain version")
+        numbers[f"narrow_{name}_max_abs_err"] = err
+        del args, kargs, got, want
+    for name, (case, tail) in _int8_cases(np.random.default_rng(9), L // 2).items():
+        kern, ref = getattr(ops, name), getattr(ops, name + "_reference")
+        with torch.no_grad():
+            f32 = _int8_args(case, torch.float32)
+            got32 = kern(*f32, *tail)
+            if name == "fused_attention_block_ln_int8":
+                err32, share, ok32, text32 = _held_int8_block(f32, tail, got32)
+            else:
+                err32, share, ok32, text32 = _held_int8(got32, ref(*f32, *tail))
+            del f32, got32
+            bf = _int8_args(case, torch.bfloat16)
+            want = ref(*[a.float() if a.dtype == torch.bfloat16 else a for a in bf], *tail)
+            err16, ok16, text16 = _held(kern(*bf, *tail), want, None, 2e-2, 0.0, 0.0)
+            del bf, want
+        log(f"page: kernel {name} at the {WIDTH_BUCKET}-wide bucket: f32 {text32}; "
+            f"bf16 {text16} {'ok' if ok32 and ok16 else 'FAIL'}")
+        check(ok32 and ok16, f"{name} at the narrow canvas disagrees with its plain version")
+        numbers[f"narrow_{name}_max_abs_err"] = err16
+        numbers[f"narrow_{name}_f32_rows_moved"] = share
+    torch.cuda.empty_cache()
+
+    # gate 4: f32 on the card against the CPU, on the page route
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec32 = TextRecognizer(device="cuda", dtype=torch.float32, from_pretrained=False)
+    cpu32 = TextRecognizer(device="cpu", from_pretrained=False)
+    # 10 printed lines and the six extra quads (skewed, perspective,
+    # vertical, resampled)
+    sel = list(range(10)) + list(range(len(quads), len(quads) + len(extra)))
+    m16, w16 = mats_all[sel], wh_all[sel]
+    ids_g, _ = rec32.model.forward_tokens_from_page(t[cuda], m16, w16)
+    x = dc.sample_lines(t[cpu], torch.from_numpy(m16), torch.from_numpy(w16))
+    want = cpu32.model.forward_logits(x * (1.0 / 127.5) - 1.0)
+    top2 = want.topk(2, dim=-1).values
+    tie = (top2[..., 0] - top2[..., 1]) < 1e-4
+    differ = torch.from_numpy(ids_g).long() != want.argmax(-1)
+    log(f"page: f32 recognizer card vs CPU from the page ({differ.shape[0]} lines): ids "
+        f"equal at {int((~differ).sum())}/{differ.numel()}, {int(tie.sum())} near-tie "
+        f"positions exempt")
+    check(not (differ & ~tie).any().item(), "f32 page-route ids differ outside near-ties")
+    del rec32, cpu32
+    det_hw = shortest_edge_size(*sample.shape[:2], 1280, 1600)
+    maps = []
+    for dev in ("cuda", "cpu"):
+        det = TextDetector(device=dev, dtype=torch.float32, from_pretrained=False)
+        maps.append(det.model.forward_binary_from_page(
+            torch.from_numpy(dc.pad_page(sample)).to(dev), sample.shape[:2], det_hw))
+        del det
+    dq = int(np.abs(maps[0].astype(int) - maps[1].astype(int)).max())
+    log(f"page: f32 DBNet u8 map card vs CPU from the page at {det_hw}: max|d| {dq} "
+        f"quantum (limit 1), {float((maps[0] != maps[1]).mean()):.2e} of pixels differ")
+    check(dq <= 1, "f32 DBNet page-route maps differ by more than one quantum")
+    mats_t, _ = dc.region_mats([(0, 0, table.shape[1], table.shape[0])], (640, 640))
+    _rtdetr_f32_vs_cpu(lp_cfg, (mats_t, (640, 640)), page=dc.pad_page(table))
+    return paths, numbers
+
+
 def fused_kernels_only(root):
     """``--fused-kernels [ROOT]``: kernels 10 and 11 at their eleven shapes
     (against their plain versions, then timed against the unfused cuDNN
@@ -2589,8 +3075,28 @@ def deform_kernels_only(root):
     return 0
 
 
+def page_only(root):
+    """``--page``: phase 8 (the device-page route) alone, on this checkout's
+    package, with the synthetic 136-line page of phase 3."""
+    from yomitoku_tpu_torch.ops import _build
+
+    if root != ROOT:
+        raise SmokeFailure("--page runs on this checkout only")
+    card = card_line()
+    log(f"card: {card}")
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    page, quads = synthetic_lines_page()
+    paths, numbers = phase_page(card, dict(page=page, quads=quads))
+    log(card)
+    print(json.dumps({"launches_by_path": paths, "page": numbers}), flush=True)
+    return 0
+
+
 #: the modes that run one part on the package at ROOT
-MODES = {"--fused-kernels": fused_kernels_only, "--deform-kernels": deform_kernels_only}
+MODES = {"--fused-kernels": fused_kernels_only, "--deform-kernels": deform_kernels_only,
+         "--page": page_only}
 
 
 def main():
@@ -2631,6 +3137,8 @@ def main():
         paths = {"ocr": ocr_launches, "layout": phase_layout(card)}
         paths["int8_recognizer"], int8_numbers = phase_int8_recognizer(card, ctx)
         paths["fused_backbone"], fused_numbers = phase_fused_backbone(card)
+        page_paths, page_numbers = phase_page(card, ctx)
+        paths.update(page_paths)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1
@@ -2638,6 +3146,7 @@ def main():
         f"{len(_ragged_windows)} (kernel: launches in 10 calls) {_ragged_windows[:3]}")
     (OUT / "int8_recognizer.json").write_text(json.dumps(int8_numbers, indent=1))
     (OUT / "fused_backbone.json").write_text(json.dumps(fused_numbers, indent=1))
+    (OUT / "page_route.json").write_text(json.dumps(page_numbers, indent=1))
     log(card)  # as nvidia-smi prints it: name, power limit
     for name, at in layout_kernels.items():
         shaped.setdefault(name, {}).update(at)

@@ -39,6 +39,59 @@ def test_main_path_shapes_take_wgmma(what, args, want):
     assert attention_route(*args, True, H100_SMS) == want, what
 
 
+#: the recognizer's 400-wide width bucket: the ViT at 200 tokens per line
+#: (bf16 out, and f32 out for the int8 sublayer) and the refine's 101
+#: queries over 200 memory keys (the route reads Lq; the kernel cuts the 200
+#: keys into three 80-key tiles, one split at most each)
+PAGE_ROUTE = [
+    (f"{what}_b{b}", (BF16, out, b, 8, lq, 96))
+    for b in (1, 8, 32, 128)
+    for what, out, lq in (("vit200", BF16, 200), ("vit200_int8", F32, 200),
+                          ("refine_lk200", BF16, 101))
+]
+
+
+def _takes_wgmma(args, sms):
+    """A wgmma route: "wgmma" unsplit where its 128-row blocks fill the
+    card, else "wgmma_small" with 1-4 key splits, whose 64-row blocks times
+    splits fill it."""
+    route, splits = attention_route(*args, True, sms)
+    _, _, B, H, Lq, _ = args
+    if route == "wgmma":
+        assert splits == 1 and math.ceil(Lq / 128) * H * B >= sms
+    else:
+        assert route == "wgmma_small" and 1 <= splits <= _common._MAX_SPLITS
+        assert math.ceil(Lq / 128) * H * B < sms
+        assert math.ceil(Lq / 64) * H * B * splits >= min(sms, 4 * math.ceil(Lq / 64) * H * B)
+
+
+@pytest.mark.parametrize("sms", [114, H100_SMS])
+@pytest.mark.parametrize("what,args", PAGE_ROUTE, ids=[c[0] for c in PAGE_ROUTE])
+def test_page_route_shapes_take_wgmma(what, args, sms):
+    _takes_wgmma(args, sms)
+
+
+@pytest.mark.parametrize("sms", [114, H100_SMS])
+@pytest.mark.parametrize("what,lq", [("aifi", 400), ("decoder", 300)])
+def test_table_batches_take_wgmma(what, lq, sms):
+    """RT-DETR's AIFI and decoder self-attention at every batch of 1 to 64
+    tables, as the table recognizer's page route runs them."""
+    for b in range(1, 65):
+        _takes_wgmma((BF16, BF16, b, 8, lq, 32), sms)
+
+
+@pytest.mark.parametrize("what,args,want", [
+    ("aifi_b2", (BF16, BF16, 2, 8, 400, 32), ("wgmma_small", 2)),
+    ("aifi_b8", (BF16, BF16, 8, 8, 400, 32), ("wgmma", 1)),
+    ("decoder_b64", (BF16, BF16, 64, 8, 300, 32), ("wgmma", 1)),
+    ("vit200_b1", (BF16, BF16, 1, 8, 200, 96), ("wgmma_small", 4)),
+    ("vit200_b128", (BF16, BF16, 128, 8, 200, 96), ("wgmma", 1)),
+    ("refine_lk200_b8", (BF16, BF16, 8, 8, 101, 96), ("wgmma_small", 2)),
+])
+def test_page_route_shape_routes(what, args, want):
+    assert attention_route(*args, True, H100_SMS) == want, what
+
+
 @pytest.mark.parametrize("args", [
     (F32, F32, 128, 8, 400, 96),     # f32: the parity checks' full products
     (F32, F32, 1, 8, 300, 32),

@@ -52,6 +52,15 @@ CONVS = [
                                  ("expand", cm, cout, 1, cin if proj else 0))
 ]
 
+#: PResNet's convolutions, which the table recognizer's page route runs at
+#: every batch of 1 to 64 tables
+TSR_CONVS = [
+    (f"{label}/{conv}", H, W, K, N, taps, K2)
+    for label, H, W, cin, cm, cout, proj in BLOCKS if label.startswith("presnet")
+    for conv, K, N, taps, K2 in (("reduce", cin, cm, 1, 0), ("conv3x3", cm, cm, 9, 0),
+                                 ("expand", cm, cout, 1, cin if proj else 0))
+]
+
 
 def test_the_path_has_eleven_block_shapes():
     assert len(BLOCKS) == 11 and len(CONVS) == 66
@@ -63,6 +72,10 @@ def test_path_convolutions_take_a_built_route(what, B, H, W, K, N, taps, K2, sms
     """Every convolution of the path, at batch 1 and 4, takes a TMA +
     wgmma route whose patch fits its unit, and splits only on the split
     route."""
+    _takes_a_built_route(B, H, W, K, N, taps, K2, sms)
+
+
+def _takes_a_built_route(B, H, W, K, N, taps, K2, sms):
     route, bw, bh, splits = _common.conv_plan(BF16, B, H, W, K, N, taps, K2, True, sms)
     assert route in WGMMA
     assert 1 <= bw * bh <= CONV_TILE_ROWS[route]
@@ -80,6 +93,20 @@ def test_small_grids_fill_the_card(what, B, H, W, K, N, taps, K2, sms):
     many 64-pixel units (times K splits) as fit in one wave: the split
     route fills the card as far as one wave, ``_MAX_CONV_SPLITS`` and the
     K steps allow, and never takes fewer units than 128-pixel ones would."""
+    _fills_the_card(B, H, W, K, N, taps, K2, sms)
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("what,H,W,K,N,taps,K2", TSR_CONVS, ids=[c[0] for c in TSR_CONVS])
+def test_table_batches_take_a_built_route(what, H, W, K, N, taps, K2, sms):
+    """PResNet's convolutions at every batch of 1 to 64 tables: a built
+    route that fills the card as above."""
+    for B in range(1, 65):
+        _takes_a_built_route(B, H, W, K, N, taps, K2, sms)
+        _fills_the_card(B, H, W, K, N, taps, K2, sms)
+
+
+def _fills_the_card(B, H, W, K, N, taps, K2, sms):
     M, steps = B * H * W, conv_k_steps(K, taps, K2)
     route, splits = conv_route(BF16, M, N, steps, True, sms)
     u128, u64 = conv_units("wgmma", M, N), conv_units("wgmma_small", M, N)
@@ -108,6 +135,21 @@ def test_small_grids_fill_the_card(what, B, H, W, K, N, taps, K2, sms):
 def test_route_by_shape(label, want):
     _, H, W, cin, cm, cout, proj = next(b for b in BLOCKS if b[0] == label)
     plans = block_plans(BF16, 1, H, W, cin, cm, cout, proj, True, 132)[0]
+    assert tuple((p[0], p[3]) for p in plans) == want
+
+
+#: PResNet's late stages at the table recognizer's batches on the H100
+#: SXM: 2 tables still split stage3's reduce and 3x3 and run stage2's on
+#: 64-pixel units; from 8 tables every convolution takes 128-pixel units
+@pytest.mark.parametrize("label,B,want", [
+    ("presnet_stage2", 2, (("wgmma_small", 1), ("wgmma_small", 1), ("wgmma", 1))),
+    ("presnet_stage3", 2, (("wgmma_split", 2), ("wgmma_split", 2), ("wgmma", 1))),
+    ("presnet_stage3", 8, (("wgmma", 1), ("wgmma", 1), ("wgmma", 1))),
+    ("presnet_stage3", 64, (("wgmma", 1), ("wgmma", 1), ("wgmma", 1))),
+])
+def test_route_by_shape_at_table_batches(label, B, want):
+    _, H, W, cin, cm, cout, proj = next(b for b in BLOCKS if b[0] == label)
+    plans = block_plans(BF16, B, H, W, cin, cm, cout, proj, True, 132)[0]
     assert tuple((p[0], p[3]) for p in plans) == want
 
 

@@ -101,6 +101,27 @@ def test_kernels_match_plain_versions(dtype, heads, layout):
 
 
 @pytest.mark.cuda
+def test_kernels_at_the_narrow_canvas_match_plain_versions():
+    """The four OCR kernels in bf16 at the 400-wide width bucket's shapes:
+    the ViT's sublayers at (128, 200, 768), 8 heads, hidden 3072, and the
+    refine's attention of 101 queries over the 200-token memory, against
+    their plain versions (2e-2 of the largest value)."""
+    _require_cuda()
+    cases = _cases(np.random.default_rng(6), torch.bfloat16, "out_in.t", B=128, L=200,
+                   Lq=101, D=768, H=8, Hd=3072)
+    for name, args in cases:
+        n0 = ops.launches[name]
+        fn, kargs = _kernel(name, args, "out_in.t")
+        got = fn(*kargs).float()
+        want = getattr(ops, f"{name}_reference")(
+            *[a.float() if isinstance(a, torch.Tensor) else a for a in args])
+        torch.cuda.synchronize()
+        assert ops.launches[name] == n0 + 1, name
+        limit = 2e-2 * want.abs().max().item()
+        assert (got - want).abs().max().item() <= limit, name
+
+
+@pytest.mark.cuda
 def test_small_recognizer_f32_matches_cpu(monkeypatch):
     """A small PARSeq (tests/yaml/rec_small.yaml) in f32 on the card and on
     the CPU from the same seed, two batches: equal greedy ids, probs within
@@ -153,6 +174,8 @@ DEFORM_CASES = [
     (2, 50, 4, 128, SMALL, (16, 12, 8), "contiguous"),
     (2, 50, 4, 24, SMALL, (16, 12, 8), "offset"),
     (1, 1, 2, 32, SMALL, (4, 4, 4), "contiguous"),
+    # the table recognizer's page-route batches (region buckets)
+    *[(b, 300, 8, 32, DETR, (4, 4, 4), "contiguous") for b in (2, 8, 16, 64)],
 ]
 
 
@@ -252,6 +275,19 @@ ATTENTION_CASES = [
     (2, 4, 37, 45, 24, "heads", "bfloat16", "bfloat16", "fma"),
     (2, 4, 37, 45, 48, "heads", "bfloat16", "bfloat16", "fma"),
     (2, 4, 37, 45, 32, "misaligned", "bfloat16", "bfloat16", "fma"),
+    # RT-DETR at the table recognizer's page-route batches (region buckets)
+    (2, 8, 400, 400, 32, "heads", "bfloat16", "bfloat16", "wgmma_small"),
+    (8, 8, 400, 400, 32, "heads", "bfloat16", "bfloat16", "wgmma"),
+    (16, 8, 300, 300, 32, "heads", "bfloat16", "bfloat16", "wgmma"),
+    (64, 8, 400, 400, 32, "heads", "bfloat16", "bfloat16", "wgmma"),
+    (64, 8, 300, 300, 32, "heads", "bfloat16", "bfloat16", "wgmma"),
+    # the recognizer's 400-wide width bucket: the ViT at 200 tokens and the
+    # refine's 101 queries over 200 keys (three 80-key tiles, ragged)
+    (128, 8, 200, 200, 96, "packed", "bfloat16", "bfloat16", "wgmma"),
+    (128, 8, 200, 200, 96, "packed", "bfloat16", "float32", "wgmma"),
+    (1, 8, 200, 200, 96, "packed", "bfloat16", "bfloat16", "wgmma_small"),
+    (128, 8, 101, 200, 96, "heads", "bfloat16", "bfloat16", "wgmma"),
+    (8, 8, 101, 200, 96, "heads", "bfloat16", "bfloat16", "wgmma_small"),
 ]
 
 
@@ -428,7 +464,8 @@ def _int8_weights(rng, shapes):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,D,Hd", [(300, 96, 384), (257, 64, 2048), (1024, 128, 512)])
+@pytest.mark.parametrize("N,D,Hd", [(300, 96, 384), (257, 64, 2048), (1024, 128, 512),
+                                    (25600, 768, 3072)])  # the 400-wide bucket, batch 128
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_int8_mlp_matches_plain_version(dtype, N, D, Hd):
     """fused_mlp_ln_int8 at ragged row counts; Hd=2048 quantizes the GELU
@@ -467,6 +504,54 @@ def test_int8_attention_block_matches_plain_version(dtype, B, L, D, H):
     torch.cuda.synchronize()
     assert ops.launches["fused_attention_block_ln_int8"] == n0 + 1
     _held_int8(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_attention_block_at_the_narrow_canvas(dtype):
+    """fused_attention_block_ln_int8 at the 400-wide width bucket's shape,
+    x (128, 200, 768), 8 heads.  bf16 within 2e-2 of the largest value.
+
+    f32: at this size the row-quantize kernel's codes of LayerNorm(x)
+    differ from the plain quantizer's in about one code in a million (by
+    one step, where the two f32 LayerNorms round to either side of a tie),
+    and such a code moves its token's q, k and v, so every row of its
+    sequence moves.  So: the kernel's codes are at most one step off the
+    plain version's and at most 1e-4 of them differ; the rows of the
+    sequences no flip reaches hold the 1%-of-rows rule; and on the
+    kernel's own codes the plain version of the rest of the block holds
+    it on every row."""
+    from yomitoku_tpu_torch.ops._common import layer_norm, quantize_rows
+    from yomitoku_tpu_torch.ops.mlp import quantize_rows_reference
+
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(23)
+    B, L, D, H = 128, 200, 768, 8
+    x = _dev(rng.standard_normal((B, L, D)), dt)
+    g, b = _dev(1 + 0.1 * rng.standard_normal(D)), _dev(0.1 * rng.standard_normal(D))
+    w = _int8_weights(rng, [(D, D)] * 4)
+    n0 = ops.launches["fused_attention_block_ln_int8"]
+    got = ops.fused_attention_block_ln_int8(x, g, b, *w, H)
+    want = ops.fused_attention_block_ln_int8_reference(x.float(), g, b, *w, H)
+    torch.cuda.synchronize()
+    assert ops.launches["fused_attention_block_ln_int8"] == n0 + 1
+    if dtype == "bfloat16":
+        _held_int8(got, want, dtype)
+        return
+    xq = torch.empty((B * L, D), dtype=torch.int8, device="cuda")
+    sx = torch.empty((B * L, 1), dtype=torch.float32, device="cuda")
+    quantize_rows(x.view(B * L, D), xq, sx, ln=(g, b, 1e-6))
+    hq, _ = quantize_rows_reference(layer_norm(x, g, b, 1e-6, torch.float32).view(B * L, D))
+    step = (xq.int() - hq.int()).abs()
+    assert step.max().item() <= 1 and (step > 0).float().mean().item() <= 1e-4
+    flipped = (step > 0).view(B, L * D).any(1)
+    top = want.abs().max().item()
+    d = (got - want).abs().reshape(B, L, D).amax(-1)
+    assert (d[~flipped] > 1e-4 * top + 1e-5).float().mean().item() <= 1e-2
+    assert d.max().item() <= 2e-2 * top
+    same = ops.fused_attention_block_ln_int8_reference(x, g, b, *w, H, ln_codes=(xq, sx))
+    _held_int8(got, same, dtype)
 
 
 @pytest.mark.cuda
@@ -653,8 +738,8 @@ def test_int8_kv_loop_matches_full_cache(monkeypatch):
             np.testing.assert_allclose(probs_a[r, :j0], probs_b[r, :j0], atol=2e-2)
             if diff.size:
                 assert dist[r, j0, ids_a[r, j0]] - dist[r, j0, ids_b[r, j0]] < 0.05
-    loop = q8._ar_loops[40]
-    assert list(q8._ar_loops) == [40] and loop.graph is not None
+    loop = q8._ar_loops[(40, 16)]  # a 32x32 canvas of 8x8 patches
+    assert list(q8._ar_loops) == [(40, 16)] and loop.graph is not None
     assert loop.mem[0].dtype == torch.int8
 
 
@@ -717,6 +802,11 @@ def _route_moves(before):
     (1, 2, 3, 64, 32, 64, 2, False),      # d = 2: the rows' taps wholly off the page
     (4, 40, 40, 1024, 256, 1024, 1, False),  # PResNet stage2 at the TSR's batch of 4
     (1, 160, 160, 256, 64, 256, 1, False),  # Cm = 64 on "wgmma": PResNet stage0
+    # PResNet's late stages at the table recognizer's page-route batches
+    (2, 20, 20, 2048, 512, 2048, 1, False),  # split route, 2 splits
+    (2, 40, 40, 1024, 256, 1024, 1, False),  # 64-pixel units
+    (8, 20, 20, 2048, 512, 2048, 1, False),  # 128-pixel units
+    (16, 40, 40, 1024, 256, 1024, 1, False),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bottleneck_kernel_matches_plain_version(dtype, B, H, W, Cin, Cm, Cout, d, proj):
@@ -923,3 +1013,73 @@ def test_small_dbnet_fused_f32_matches_cpu(monkeypatch):
     assert ops.launches["fused_bottleneck"] == 2
     assert ops.launches["fused_identity_stage"] == 4
     np.testing.assert_allclose(got, cpu.forward_binary(x), atol=1e-4)
+
+
+# ------------------------------------------------------------------ page crops
+
+
+def _crop_inputs():
+    """A printed page with 128 aligned lines (some of them vertical), two
+    skewed quads and a perspective one; the regions of the detector's and
+    layout parser's full-page resize and of four tables."""
+    import cv2
+
+    from yomitoku_tpu_torch.ops import device_crop as dc
+
+    rng = np.random.default_rng(3)
+    page = np.full((1800, 1200, 3), 255, np.uint8)
+    quads = []
+    for i in range(120):
+        y = 10 + 14 * i
+        x1 = int(rng.integers(200, 1000))
+        cv2.putText(page, "ABC 0123 xyz" * 3, (12, y + 11), cv2.FONT_HERSHEY_SIMPLEX, 0.4,
+                    (0, 0, 0), 1)
+        quads.append([[10, y], [x1, y], [x1, y + 12], [10, y + 12]])
+    quads += [[[1100, 40 + 200 * i], [1130, 40 + 200 * i], [1130, 220 + 200 * i],
+               [1100, 220 + 200 * i]] for i in range(8)]
+    skewed = [[[20, 60], [400, 80], [398, 110], [18, 90]],
+              [[500, 300], [900, 260], [903, 300], [503, 340]],
+              [[100, 500], [700, 520], [690, 580], [95, 555]]]
+    return dc.pad_page(page), quads, skewed
+
+
+@pytest.mark.cuda
+def test_crops_on_the_card_match_the_cpu():
+    """sample_lines and sample_regions_separable on the card against the
+    same functions on the CPU (0-255 scale: max|d| <= 0.1, mean <= 1e-3,
+    whatever the TF32 switches say); the narrow canvas equal to the left
+    slice of the full one."""
+    from yomitoku_tpu_torch.ops import device_crop as dc
+    from yomitoku_tpu_torch.ops import separable_resize as sr
+
+    _require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = True  # the crops must not use it
+    try:
+        page, quads, skewed = _crop_inputs()
+        mats, wh = dc.line_homographies(quads + skewed, (32, 800))
+        regions = [[(0, 0, 1200, 1800)], [(40, 120, 920, 560), (40, 600, 920, 1180),
+                                          (0, 0, 480, 640), (480, 640, 960, 1280)]]
+        cpu, card = torch.device("cpu"), torch.device("cuda")
+
+        def run(dev):
+            p = torch.from_numpy(page).to(dev)
+            out = {"gather": dc.sample_lines(p, torch.from_numpy(mats), torch.from_numpy(wh))}
+            for i, (rs, hw) in enumerate(zip(regions, ((1184, 800), (640, 640)))):
+                m, _ = dc.region_mats(rs, hw)
+                out[f"regions{i}"] = sr.sample_regions_separable(p, torch.from_numpy(m), hw,
+                                                                 flip_bgr=bool(i))
+            return out
+
+        want, got = run(cpu), run(card)
+        for k in want:
+            d = (got[k].cpu() - want[k]).abs()
+            assert d.max().item() <= 0.1 and d.mean().item() <= 1e-3, (k, d.max(), d.mean())
+        p = torch.from_numpy(page).to(card)
+        narrow = dc.sample_lines(p, torch.from_numpy(mats), torch.from_numpy(wh),
+                                 out_hw=(32, 400))
+        fits = torch.from_numpy(wh[:, 0] <= 400)
+        assert fits.sum() > 10
+        assert torch.equal(narrow[fits], got["gather"][fits][:, :, :400])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+

@@ -150,6 +150,27 @@ def test_wrapper_launches_through_launch(on_card, dtype):
         assert _common.deform_route_launches == {"vector": n, "scalar": 0}
 
 
+@pytest.mark.parametrize("batch", [1, 2, 8, 16, 64])
+def test_table_batches_take_the_vector_route(on_card, batch):
+    """RT-DETR's decoder at 640x640 (value (B, 8400, 8, 32), 300 queries,
+    4 points per level) at the table recognizer's page-route batches: the
+    vector route, B handed to the C entry, the level plan of the batch-1
+    layout reused (it does not depend on B)."""
+    lv = sum(h * w for h, w in chip_smoke.LEVELS)
+    value = torch.empty(batch, lv, 8, 32, dtype=BF16)  # never read here
+    loc = torch.zeros(batch, 300, 8, 12, 2, dtype=BF16)
+    att = torch.zeros(batch, 300, 8, 12, dtype=BF16)
+    out = ops.ms_deformable_attention(value, loc, att, chip_smoke.LEVELS, chip_smoke.POINTS)
+    assert out.shape == (batch, 300, 256)
+    _, _, args = on_card.calls[-1]
+    assert args[0] == DEFORM_ROUTES["vector"] and args[6:12] == (batch, lv, 8, 32, 300, 3)
+    plan = deformable_attention._check(value, loc, att, chip_smoke.LEVELS, chip_smoke.POINTS)
+    small = deformable_attention._check(value[:1], loc[:1], att[:1], chip_smoke.LEVELS,
+                                        chip_smoke.POINTS)
+    assert plan is small
+    assert _common.deform_route_launches == {"vector": 1, "scalar": 0}
+
+
 def test_offset_value_takes_the_scalar_route(on_card):
     """Value as a view one element off 16-byte alignment: the scalar route,
     on that view's own pointer (no copy)."""

@@ -29,6 +29,11 @@ INT8_PATH = [
     for b in (1, 8, 32, 128)
     for what, nc, n, gelu in (("qkv", 1, 3 * D, False), ("out", 1, D, False),
                               ("fc1", 1, HIDDEN, True), ("fc2", NC2, D, False))
+] + [  # the 400-wide width bucket: 200 tokens per line
+    (f"{what}_w400_b{b}", 200 * b, nc, n, gelu)
+    for b in (1, 8, 32, 128)
+    for what, nc, n, gelu in (("qkv", 1, 3 * D, False), ("out", 1, D, False),
+                              ("fc1", 1, HIDDEN, True), ("fc2", NC2, D, False))
 ]
 
 
@@ -42,6 +47,9 @@ INT8_PATH = [
     ("out_b1", 400, D, 1, False, "wgmma_m64"),       # 24
     ("fc1_b1", 400, HIDDEN, 1, True, "wgmma_m64"),
     ("fc2_b1", 400, D, NC2, False, "wgmma_m64"),
+    ("fc1_w400", 25600, HIDDEN, 1, True, "wgmma_coop"),
+    ("fc2_w400", 25600, D, NC2, False, "wgmma_coop"),
+    ("out_w400_b8", 1600, D, 1, False, "wgmma_m64"),  # 78 units of 128 x 128
 ])
 def test_route_by_shape(what, M, N, nc, gelu, want):
     assert gemm_int8_route(M, N, nc, gelu, True, 132) == want, what

@@ -32,10 +32,18 @@ MAIN_PATH = [
                              ("refine_fc1", 101, D, HIDDEN), ("refine_fc2", 101, HIDDEN, D))
     if not (what.endswith(("fc1", "fc2")) and rows * b < 1024)
 ] + [("block_qkv", 400, 256, 768), ("block_out", 400, 256, 256)]
+#: the recognizer's 400-wide width bucket: the ViT's GEMMs at 200 tokens
+#: per line, M = B x 200, at the batch buckets (fc1 / fc2 from 1,024 rows)
+NARROW = [
+    (f"{what}_w400_b{b}", 200 * b, k, n)
+    for b in (1, 8, 32, 128)
+    for what, k, n in (("qkv", D, 3 * D), ("out", D, D), ("fc1", D, HIDDEN), ("fc2", HIDDEN, D))
+    if not (what.startswith("fc") and 200 * b < 1024)
+]
 
 
 @pytest.mark.parametrize("sms", SMS)
-@pytest.mark.parametrize("what,M,K,N", MAIN_PATH, ids=[c[0] for c in MAIN_PATH])
+@pytest.mark.parametrize("what,M,K,N", MAIN_PATH + NARROW, ids=[c[0] for c in MAIN_PATH + NARROW])
 def test_main_path_shapes_take_wgmma(what, M, K, N, sms):
     """Both weight layouts pass the same legality test, so the route does
     not depend on the layout: every main-path shape takes a wgmma route."""
@@ -52,6 +60,9 @@ def test_main_path_shapes_take_wgmma(what, M, K, N, sms):
     ("vit_out_b8", 3200, D, "wgmma"),         # 150 units of 128 x 128
     ("vit_qkv_b1", 400, 3 * D, "wgmma_small"),  # 72 of them
     ("block_out", 400, 256, "wgmma_small"),
+    ("vit_qkv_w400", 25600, 3 * D, "wgmma"),
+    ("vit_out_w400_b8", 1600, D, "wgmma_small"),  # 78 units of 128 x 128
+    ("vit_qkv_w400_b1", 200, 3 * D, "wgmma_small"),
 ])
 def test_route_by_shape(what, M, N, want):
     assert gemm_route(BF16, M, N, True, 132) == want, what

@@ -302,12 +302,12 @@ def test_int8_kv_cache_changes_the_decode_state(monkeypatch):
     head) scales; with it off, the f32 K/V."""
     _, port = _pair(monkeypatch, True)
     port.forward_tokens(_images(6))
-    mem = port._ar_loops[4].mem
+    mem = port._ar_loops[(4, 24)].mem
     assert [t.dtype for t in mem] == [torch.int8, torch.float32] * 2
     assert mem[1].shape == (4, 4, 1, 1)
     port.int8_kv = False
     port.forward_tokens(_images(6))
-    assert [t.dtype for t in port._ar_loops[4].mem] == [torch.float32] * 2
+    assert [t.dtype for t in port._ar_loops[(4, 24)].mem] == [torch.float32] * 2
 
 
 def test_int8_kv_default_policy(monkeypatch):

@@ -156,12 +156,6 @@ def test_visualization_matches_jax(analyzers):
     assert np.mean(got != want) < 0.01  # only where a box moved by a pixel
 
 
-def test_page_route_is_not_ported(analyzers):
-    _, port, page = analyzers
-    with pytest.raises(NotImplementedError, match="page"):
-        port(page, page=object())
-
-
 def _boxes(rng, n):
     """Random boxes, some inside others and some equal to others."""
     x1, y1 = rng.randint(0, 200, n), rng.randint(0, 200, n)

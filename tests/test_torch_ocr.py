@@ -293,15 +293,6 @@ def test_one_device_accepted():
     assert det.visualize is False
 
 
-def test_page_route_raises(pipelines):
-    _, port = pipelines
-    page = synthetic_page()
-    with pytest.raises(NotImplementedError, match="page="):
-        port.detector(page, page=object())
-    with pytest.raises(NotImplementedError, match="page="):
-        port.recognizer(page, QUADS, page=object())
-
-
 def test_ocr_configs_override_device():
     """Each module's configs entry merges over OCR's own arguments, so a
     ``device`` there wins (the JAX OCR's merge) instead of raising on a

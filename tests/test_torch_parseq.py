@@ -60,9 +60,9 @@ def test_parseq_matches_jax(monkeypatch, refine_iters, decode_ar):
 
 @pytest.mark.parametrize("refine_iters", [0, 1])
 def test_parseq_ar_state_reused_across_batches(monkeypatch, refine_iters):
-    """The AR loop keeps its buffers per batch size and resets them in
-    place: a batch after another of the same size decodes as on a fresh
-    model, and a second batch size gets its own state."""
+    """The AR loop keeps its buffers per (batch size, memory length) and
+    resets them in place: a batch after another of the same size decodes
+    as on a fresh model, and a second batch size gets its own state."""
     jm, port = _pair(monkeypatch, refine_iters=refine_iters)
     for seed, n in ((11, 4), (12, 4), (13, 2), (11, 4)):
         x = _images(seed, n)
@@ -70,7 +70,7 @@ def test_parseq_ar_state_reused_across_batches(monkeypatch, refine_iters):
         got = port.forward_probs(torch.from_numpy(x)).numpy()
         np.testing.assert_allclose(got, want, atol=2e-4)
         np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
-    assert sorted(port._ar_loops) == [2, 4]
+    assert sorted(port._ar_loops) == [(2, 24), (4, 24)]  # 4 x 6 patches
 
 
 def test_parseq_uncached_decoder_and_uint8_input(monkeypatch):

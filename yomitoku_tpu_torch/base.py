@@ -136,11 +136,3 @@ def check_num_devices(num_devices):
             f"num_devices={num_devices}: page data parallelism is not ported "
             "yet; the port runs on one device")
 
-
-def check_no_page(page):
-    """The device-page route (a page uploaded once and cropped on the
-    device) is not ported: ``page`` must be None."""
-    if page is not None:
-        raise NotImplementedError(
-            "the device-page route (page=) is not ported yet; pass the "
-            "image alone")

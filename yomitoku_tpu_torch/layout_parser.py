@@ -3,19 +3,20 @@ yomitoku_tpu/layout_parser.py): the page resized to 640x640 RGB on the
 host and uploaded as uint8, the detector and its top-k on the device, one
 readback, then the host filters: containment within a category keeps the
 larger box, paragraphs inside tables go, and the roles (section headings,
-page header and footer) fold into paragraphs.
+page header and footer) fold into paragraphs.  Given ``page=`` (a shared
+ops.device_crop.DevicePage), the resize runs on the device instead.
 
 The JAX module imports JAX at module level, so its host helpers are
-repeated here.  Not ported yet: the device-page route (``page=``), which
-raises NotImplementedError.
+repeated here.
 """
 
 import cv2
 import numpy as np
 
-from .base import BaseModelCatalog, BaseModule, check_no_page
+from .base import BaseModelCatalog, BaseModule
 from .configs import LayoutParserRTDETRv2Config, LayoutParserRTDETRv2V2Config
 from .models.rtdetr import RTDETRv2
+from .ops.device_crop import page_on, staged_page_mat
 from .postprocessor.rtdetr_postprocessor import RTDETRPostProcessor
 from .schemas import LayoutParserSchema
 from .utils.misc import containment_matrix, filter_by_flag
@@ -130,10 +131,17 @@ class LayoutParser(BaseModule):
             category_elements, "tables", "paragraphs")
 
     def __call__(self, img, page=None):
-        """Detect the layout of a BGR image -> (LayoutParserSchema, vis)."""
-        check_no_page(page)
+        """Detect the layout of a BGR image -> (LayoutParserSchema, vis).
+        With ``page`` (a DevicePage of ``img``) the resize runs on the
+        device."""
         ori_h, ori_w = img.shape[:2]
-        preds = self.model(self.preprocess(img))
+        if page is not None:
+            img_size = tuple(self._cfg.data.img_size)
+            preds = self.model.forward_from_page(
+                page_on(page, self.device),
+                staged_page_mat((ori_h, ori_w), img_size, self.device), img_size)
+        else:
+            preds = self.model(self.preprocess(img))
         results = self.postprocess(preds, (ori_h, ori_w))
         vis = None
         if self.visualize:

@@ -147,20 +147,42 @@ class DBNet(TorchModel):
         return self.decoder(self.backbone(x))[:, 0]
 
     def standardize_u8(self, images_u8):
-        """(B, H, W, 3) uint8 resized page -> the standardized float32 input
-        of ``forward``, computed on the device.  The BGR input meets
-        RGB-ordered ImageNet statistics, because the reference flips the
-        channels twice (text_detector.py:69-94)."""
+        """(B, H, W, 3) uint8 resized page, or its float resample in
+        [0, 255] -> the standardized float32 input of ``forward``, computed
+        on the device.  The BGR input meets RGB-ordered ImageNet
+        statistics, because the reference flips the channels twice
+        (text_detector.py:69-94)."""
         mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32) * 255.0
         inv = 1.0 / (torch.tensor(IMAGENET_STD, dtype=torch.float32) * 255.0)
         return (images_u8.to(self.device).float() - mean.to(self.device)) * inv.to(self.device)
 
+    @staticmethod
+    def _wire(prob):
+        """prob -> uint8 wire map (prob * 255, rounded half to even)."""
+        return torch.clamp(torch.round(prob * 255.0), 0, 255).to(torch.uint8)
+
     @torch.no_grad()
     def forward_u8(self, images_u8):
-        """(B, H, W, 3) uint8 resized page -> (B, H, W) uint8 wire map
-        (prob * 255, rounded half to even)."""
-        prob = self.forward(self.standardize_u8(images_u8))
-        return torch.clamp(torch.round(prob * 255.0), 0, 255).to(torch.uint8)
+        """(B, H, W, 3) uint8 resized page -> (B, H, W) uint8 wire map."""
+        return self._wire(self.forward(self.standardize_u8(images_u8)))
+
+    @torch.no_grad()
+    def forward_from_page(self, page, src_hw, out_hw):
+        """The page route: the padded uint8 page (H, W, 3) on this model's
+        device, of which the top-left ``src_hw`` is the image, resized to
+        ``out_hw`` on the device (separable, 2x2 supersampled, ~ cv2
+        INTER_AREA), standardized as float (the resample is not rounded
+        to uint8), DBNet -> (1, oh, ow) uint8 wire map on the device."""
+        from ..ops.device_crop import staged_page_mat
+        from ..ops.separable_resize import sample_regions_separable
+
+        mat = staged_page_mat(src_hw, out_hw, page.device)
+        x = sample_regions_separable(page, mat, tuple(out_hw), flip_bgr=False)
+        return self._wire(self.forward(self.standardize_u8(x)))
+
+    def forward_binary_from_page(self, page, src_hw, out_hw) -> np.ndarray:
+        """Host entry of ``forward_from_page`` -> (1, oh, ow) uint8 map."""
+        return self.forward_from_page(page, src_hw, out_hw).cpu().numpy()
 
     def forward_binary_u8(self, images_u8: np.ndarray) -> np.ndarray:
         """Host entry: (B, H, W, 3) uint8 ndarray -> (B, H, W) uint8 map."""

@@ -86,14 +86,16 @@ class TokenEmbedding(nn.Module):
 
 
 class _CachedARLoop:
-    """The depth-1 AR loop for one batch size: fixed-shape buffers (token
+    """The depth-1 AR loop for one batch size and memory length (the
+    recognizer's width buckets give one canvas, and so one memory length,
+    per bucket): fixed-shape buffers (token
     ids, content K/V caches, the memory K/V, the step counter and a
     ``done`` flag) and one step over them.  The memory K/V is f32, or with
     ``int8_kv`` int8 codes and per-(batch, head) f32 scales.
 
     A step reads its position from the device counter and gates every write
     on ``done``, so it needs no host value: on CUDA it is captured once as
-    a CUDA graph, on the first batch of this size, and replayed for every
+    a CUDA graph, on the first batch of this shape, and replayed for every
     step of every later batch (the loop is otherwise bound by launching
     ~120 small ops per step from Python).  Each batch resets the buffers in
     place, so the graph's addresses stay valid; the graph also reads the
@@ -240,7 +242,8 @@ class PARSeq(TorchModel):
         self.text_embed = TokenEmbedding(cfg.num_tokens, D)
         # +1 for <eos>
         self.pos_queries = nn.Parameter(torch.zeros(1, cfg.max_label_length + 1, D))
-        #: batch size -> _CachedARLoop (its buffers and its CUDA graph)
+        #: (batch size, memory length) -> _CachedARLoop (its buffers and its
+        #: CUDA graph); a narrower canvas gives a shorter memory
         self._ar_loops = {}
         self.int8_kv = _int8_kv_default(self.device)
         if self.int8_kv:
@@ -278,11 +281,12 @@ class PARSeq(TorchModel):
     def _ar_cached(self, memory, B, L, causal):
         """Depth-1 AR loop with K/V caches -> tgt_in and (if no refine
         follows) the per-step logits, on the loop state kept for batch size
-        ``B`` (see ``_CachedARLoop``)."""
-        loop = self._ar_loops.get(B)
+        ``B`` and this memory's length (see ``_CachedARLoop``)."""
+        key = (B, memory.shape[1])
+        loop = self._ar_loops.get(key)
         if loop is None or loop.int8_kv != self.int8_kv:
-            loop = self._ar_loops[B] = _CachedARLoop(self, B, L, causal,
-                                                     self.int8_kv)
+            loop = self._ar_loops[key] = _CachedARLoop(self, B, L, causal,
+                                                       self.int8_kv)
         return loop(memory)
 
     def _ar_uncached(self, memory, B, L, causal):
@@ -381,6 +385,38 @@ class PARSeq(TorchModel):
             ids, probs = self.forward_tokens_device(
                 torch.from_numpy(np.ascontiguousarray(images))
             )
+        with segment(self.trace_stage, "sync"):
+            return ids.cpu().numpy(), probs.cpu().numpy()
+
+    @torch.no_grad()
+    def forward_tokens_from_page_device(self, page, mats, valid_wh, out_w=None):
+        """Crop the lines out of the uint8 page on the device, normalise
+        (x / 127.5 - 1) and decode -> ids (B, L) int32 and probs (B, L)
+        float32 on the device.  ``page`` is a padded (H, W, 3) uint8 tensor
+        on this model's device (ops.device_crop.DevicePage); ``mats``
+        (B, 3, 3) canvas->page maps and ``valid_wh`` (B, 2) [new_w, new_h]
+        come from ops.device_crop.line_homographies; every line crops
+        through the projective gather.  ``out_w`` narrows the canvas (a
+        width bucket): the crop of a line that fits is the left slice of
+        its full-width crop, and the ViT takes the left columns of its
+        position embedding."""
+        from ..ops.device_crop import sample_lines
+
+        out_hw = (self.img_size[0], int(out_w or self.img_size[1]))
+        crops = sample_lines(
+            page,
+            torch.from_numpy(np.asarray(mats, np.float32)).to(page.device),
+            torch.from_numpy(np.asarray(valid_wh, np.int32)).to(page.device),
+            out_hw=out_hw,
+        )
+        return self.forward_tokens_device(crops * (1.0 / 127.5) - 1.0)
+
+    def forward_tokens_from_page(self, page, mats, valid_wh, out_w=None):
+        """Host entry of ``forward_tokens_from_page_device`` -> (ids, probs)
+        ndarrays; only the maps go up and the greedy result comes back."""
+        with segment(self.trace_stage, "dispatch"):
+            ids, probs = self.forward_tokens_from_page_device(
+                page, mats, valid_wh, out_w)
         with segment(self.trace_stage, "sync"):
             return ids.cpu().numpy(), probs.cpu().numpy()
 

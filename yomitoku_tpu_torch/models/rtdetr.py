@@ -58,3 +58,16 @@ class RTDETRv2(TorchModel):
             x = x.to(self.dtype) * (1.0 / 255.0)
         x = x.to(self.dtype).permute(0, 3, 1, 2)
         return self.decoder(self.encoder(self.backbone(x)))
+
+    @torch.no_grad()
+    def forward_from_page(self, page, mats, out_hw):
+        """The page route: crop and resize the regions of (B, 3, 3)
+        canvas->page maps ``mats`` out of the padded uint8 BGR page on this
+        model's device (separable, 2x2 supersampled, ~ crop + cv2
+        INTER_AREA; RGB), scale to [0, 1] in the compute dtype and run the
+        detector -> the outputs of ``forward``, on the device."""
+        from ..ops.separable_resize import sample_regions_separable
+
+        mats = torch.as_tensor(mats, dtype=torch.float32, device=page.device)
+        x = sample_regions_separable(page, mats, tuple(out_hw), flip_bgr=True)
+        return self.forward(x.to(self.dtype) * (1.0 / 255.0))

@@ -1,6 +1,10 @@
 """OCR pipeline: text detection -> line recognition -> word aggregation
-(counterpart of yomitoku_tpu/ocr.py)."""
+(counterpart of yomitoku_tpu/ocr.py).  Where device crops are on for the
+detector's device (CUDA, by default) the page is uploaded once, as one
+DevicePage that both modules crop on the device; a recognizer on another
+device is not handed it, and uploads its own where its crops are on."""
 
+from .ops.device_crop import DevicePage, device_crops_enabled, lies_on
 from .schemas import OCRSchema
 from .text_detector import TextDetector
 from .text_recognizer import TextRecognizer
@@ -41,6 +45,10 @@ class OCR:
 
     def __call__(self, img):
         """Run OCR on a BGR image -> (OCRSchema, vis)."""
-        det_outputs, vis = self.detector(img)
-        rec_outputs, vis = self.recognizer(img, det_outputs.points, vis=vis)
+        device = self.detector.device
+        page = DevicePage(img, device) if device_crops_enabled(device) else None
+        det_outputs, vis = self.detector(img, page=page)
+        if page is not None and not lies_on(page, self.recognizer.device):
+            page = None
+        rec_outputs, vis = self.recognizer(img, det_outputs.points, vis=vis, page=page)
         return OCRSchema(words=ocr_aggregate(det_outputs, rec_outputs)), vis

@@ -252,13 +252,19 @@ def fused_attention_block_ln_packed(
 
 def fused_attention_block_ln_int8_reference(
     x, ln_scale, ln_bias, wq, sq, bq, wk, sk, bk, wv, sv, bv, wo, so, bo,
-    num_heads, scale=None, eps=1e-6,
+    num_heads, scale=None, eps=1e-6, ln_codes=None,
 ):
-    """Plain PyTorch version of ``fused_attention_block_ln_int8``."""
+    """Plain PyTorch version of ``fused_attention_block_ln_int8``.
+    ``ln_codes``: (codes (B*L, D) int8, scales (B*L, 1) f32) of LayerNorm(x)
+    to project instead of quantizing it here, such as the row-quantize
+    kernel's own, to hold the rest of the block on the same codes."""
     B, L, D = x.shape
     dt = x.dtype
-    h = layer_norm(x, ln_scale, ln_bias, eps, torch.float32).reshape(B * L, D)
-    hq, sh = quantize_rows_reference(h)
+    if ln_codes is None:
+        h = layer_norm(x, ln_scale, ln_bias, eps, torch.float32).reshape(B * L, D)
+        hq, sh = quantize_rows_reference(h)
+    else:
+        hq, sh = ln_codes
 
     def proj(w, s, b):
         return dequantize(int_matmul(hq, w), sh, s, b).to(dt).reshape(B, L, D)

@@ -3,23 +3,31 @@ span} (counterpart of yomitoku_tpu/table_structure_recognizer.py): every
 table box of the page cropped and resized to 640x640 on the host, one
 batched forward over all of them, one readback of every table's top-k;
 then cells are the row x col intersections, cells under a span box merge
-into one, and boxes go back to page coordinates.
+into one, and boxes go back to page coordinates.  Given ``page=`` (a
+shared ops.device_crop.DevicePage), the crops run on the device, in
+chunks of at most 64 tables and with no padding: the model runs eagerly,
+so the JAX package's batch buckets (which reuse compiled programs) would
+only add work.
 
 The JAX module imports JAX at module level, so its host helpers are
-repeated here.  Not ported yet: the device-page route (``page=``), which
-raises NotImplementedError.
+repeated here.
 """
 
 import cv2
 import numpy as np
 
-from .base import BaseModelCatalog, BaseModule, check_no_page
+from .base import BaseModelCatalog, BaseModule
 from .configs import TableStructureRecognizerRTDETRv2Config
 from .layout_parser import filter_contained_rectangles_within_category
 from .models.rtdetr import RTDETRv2
+from .ops.device_crop import page_on, region_mats
 from .postprocessor.rtdetr_postprocessor import RTDETRPostProcessor
 from .schemas import TableStructureRecognizerSchema
 from .utils.misc import calc_intersection, filter_by_flag, is_contained
+
+
+#: the most tables the page route crops and runs in one batch
+REGION_CHUNK = 64
 
 
 class TableStructureRecognizerModelCatalog(BaseModelCatalog):
@@ -111,6 +119,35 @@ class TableStructureRecognizer(BaseModule):
             })
         return table_imgs
 
+    def _preprocess_meta(self, img, boxes):
+        """The page route's preprocess: sizes and offsets only, the boxes
+        clamped to the page as the host route's array slicing clamps them."""
+        h, w = img.shape[:2]
+        out = []
+        for box in boxes:
+            x1, y1, x2, y2 = map(int, box)
+            x1, y1 = max(0, x1), max(0, y1)
+            x2, y2 = min(w, x2), min(h, y2)
+            out.append({"size": (y2 - y1, x2 - x1), "offset": (x1, y1)})
+        return out
+
+    def _filtered_from_page(self, page, data):
+        """The page route's forward: the tables' regions cropped on the
+        device, at most REGION_CHUNK at a time, and each chunk's filtered
+        top-k."""
+        out_hw = tuple(self._cfg.data.img_size)
+        page_dev = page_on(page, self.device)
+        filtered = []
+        for s in range(0, len(data), REGION_CHUNK):
+            chunk = data[s:s + REGION_CHUNK]
+            mats, _ = region_mats([(d["offset"][0], d["offset"][1],
+                                    d["offset"][0] + d["size"][1],
+                                    d["offset"][1] + d["size"][0]) for d in chunk], out_hw)
+            preds = self.model.forward_from_page(page_dev, mats, out_hw)
+            sizes = [[d["size"][1], d["size"][0]] for d in chunk]
+            filtered.extend(self.postprocessor(preds, sizes, self.thresh_score))
+        return filtered
+
     def postprocess(self, preds, data):
         """``preds``: one table's filtered {labels, boxes, scores}."""
         category_elements = {c: [] for c in self.label_mapper.values()}
@@ -153,15 +190,21 @@ class TableStructureRecognizer(BaseModule):
 
     def __call__(self, img, table_boxes, vis=None, page=None):
         """Recognise the tables at ``table_boxes`` of a BGR image ->
-        (list of TableStructureRecognizerSchema, vis)."""
-        check_no_page(page)
-        data = self.preprocess(img, table_boxes)
+        (list of TableStructureRecognizerSchema, vis).  With ``page`` (a
+        DevicePage of ``img``) the crops run on the device."""
+        if page is not None:
+            data = self._preprocess_meta(img, table_boxes)
+        else:
+            data = self.preprocess(img, table_boxes)
         outputs = []
         if data:
             # one batched forward over all tables, one readback for all
-            preds = self.model(np.stack([d["array"] for d in data]))
-            sizes = [[d["size"][1], d["size"][0]] for d in data]
-            filtered = self.postprocessor(preds, sizes, self.thresh_score)
+            if page is not None:
+                filtered = self._filtered_from_page(page, data)
+            else:
+                preds = self.model(np.stack([d["array"] for d in data]))
+                sizes = [[d["size"][1], d["size"][0]] for d in data]
+                filtered = self.postprocessor(preds, sizes, self.thresh_score)
             outputs = self.tables_from_filtered(data, filtered)
         if vis is None and self.visualize:
             vis = img.copy()

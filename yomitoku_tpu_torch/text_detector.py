@@ -3,20 +3,22 @@ yomitoku_tpu/text_detector.py): resize the uint8 page on the host
 (shortest edge 1280, limit 1600, /32-snapped), standardise and run DBNet
 on the device, bring back the uint8 probability map, and extract quads
 with the port's copy of the JAX package's postprocessor (native C++
-contours and unclip, csrc/dbnet_post.cpp).  The constructor takes the
-JAX package's arguments; ``num_devices`` beyond 1 raises until the port
-has page data parallelism, and ``page=`` raises until it has device
-crops."""
+contours and unclip, csrc/dbnet_post.cpp).  Given ``page=`` (a shared
+ops.device_crop.DevicePage), the resize and the standardisation run on
+the device from the page uploaded once.  The constructor takes the JAX
+package's arguments; ``num_devices`` beyond 1 raises until the port has
+page data parallelism."""
 
-from .base import BaseModelCatalog, BaseModule, check_no_page, check_num_devices
+from .base import BaseModelCatalog, BaseModule, check_num_devices
 from .configs import (
     TextDetectorDBNetConfig,
     TextDetectorDBNetV2_1Config,
     TextDetectorDBNetV2_1LiteConfig,
     TextDetectorDBNetV2Config,
 )
-from .data.functions import resize_shortest_edge
+from .data.functions import resize_shortest_edge, shortest_edge_size
 from .models.dbnet import DBNet
+from .ops.device_crop import page_on
 from .postprocessor.dbnet_postprocessor import DBnetPostProcessor
 from .schemas import TextDetectorSchema
 from .utils.stagetrace import segment
@@ -64,10 +66,17 @@ class TextDetector(BaseModule):
         return self.post_processor(preds, image_size)
 
     def __call__(self, img, page=None):
-        """Detect text quads in a BGR image -> (TextDetectorSchema, vis)."""
-        check_no_page(page)
+        """Detect text quads in a BGR image -> (TextDetectorSchema, vis).
+        With ``page`` (a DevicePage of ``img``) the resize and the
+        standardisation run on the device."""
         ori_h, ori_w = img.shape[:2]
-        binary = self.model.forward_binary_u8(self.preprocess_u8(img))
+        if page is not None:
+            out_hw = shortest_edge_size(
+                ori_h, ori_w, self._cfg.data.shortest_size, self._cfg.data.limit_size)
+            binary = self.model.forward_binary_from_page(
+                page_on(page, self.device), page.hw, out_hw)
+        else:
+            binary = self.model.forward_binary_u8(self.preprocess_u8(img))
         with segment("det", "contours"):
             quads, scores = self.postprocess({"binary": binary}, (ori_h, ori_w))
         results = TextDetectorSchema(points=quads, scores=scores)
