@@ -5,9 +5,11 @@
     python3 chip_smoke.py --fused-kernels [ROOT]
     python3 chip_smoke.py --deform-kernels [ROOT]
     python3 chip_smoke.py --page
+    python3 chip_smoke.py --document
 
 With no arguments it runs the phases below, each printed as it runs; any
-failure exits non-zero.  ``--page`` runs phase 8 alone.  ``--fused-kernels [ROOT]`` runs only phase 7's
+failure exits non-zero.  ``--page`` runs phase 8 alone, ``--document``
+phase 9.  ``--fused-kernels [ROOT]`` runs only phase 7's
 bottleneck kernels at their eleven shapes and the fused DBNet forward's
 device busy, and ``--deform-kernels [ROOT]`` only phase 2's
 ms_deformable_attention lines at its three shapes, on the package of this checkout or of another
@@ -179,6 +181,30 @@ each ends with a JSON line of its times.
    the kernel's own codes); and the f32 recognizer,
    DBNet (u8 map within one quantum) and RT-DETRv2 from the page on the
    card against the CPU.
+9. The DocumentAnalyzer path, the CUDA defaults (the page route, the int8
+   memory-K/V cache): ``DocumentAnalyzer(device="cuda")`` with the four
+   default models on seed-0 weights, the layout parser's and the table
+   recognizer's score heads spread and balanced (utils.synthetic_heads)
+   and thinned to a few tables, figures and paragraphs a page, the
+   detector's map painted with the page's lines after its real forward
+   (seed-0 DBNet finds one or two words a page).  Path ``document_page``:
+   demo/sample_table.png, demo/sample_text.png and the synthetic page,
+   counted (kernels 1-5 each launched), each schema validated, inside its
+   page and exported (JSON read back as the schema; Markdown, CSV, HTML
+   where lxml imports); sample_table.png's schema equal to the detector,
+   layout analyzer, recognizer, ocr_aggregate and aggregate called one at
+   a time on one DevicePage; path ``document_batch``: ``batch`` of those
+   pages and five cut from them at max_in_flight 4 on a freshly built
+   analyzer (its AR graphs captured while other pages run), twice, each
+   page equal to its own ``__call__`` on a second analyzer with the same
+   weights, with the AR loop's lock held and waited seconds; the analyzer
+   in f32 on the card against the CPU on the top 400 rows of
+   sample_table.png (equal counts, boxes within 1 px, strings equal where
+   the CPU's top-2 gaps are at least 1e-4); then ms/page on both routes,
+   batch pages/s at max_in_flight 1 and 4, one page's device busy and idle
+   share, and the detector and layout analyzer on the analyzer's two
+   threads against new ones and against each alone (the detector also on
+   a new thread, with cuDNN on and off).
 
 Phase 3 pins YOMITOKU_TPU_INT8_KV=0 (the full cache, which its f32
 card-vs-CPU check compares with the CPU's), phase 6 leaves it at its
@@ -191,7 +217,7 @@ TOP/s int8, and the time of one PyTorch call computing the same function
 where there is one), and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Long outputs (the nvcc log, the OCR and layout schemas, the layout
-profile) go to build/chip_smoke/.
+profile, the document exports and numbers) go to build/chip_smoke/.
 """
 
 import contextlib
@@ -3020,6 +3046,513 @@ def _phase_page(card, ctx):
     return paths, numbers
 
 
+# ------------------------------------------------------------------ phase 9
+
+
+#: the kernels the DocumentAnalyzer path runs by default
+DOCUMENT_KERNELS = OCR_KERNELS + ("ms_deformable_attention",)
+#: max_in_flight of the batch path
+IN_FLIGHT = 4
+
+
+#: the share of the calibration queries each class keeps above its
+#: threshold (thin_final_score_head): a few tables, figures and paragraphs
+#: per page, and tables of about 9 rows and 9 columns
+LAYOUT_KEEP, TSR_KEEP = 0.02, 0.03
+
+
+def thin_final_score_head(module, call, keep):
+    """Lower each class's bias of the score head the forward reads so that
+    a share ``keep`` of its logits in ``call()`` (a call of the module, on
+    the route the analyzer takes) clears the module's threshold: balanced
+    heads pass about half of every class's queries, tens of tables of
+    thousands of cells a page, where a page holds a few."""
+    import torch
+
+    model = module.model
+    seen = []
+    hook = model.decoder.register_forward_hook(
+        lambda m, i, out: seen.append(out["pred_logits"].float().flatten(0, 1)))
+    try:
+        call()
+    finally:
+        hook.remove()
+    check(seen, f"{type(module).__name__}: the call ran no forward to calibrate on")
+    cut = torch.quantile(torch.cat(seen), 1 - keep, dim=0)
+    head = model.decoder.dec_score_head[model.decoder.eval_idx]
+    margin = math.log(module.thresh_score / (1 - module.thresh_score))
+    with torch.no_grad():
+        head.bias.sub_((cut - margin).to(head.bias.dtype))
+
+
+def findable(da, table):
+    """Spread and balance the layout parser's and the table recognizer's
+    score heads (utils.synthetic_heads), calibrated on sample_table.png and
+    on its fixed table boxes, then thin them on the page route's call on
+    that page, so that seed-0 weights find a few tables with cells,
+    paragraphs and figures on a page."""
+    import numpy as np
+
+    from yomitoku_tpu_torch.ops.device_crop import DevicePage
+    from yomitoku_tpu_torch.utils.synthetic_heads import (
+        balance_final_score_head,
+        spread_score_heads,
+    )
+
+    lp, tsr = da.layout.layout_parser, da.layout.table_structure_recognizer
+    balance_final_score_head(spread_score_heads(lp.model), lp.preprocess(table))
+    crops = np.stack([d["array"] for d in tsr.preprocess(table, TABLE_BOXES)])
+    balance_final_score_head(spread_score_heads(tsr.model), crops)
+    page = DevicePage(table, lp.device)
+    thin_final_score_head(lp, lambda: lp(table, page=page), LAYOUT_KEEP)
+    thin_final_score_head(tsr, lambda: da.layout(table, page=page), TSR_KEEP)
+
+
+def _ink_lines(bgr, out_hw):
+    """A DBNet-like u8 map of a BGR page at ``out_hw``: its dark pixels
+    joined along each line (11 px), closed across (3 px, less than the
+    gap between two lines) and thinned to a core (3 px) that the
+    postprocessor's unclip grows back to the line."""
+    import cv2
+    import numpy as np
+
+    gray = cv2.cvtColor(np.ascontiguousarray(bgr), cv2.COLOR_BGR2GRAY)
+    small = cv2.resize(gray, (out_hw[1], out_hw[0]), interpolation=cv2.INTER_AREA)
+    rect = lambda w, h: cv2.getStructuringElement(cv2.MORPH_RECT, (w, h))  # noqa: E731
+    lines = cv2.dilate((small < 128).astype(np.uint8), rect(11, 1))
+    lines = cv2.morphologyEx(lines, cv2.MORPH_CLOSE, rect(1, 3))
+    return (cv2.erode(lines, rect(1, 3)) * 230).astype(np.uint8)[None]
+
+
+def paint_detector(det):
+    """After the detector's real forward and readback, swap its map's
+    contents for the page's ink joined into lines (_ink_lines), as the JAX
+    package's bench.py paints its detector's map: seed-0 DBNet weights find
+    one or two words on a page, too few lines for the recognizer's batch
+    kernels (fused_mlp_ln takes 3 lines or more, fused_mlp 11).  The
+    contours, the crops and everything after them run on the painted
+    lines."""
+    model = det.model
+    from_page, from_u8 = model.forward_binary_from_page, model.forward_binary_u8
+
+    def painted_from_page(page, src_hw, out_hw):
+        real = from_page(page, src_hw, out_hw)
+        h, w = src_hw
+        return _ink_lines(page[:h, :w].cpu().numpy(), real.shape[1:])
+
+    def painted_u8(images_u8):
+        real = from_u8(images_u8)
+        return _ink_lines(images_u8[0], real.shape[1:])
+
+    model.forward_binary_from_page = painted_from_page
+    model.forward_binary_u8 = painted_u8
+
+
+def _models(da):
+    return (da.text_detector.model, da.text_recognizer.model,
+            da.layout.layout_parser.model, da.layout.table_structure_recognizer.model)
+
+
+def same_weights(dst, src):
+    """Load ``src``'s four models' weights into ``dst``'s, in place."""
+    for d, s in zip(_models(dst), _models(src)):
+        d.load_state_dict(s.state_dict())
+
+
+def _document_in_page(doc, w, h, what):
+    """Every box of the schema inside the page, every score finite."""
+    boxes = ([p.box for p in doc.paragraphs] + [f.box for f in doc.figures]
+             + [p.box for f in doc.figures for p in f.paragraphs]
+             + [t.box for t in doc.tables] + [c.box for t in doc.tables for c in t.cells])
+    for x1, y1, x2, y2 in boxes:
+        check(0 <= x1 <= x2 <= w and 0 <= y1 <= y2 <= h, f"{what}: box off the page")
+    for word in doc.words:
+        check(all(0 <= x <= w and 0 <= y <= h for x, y in word.points),
+              f"{what}: word {word.points} off the page")
+        check(math.isfinite(word.det_score) and math.isfinite(word.rec_score),
+              f"{what}: a word's score is not finite")
+
+
+def export_all(doc, img, name):
+    """JSON, Markdown, CSV (and HTML where lxml imports) under
+    build/chip_smoke/document/; the JSON must read back as model_dump."""
+    out = OUT / "document"
+    out.mkdir(parents=True, exist_ok=True)
+    doc.to_json(str(out / f"{name}.json"))
+    check(json.loads((out / f"{name}.json").read_text(encoding="utf-8")) == doc.model_dump(),
+          f"{name}: the JSON export does not read back as the schema")
+    doc.to_markdown(str(out / f"{name}.md"), img=img)
+    doc.to_csv(str(out / f"{name}.csv"), img=img)
+    try:
+        import lxml  # noqa: F401
+    except ImportError:
+        return ["json", "md", "csv"]
+    doc.to_html(str(out / f"{name}.html"), img=img)
+    return ["json", "md", "csv", "html"]
+
+
+def _first_difference(got, want, path="schema"):
+    """Where two model_dump trees first part, for a failure message."""
+    if isinstance(want, dict) and isinstance(got, dict):
+        for k in want:
+            if got.get(k) != want[k]:
+                return _first_difference(got.get(k), want[k], f"{path}.{k}")
+    if isinstance(want, list) and isinstance(got, list):
+        if len(got) != len(want):
+            return f"{path}: {len(got)} items against {len(want)}"
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g != w:
+                return _first_difference(g, w, f"{path}[{i}]")
+    return f"{path}: {str(got)[:120]} against {str(want)[:120]}"
+
+
+def check_same(got, want, what):
+    g, w = got.model_dump(), want.model_dump()
+    check(g == w, f"{what}: {_first_difference(g, w)}")
+
+
+def document_pages(ctx, sample, table):
+    """The three pages of phase 9 and five more cut from them with other
+    line counts (several share a recognizer batch bucket, so an AR loop)."""
+    lines_page = ctx["page"]
+    pitch = 28  # synthetic_lines_page's
+    pages = {"sample_table": table, "sample_text": sample, "lines_136": lines_page}
+    for n in (20, 24, 50, 100):
+        pages[f"lines_{n}"] = lines_page[:n * pitch + 16]
+    pages["sample_text_top"] = sample[: sample.shape[0] // 2]
+    return pages
+
+
+def _line_gaps(rec, img, quads):
+    """Each line's least top-2 logit gap over its greedy decode up to its
+    first EOS: the recognizer on the CPU, f32, from the page route's
+    crops."""
+    import numpy as np
+    import torch
+
+    from yomitoku_tpu_torch.ops import device_crop as dc
+
+    canvas = tuple(rec._cfg.data.img_size)
+    mats, wh = dc.line_homographies(quads, canvas)
+    x = dc.sample_lines(dc.DevicePage(img, "cpu").dev, torch.from_numpy(mats),
+                        torch.from_numpy(np.asarray(wh, np.int32)), out_hw=canvas)
+    logits = rec.model.forward_logits(x * (1.0 / 127.5) - 1.0)
+    top2 = logits.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    ids = logits.argmax(-1)
+    eos = (ids == rec.model.eos_id).int().cumsum(-1)
+    upto = (eos == 0) | ((eos == 1) & (ids == rec.model.eos_id))
+    return torch.where(upto, gap, torch.full_like(gap, float("inf"))).amin(-1).tolist()
+
+
+def _boxes(doc):
+    return ([p.box for p in doc.paragraphs] + [t.box for t in doc.tables]
+            + [c.box for t in doc.tables for c in t.cells] + [f.box for f in doc.figures])
+
+
+def _structure(doc):
+    """What the aggregation made of the words, without boxes and scores:
+    paragraphs, tables' cells and figures with their contents and order."""
+    para = lambda p: (p.contents, p.role, p.direction, p.order)  # noqa: E731
+    return ([para(p) for p in doc.paragraphs],
+            [(t.order, [(c.row, c.col, c.row_span, c.col_span, c.contents)
+                        for c in t.cells]) for t in doc.tables],
+            [(f.order, f.direction, [para(p) for p in f.paragraphs]) for f in doc.figures])
+
+
+def f32_card_vs_cpu(da, img):
+    """The analyzer in f32 on the card against the CPU, the same weights,
+    the page route on both (YOMITOKU_TPU_DEVICE_CROPS=1 on the CPU), the
+    full memory-K/V cache: equal counts, boxes within 1 px, strings equal
+    where the CPU's greedy decode has every top-2 gap at least 1e-4 ->
+    numbers."""
+    import numpy as np
+    import torch
+
+    from yomitoku_tpu_torch.document_analyzer import DocumentAnalyzer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = {"dtype": torch.float32}
+    configs = {"ocr": {"text_detector": f32, "text_recognizer": f32},
+               "layout_analyzer": {"layout_parser": f32,
+                                   "table_structure_recognizer": f32}}
+    with _env(YOMITOKU_TPU_INT8_KV="0"):
+        card = DocumentAnalyzer(configs=configs, device="cuda")
+        cpu = DocumentAnalyzer(device="cpu")
+    same_weights(card, da)  # bf16 values, in f32
+    same_weights(cpu, card)
+    paint_detector(card.text_detector)
+    paint_detector(cpu.text_detector)
+    got, _, _ = card(img)
+    torch.cuda.synchronize()
+    with _env(YOMITOKU_TPU_DEVICE_CROPS="1"):
+        t0 = time.perf_counter()
+        want, _, _ = cpu(img)
+        cpu_s = time.perf_counter() - t0
+    counts = lambda d: (len(d.words), len(d.paragraphs), len(d.figures),  # noqa: E731
+                        [len(t.cells) for t in d.tables])
+    log(f"document: f32 analyzer on a {img.shape[1]}x{img.shape[0]} page: the CPU took "
+        f"{cpu_s:.1f} s; words, paragraphs, figures, cells per table: card "
+        f"{counts(got)}, CPU {counts(want)}")
+    check(counts(got) == counts(want), "f32 analyzer: card and CPU counts differ")
+    d_quad = max([int(np.abs(np.subtract(g.points, w.points)).max())
+                  for g, w in zip(got.words, want.words)] or [0])
+    d_box = max([int(np.abs(np.subtract(g, w)).max())
+                 for g, w in zip(_boxes(got), _boxes(want))] or [0])
+    check(d_quad <= 1 and d_box <= 1,
+          f"f32 analyzer: quads part by {d_quad} px, boxes by {d_box} px (limit 1)")
+    differ = [i for i, (g, w) in enumerate(zip(got.words, want.words))
+              if g.content != w.content]
+    gaps = _line_gaps(cpu.text_recognizer, img, [want.words[i].points for i in differ])
+    check(all(gap < 1e-4 for gap in gaps),
+          f"f32 analyzer: {sum(g >= 1e-4 for g in gaps)} words differ outside near-ties")
+    if not differ:
+        check(_structure(got) == _structure(want),
+              "f32 analyzer: paragraphs, cells or figures differ in contents or order")
+    log(f"document: f32 card vs CPU: quads within {d_quad} px, boxes within {d_box} px "
+        f"(limit 1); strings equal on {len(got.words) - len(differ)} of "
+        f"{len(got.words)} words, {len(differ)} exempt at a near-tie (top-2 gap < 1e-4)"
+        + ("; paragraphs, tables, cells' contents, figures and order equal"
+           if not differ else "; contents not compared"))
+    return dict(cpu_s=cpu_s, max_quad_px=d_quad, max_box_px=d_box,
+                words=len(got.words), near_tie_words=len(differ))
+
+
+def phase_document(card, ctx):
+    """The DocumentAnalyzer path, the CUDA defaults (the page route, the
+    int8 memory-K/V cache) -> (launches by path, numbers)."""
+    with _env(YOMITOKU_TPU_INT8_KV=None, YOMITOKU_TPU_INT8_ENCODER=None,
+              YOMITOKU_TPU_HOST_CROPS=None, YOMITOKU_TPU_DEVICE_CROPS=None,
+              YOMITOKU_TPU_REC_WIDTH_BUCKETS=None):
+        return _phase_document(card, ctx)
+
+
+def _phase_document(card, ctx):
+    from concurrent.futures import ThreadPoolExecutor
+
+    import cv2
+    import torch
+
+    from yomitoku_tpu_torch import ops
+    from yomitoku_tpu_torch.document_analyzer import DocumentAnalyzer
+    from yomitoku_tpu_torch.ocr import ocr_aggregate
+    from yomitoku_tpu_torch.ops.device_crop import DevicePage
+    from yomitoku_tpu_torch.schemas import DocumentAnalyzerSchema, OCRSchema
+
+    numbers = {}
+    sample = cv2.imread(str(ROOT / "demo" / "sample_text.png"))
+    table = cv2.imread(str(ROOT / "demo" / "sample_table.png"))
+    t0 = time.perf_counter()
+    da = DocumentAnalyzer(device="cuda")
+    findable(da, table)
+    paint_detector(da.text_detector)
+    log(f"document: DocumentAnalyzer(device='cuda') built and its score heads spread, "
+        f"balanced and thinned in {time.perf_counter() - t0:.1f} s (dbnetv2_1, "
+        f"parseq-large-v4_1, rtdetrv2v2, rtdetrv2; seed-0 weights; the detector's map "
+        f"painted with each page's lines after its forward)")
+    pages = document_pages(ctx, sample, table)
+    main = ("sample_table", "sample_text", "lines_136")
+
+    # path document_page: the three pages, counted
+    paths = {}
+    ops.reset_launches()
+    docs = {name: da(pages[name])[0] for name in main}
+    torch.cuda.synchronize()
+    paths["document_page"] = dict(ops.launches)
+    log(f"document: document_page launches {paths['document_page']}")
+    check(all(paths["document_page"][k] > 0 for k in DOCUMENT_KERNELS),
+          f"a kernel of the document path was never launched: {paths['document_page']}")
+    check_attention_routes("document")
+    check_gemm_routes("document")
+    check_deform_routes("document", paths["document_page"]["ms_deformable_attention"])
+    for name, doc in docs.items():
+        h, w = pages[name].shape[:2]
+        doc = DocumentAnalyzerSchema.model_validate(doc.model_dump())
+        _document_in_page(doc, w, h, name)
+        formats = export_all(doc, pages[name], name)
+        log(f"document: {name} {w}x{h}: {len(doc.words)} words, {len(doc.paragraphs)} "
+            f"paragraphs, {len(doc.tables)} tables ({sum(len(t.cells) for t in doc.tables)} "
+            f"cells, {sum(bool(c.contents) for t in doc.tables for c in t.cells)} with "
+            f"text), {len(doc.figures)} figures; exported as {', '.join(formats)}")
+    t = docs["sample_table"]
+    check(any(tb.cells for tb in t.tables) and t.paragraphs and t.figures,
+          "sample_table.png: no table with cells, paragraph or figure")
+    numbers["counts"] = {name: dict(words=len(d.words), paragraphs=len(d.paragraphs),
+                                    tables=len(d.tables), figures=len(d.figures),
+                                    cells=sum(len(tb.cells) for tb in d.tables))
+                         for name, d in docs.items()}
+
+    # composition: the modules one at a time on one DevicePage
+    page = DevicePage(table, "cuda")
+    det, _ = da.text_detector(table, page=page)
+    lay, _ = da.layout(table, page=page)
+    rec, _ = da.text_recognizer(table, det.points, page=page)
+    ocr = OCRSchema(words=ocr_aggregate(det, rec))
+    composed = DocumentAnalyzerSchema(**da.aggregate(ocr, lay))
+    check_same(da(table)[0], composed, "analyzer against its modules one at a time")
+    log("document: sample_table.png through the analyzer (detector and layout on two "
+        "threads) equals the detector, layout analyzer, recognizer, ocr_aggregate and "
+        "aggregate called one at a time on one DevicePage: words, paragraphs, tables, "
+        "cells' contents, figures and order")
+
+    # path document_batch: a fresh analyzer, its AR graphs captured while
+    # other pages run, against one __call__ per page on `da`
+    names = list(pages)
+    want = {name: da(pages[name])[0] for name in names}
+    cold = DocumentAnalyzer(device="cuda")
+    same_weights(cold, da)
+    paint_detector(cold.text_detector)
+    for run in (1, 2):
+        ops.reset_launches()
+        with timed_ar_lock(cold.text_recognizer.model) as lock:
+            t0 = time.perf_counter()
+            got = cold.batch([pages[n] for n in names], max_in_flight=IN_FLIGHT)
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+        if run == 1:
+            paths["document_batch"] = dict(ops.launches)
+            log(f"document: document_batch launches {paths['document_batch']}")
+            check(all(paths["document_batch"][k] > 0 for k in DOCUMENT_KERNELS),
+                  f"a kernel of the batch path was never launched: {paths['document_batch']}")
+        for name, (doc, _, _) in zip(names, got):
+            check_same(doc, want[name], f"batch run {run}, page {name}")
+        loops = sorted(cold.text_recognizer.model._ar_loops)
+        numbers[f"batch_run_{run}"] = dict(s=took, ar_lock_held_s=lock.held,
+                                           ar_lock_waited_s=lock.waited)
+        log(f"document: batch run {run} ({'cold' if run == 1 else 'warm'}) of "
+            f"{len(names)} pages at max_in_flight={IN_FLIGHT}: {took:.2f} s, the AR "
+            f"loop's lock held {lock.held:.2f} s and waited on {lock.waited:.2f} s in all "
+            f"threads; every page equals its own __call__ on a second analyzer; AR "
+            f"loops {loops}")
+    del cold
+    torch.cuda.empty_cache()
+
+    # f32 on the card against the CPU, on the top 400 rows of
+    # sample_table.png (on the CPU the whole page took 50 s, its top half 44)
+    numbers["f32"] = f32_card_vs_cpu(da, table[:400])
+    torch.cuda.empty_cache()
+
+    # timings (not gated)
+    def host(fn):
+        def run():
+            with _env(YOMITOKU_TPU_HOST_CROPS="1"):
+                return fn()
+        return run
+
+    timed = ("sample_table", "sample_text")
+    fns = {}
+    for name in timed:
+        fns[(name, "device")] = lambda p=pages[name]: da(p)
+        fns[(name, "host")] = host(lambda p=pages[name]: da(p))
+    ms = {k: v * 1e3 for k, v in interleaved(fns).items()}
+    numbers["ms_per_page"] = {name: dict(device_route=ms[(name, "device")],
+                                         host_route=ms[(name, "host")]) for name in timed}
+    log("document: analyzer ms/page, device / host route: " + "; ".join(
+        f"{name} {ms[(name, 'device')]:.1f} / {ms[(name, 'host')]:.1f}" for name in timed)
+        + f"; median of 5, routes in turns; card {card}")
+
+    batch = [pages[n] for n in names]
+    s = interleaved({k: (lambda k=k: da.batch(batch, max_in_flight=k))
+                     for k in (1, IN_FLIGHT)}, runs=3)
+    numbers["batch_pages_s"] = {str(k): len(batch) / v for k, v in s.items()}
+    log(f"document: batch of {len(batch)} pages: {len(batch) / s[1]:.2f} pages/s at "
+        f"max_in_flight=1, {len(batch) / s[IN_FLIGHT]:.2f} at {IN_FLIGHT} (median of 3, "
+        f"in turns); card {card}")
+
+    wall, device, n_ops, _ = profiled(lambda: da(table), runs=3)
+    busy = sum(device.values())
+    numbers["profile_sample_table"] = dict(wall_ms=wall, device_busy_ms=busy,
+                                           idle_share=1 - busy / wall,
+                                           device_ops_per_call=n_ops)
+    log(f"document: sample_table.png profiled: {wall:.1f} ms/page wall, device busy "
+        f"{busy:.1f} ms (idle share {1 - busy / wall:.2f}), {n_ops:.0f} device ops per "
+        f"page; card {card}")
+
+    def both(pool):
+        page = DevicePage(table, "cuda")
+        futures = [pool.submit(da.text_detector, table, page),
+                   pool.submit(da.layout, table, page)]
+        return [f.result() for f in futures]
+
+    def on_fresh_threads():
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            return both(pool)
+
+    def detector():
+        return da.text_detector(table, page=DevicePage(table, "cuda"))
+
+    def detector_new_thread():
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            return pool.submit(detector).result()
+
+    par = interleaved({
+        "both": lambda: both(da._workers),
+        "both_fresh_threads": on_fresh_threads,
+        "detector": detector,
+        "layout": lambda: da.layout(table, page=DevicePage(table, "cuda")),
+        "detector_new_thread": detector_new_thread,
+    })
+    torch.backends.cudnn.enabled = False
+    try:
+        par.update({f"{k}_no_cudnn": v for k, v in interleaved({
+            "detector": detector, "detector_new_thread": detector_new_thread}).items()})
+    finally:
+        torch.backends.cudnn.enabled = True
+    numbers["detector_layout_ms"] = {k: v * 1e3 for k, v in par.items()}
+    ms = numbers["detector_layout_ms"]
+    log(f"document: detector and layout analyzer on the analyzer's two threads "
+        f"{ms['both']:.1f} ms ({ms['both_fresh_threads']:.1f} ms on two new threads) "
+        f"against {ms['detector']:.1f} + {ms['layout']:.1f} = "
+        f"{ms['detector'] + ms['layout']:.1f} ms called alone; the detector alone on a new "
+        f"thread {ms['detector_new_thread']:.1f} ms, and with cuDNN off "
+        f"{ms['detector_no_cudnn']:.1f} ms on this thread, "
+        f"{ms['detector_new_thread_no_cudnn']:.1f} ms on a new one (sample_table.png, one "
+        f"DevicePage each; median of 5, in turns); card {card}")
+    (OUT / "document.json").write_text(json.dumps(numbers, indent=1))
+    return paths, numbers
+
+
+class TimedLock:
+    """A lock that sums the seconds its holders waited for it and held it."""
+
+    def __init__(self):
+        import threading
+
+        self.lock, self.mu = threading.Lock(), threading.Lock()
+        self.waited = self.held = 0.0
+        self._since = {}
+
+    def __enter__(self):
+        import threading
+
+        t0 = time.perf_counter()
+        self.lock.acquire()
+        t1 = time.perf_counter()
+        with self.mu:
+            self.waited += t1 - t0
+            self._since[threading.get_ident()] = t1
+        return self
+
+    def __exit__(self, *exc):
+        import threading
+
+        with self.mu:
+            self.held += time.perf_counter() - self._since.pop(threading.get_ident())
+        self.lock.release()
+
+
+@contextlib.contextmanager
+def timed_ar_lock(model):
+    """A PARSeq model's AR-loop lock timed for the block (TimedLock)."""
+    timed = TimedLock()
+    real, model._ar_lock = model._ar_lock, timed
+    try:
+        yield timed
+    finally:
+        model._ar_lock = real
+
+
 def fused_kernels_only(root):
     """``--fused-kernels [ROOT]``: kernels 10 and 11 at their eleven shapes
     (against their plain versions, then timed against the unfused cuDNN
@@ -3094,9 +3627,28 @@ def page_only(root):
     return 0
 
 
+def document_only(root):
+    """``--document``: phase 9 (the DocumentAnalyzer path) alone, on this
+    checkout's package, with the synthetic 136-line page of phase 3."""
+    from yomitoku_tpu_torch.ops import _build
+
+    if root != ROOT:
+        raise SmokeFailure("--document runs on this checkout only")
+    card = card_line()
+    log(f"card: {card}")
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    page, quads = synthetic_lines_page()
+    paths, numbers = phase_document(card, dict(page=page, quads=quads))
+    log(card)
+    print(json.dumps({"launches_by_path": paths, "document": numbers}), flush=True)
+    return 0
+
+
 #: the modes that run one part on the package at ROOT
 MODES = {"--fused-kernels": fused_kernels_only, "--deform-kernels": deform_kernels_only,
-         "--page": page_only}
+         "--page": page_only, "--document": document_only}
 
 
 def main():
@@ -3123,7 +3675,7 @@ def main():
             return 1
     if args:
         log(f"FAIL: unknown arguments {args} (none, or --fused-kernels [ROOT], "
-            "or --deform-kernels [ROOT])")
+            "--deform-kernels [ROOT], --page or --document)")
         return 1
     try:
         card = phase_card()
@@ -3139,6 +3691,8 @@ def main():
         paths["fused_backbone"], fused_numbers = phase_fused_backbone(card)
         page_paths, page_numbers = phase_page(card, ctx)
         paths.update(page_paths)
+        document_paths, document_numbers = phase_document(card, ctx)
+        paths.update(document_paths)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1
@@ -3147,6 +3701,7 @@ def main():
     (OUT / "int8_recognizer.json").write_text(json.dumps(int8_numbers, indent=1))
     (OUT / "fused_backbone.json").write_text(json.dumps(fused_numbers, indent=1))
     (OUT / "page_route.json").write_text(json.dumps(page_numbers, indent=1))
+    (OUT / "document.json").write_text(json.dumps(document_numbers, indent=1))
     log(card)  # as nvidia-smi prints it: name, power limit
     for name, at in layout_kernels.items():
         shaped.setdefault(name, {}).update(at)

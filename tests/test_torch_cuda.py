@@ -1083,3 +1083,60 @@ def test_crops_on_the_card_match_the_cpu():
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
 
+
+
+def _document_pages():
+    """Pages of 2-5 lines of two words each: pages with the same number of
+    lines decode in the same AR loop."""
+    import cv2
+
+    pages = []
+    for n in (4, 4, 2, 5, 3, 4):
+        img = np.full((120, 180, 3), 255, np.uint8)
+        for i in range(n):
+            y = int(120 / (n + 1) * (i + 1))
+            cv2.putText(img, f"L{i} AB", (8, y), cv2.FONT_HERSHEY_SIMPLEX, 0.8, (0, 0, 0), 2)
+            cv2.putText(img, f"Z{i}", (108, y), cv2.FONT_HERSHEY_SIMPLEX, 0.8, (0, 0, 0), 2)
+        pages.append(img)
+    return pages
+
+
+@pytest.mark.cuda
+def test_document_batch_on_a_cold_analyzer_equals_calls():
+    """DocumentAnalyzer.batch(max_in_flight=4) on a freshly built analyzer
+    (small configs, bf16, the page route and the int8 memory-K/V cache:
+    the card's defaults), whose AR graphs are captured while other pages
+    run, gives each page what its own __call__ gives on a second analyzer
+    with the same weights, bit for bit; then again, warm."""
+    _require_cuda()
+    from pathlib import Path
+
+    from yomitoku_tpu_torch.document_analyzer import DocumentAnalyzer
+    from yomitoku_tpu_torch.utils.synthetic_heads import (
+        balance_final_score_head,
+        spread_score_heads,
+    )
+
+    yaml = Path(__file__).parent / "yaml"
+    small = lambda name: {"path_cfg": str(yaml / name), "from_pretrained": False}  # noqa: E731
+    configs = {"ocr": {"text_detector": small("det_small.yaml"),
+                       "text_recognizer": small("rec_small.yaml")},
+               "layout_analyzer": {"layout_parser": small("layout_small.yaml"),
+                                   "table_structure_recognizer": small("layout_small.yaml")}}
+    warm, cold = (DocumentAnalyzer(configs=configs, device="cuda") for _ in range(2))
+    pages = _document_pages()
+    lp = warm.layout.layout_parser
+    balance_final_score_head(spread_score_heads(lp.model), lp.preprocess(pages[0]))
+    with torch.no_grad():
+        warm.text_detector.model.decoder.binarize[6].weight.mul_(10.0)
+    for a, b in ((warm.text_detector, cold.text_detector),
+                 (warm.text_recognizer, cold.text_recognizer), (lp, cold.layout.layout_parser),
+                 (warm.layout.table_structure_recognizer,
+                  cold.layout.table_structure_recognizer)):
+        b.model.load_state_dict(a.model.state_dict())
+    want = [warm(p)[0].model_dump() for p in pages]
+    assert sum(len(w["words"]) for w in want) > len(pages)
+    for _ in range(2):
+        got = cold.batch(pages, max_in_flight=4)
+        assert [g[0].model_dump() for g in got] == want
+    assert cold.text_recognizer.model._ar_loops

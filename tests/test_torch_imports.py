@@ -82,3 +82,30 @@ def test_port_keeps_its_own_resources():
     for name in ("charset.txt", "charsetv2.txt", "MPLUS1p-Medium.ttf"):
         assert (PORT / "resource" / name).is_file()
     assert (PORT / "csrc" / "dbnet_post.cpp").is_file()
+
+
+def test_document_analyzer_imports_without_lxml(tmp_path):
+    """The HTML exporter imports lxml where it prints the document, so the
+    analyzer and the other exporters import and run on a machine without
+    it; only ``to_html`` needs it."""
+    script = f"""
+import sys
+sys.modules["lxml"] = None  # import lxml raises ImportError
+sys.path.insert(0, {str(ROOT)!r})
+import yomitoku_tpu_torch.document_analyzer
+from yomitoku_tpu_torch.schemas import DocumentAnalyzerSchema, ParagraphSchema
+doc = DocumentAnalyzerSchema(paragraphs=[ParagraphSchema(
+    box=[0, 0, 10, 10], contents="a", direction="horizontal", order=0, role=None)],
+    tables=[], words=[], figures=[])
+doc.to_markdown({str(tmp_path / "d.md")!r})
+doc.to_csv({str(tmp_path / "d.csv")!r})
+doc.to_json({str(tmp_path / "d.json")!r})
+try:
+    doc.to_html({str(tmp_path / "d.html")!r})
+except ImportError:
+    print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().endswith("ok")

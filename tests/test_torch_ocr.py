@@ -25,13 +25,23 @@ import numpy as np
 import pytest
 import torch
 
+from yomitoku_tpu.document_analyzer import DocumentAnalyzer as JaxDocumentAnalyzer
+from yomitoku_tpu.layout_analyzer import LayoutAnalyzer as JaxLayoutAnalyzer
+from yomitoku_tpu.layout_parser import LayoutParser as JaxLayoutParser
 from yomitoku_tpu.models.weights_convert import convert_dbnet
 from yomitoku_tpu.ocr import OCR as JaxOCR
+from yomitoku_tpu.table_structure_recognizer import (
+    TableStructureRecognizer as JaxTableStructureRecognizer,
+)
 from yomitoku_tpu.text_detector import TextDetector as JaxTextDetector
 from yomitoku_tpu.text_recognizer import TextRecognizer as JaxTextRecognizer
 from yomitoku_tpu.utils import visualizer as jax_vis
 from yomitoku_tpu_torch.data.functions import resize_with_padding
+from yomitoku_tpu_torch.document_analyzer import DocumentAnalyzer
+from yomitoku_tpu_torch.layout_analyzer import LayoutAnalyzer
+from yomitoku_tpu_torch.layout_parser import LayoutParser
 from yomitoku_tpu_torch.ocr import OCR
+from yomitoku_tpu_torch.table_structure_recognizer import TableStructureRecognizer
 from yomitoku_tpu_torch.text_detector import TextDetector
 from yomitoku_tpu_torch.text_recognizer import TextRecognizer
 from yomitoku_tpu_torch.utils import visualizer as port_vis
@@ -177,7 +187,9 @@ def test_cuda_device_raises_without_cuda():
 # ---------------------------------------------------------------- the call API
 
 API_PAIRS = [(TextDetector, JaxTextDetector), (TextRecognizer, JaxTextRecognizer),
-             (OCR, JaxOCR)]
+             (OCR, JaxOCR), (LayoutParser, JaxLayoutParser),
+             (TableStructureRecognizer, JaxTableStructureRecognizer),
+             (LayoutAnalyzer, JaxLayoutAnalyzer), (DocumentAnalyzer, JaxDocumentAnalyzer)]
 
 
 _NO_DEFAULT = object()
@@ -281,16 +293,39 @@ def test_orientation_fallback_matches_jax(pipelines, monkeypatch):
     assert replaced > 0
 
 
-@pytest.mark.parametrize("cls", [TextDetector, TextRecognizer, OCR])
+@pytest.mark.parametrize("cls", [TextDetector, TextRecognizer, OCR, LayoutParser,
+                                 TableStructureRecognizer, LayoutAnalyzer,
+                                 DocumentAnalyzer])
 def test_num_devices_beyond_one_raises(cls):
     with pytest.raises(NotImplementedError, match="num_devices"):
         cls(device="cpu", num_devices=2)
+
+
+LAYOUT_SMALL = {"path_cfg": str(ROOT / "tests/yaml/layout_small.yaml"),
+                "from_pretrained": False}
 
 
 def test_one_device_accepted():
     det = TextDetector(path_cfg=CONFIGS["text_detector"]["path_cfg"], device="cpu",
                        from_pretrained=False, num_devices=1, infer_onnx=True)
     assert det.visualize is False
+    for cls in (LayoutParser, TableStructureRecognizer):
+        module = cls(**LAYOUT_SMALL, device="cpu", num_devices=1, infer_onnx=True)
+        assert module.visualize is False
+
+
+def test_layout_analyzer_passes_num_devices_to_both_modules():
+    """LayoutAnalyzer merges ``num_devices`` into both entries, under each
+    entry's own ``configs`` (the JAX analyzer's merge)."""
+    small = {"layout_parser": LAYOUT_SMALL, "table_structure_recognizer": LAYOUT_SMALL}
+    LayoutAnalyzer(configs=small, device="cpu", num_devices=1)
+    for name in small:
+        with pytest.raises(NotImplementedError, match="num_devices"):
+            LayoutAnalyzer(configs={**small, name: {**LAYOUT_SMALL, "num_devices": 2}},
+                           device="cpu", num_devices=1)
+        with pytest.raises(NotImplementedError, match="num_devices"):
+            LayoutAnalyzer(configs={**small, name: {**LAYOUT_SMALL, "num_devices": 1}},
+                           device="cpu", num_devices=2)
 
 
 def test_ocr_configs_override_device():

@@ -1,5 +1,6 @@
 """Task-module base of the port (counterpart of yomitoku_tpu/base.py):
-the model catalog, the timing observer, the schema base class, and
+the model catalog, the timing observer, the schema base class (every
+schema writes itself as JSON, ``to_json``), and
 ``BaseModule.load_model``, which builds one of the port's models on an
 explicit device."""
 
@@ -61,6 +62,11 @@ def observer(cls, func):
 
 class BaseSchema(BaseModel):
     model_config = ConfigDict(extra="forbid", validate_assignment=True)
+
+    def to_json(self, out_path: str, **kwargs):
+        from .export import export_json
+
+        return export_json(self, out_path, **kwargs)
 
 
 class BaseModelCatalog:

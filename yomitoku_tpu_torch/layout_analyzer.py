@@ -4,7 +4,8 @@ yomitoku_tpu/layout_analyzer.py).  ``page=`` (an ops.device_crop.DevicePage
 of the image, uploaded once) goes to both modules, which then resize and
 crop on the device (a module on another device gets the image uploaded
 to its own); without it both take the host route, as the JAX analyzer
-does."""
+does.  ``device``, ``visualize`` and ``num_devices`` go to both modules,
+under each one's ``configs`` entry."""
 
 from .layout_parser import LayoutParser
 from .ops.device_crop import DevicePage, lies_on
@@ -13,11 +14,13 @@ from .table_structure_recognizer import TableStructureRecognizer
 
 
 class LayoutAnalyzer:
-    def __init__(self, configs=None, device="cuda", visualize=False):
+    def __init__(self, configs=None, device="cuda", visualize=False,
+                 num_devices=None):
         configs = configs or {}
         if not isinstance(configs, dict):
             raise ValueError("configs must be a dict.")
-        common = {"device": device, "visualize": visualize}
+        common = {"device": device, "visualize": visualize,
+                  "num_devices": num_devices}
         self.layout_parser = LayoutParser(
             **{**common, **configs.get("layout_parser", {})})
         self.table_structure_recognizer = TableStructureRecognizer(

@@ -13,7 +13,7 @@ repeated here.
 import cv2
 import numpy as np
 
-from .base import BaseModelCatalog, BaseModule
+from .base import BaseModelCatalog, BaseModule, check_num_devices
 from .configs import LayoutParserRTDETRv2Config, LayoutParserRTDETRv2V2Config
 from .models.rtdetr import RTDETRv2
 from .ops.device_crop import page_on, staged_page_mat
@@ -84,9 +84,12 @@ class LayoutParser(BaseModule):
         device="cuda",
         visualize=False,
         from_pretrained=True,
+        infer_onnx=False,  # accepted, as in the JAX package; unused
+        num_devices=None,
         dtype=None,
     ):
         super().__init__()
+        check_num_devices(num_devices)
         self.load_model(model_name, path_cfg, device=device,
                         from_pretrained=from_pretrained, dtype=dtype)
         self.visualize = visualize

@@ -26,6 +26,7 @@ ids against the full cache and turns int8 off on divergence.
 
 import math
 import os
+import threading
 
 import numpy as np
 import torch
@@ -101,7 +102,15 @@ class _CachedARLoop:
     place, so the graph's addresses stay valid; the graph also reads the
     model's parameters in place (loading a state_dict copies into them).
     The host reads ``done`` after each step to exit early; a step run after
-    ``done`` would change nothing."""
+    ``done`` would change nothing.
+
+    The buffers and the graph are shared by every caller of the model, so
+    a decode holds the model's ``_ar_lock`` from the reset to the clones it
+    returns: pages decoded on several threads (DocumentAnalyzer.batch)
+    take turns instead of writing into each other's buffers.  The capture
+    runs under that lock in the "thread_local" capture mode, so the other
+    threads' allocations and synchronisations (the detector's, the layout
+    models') neither fail it nor are refused while it runs."""
 
     def __init__(self, model, B, L, causal, int8_kv):
         self.model = model
@@ -195,23 +204,24 @@ class _CachedARLoop:
             self.step()
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.step()
 
     def __call__(self, memory):
         """memory (B, M, D) -> (tgt_in, logits or None), fresh tensors."""
-        self._reset(memory)
-        first = 0
-        if self.tgt_in.is_cuda and self.graph is None:
-            self._capture()  # ran step 0
-            first = 1
-        run = self.step if self.graph is None else self.graph.replay
-        for i in range(first, self.L):
-            if i and bool(self.done):
-                break
-            run()
-        logits = None if self.logits is None else self.logits.clone()
-        return self.tgt_in.clone(), logits
+        with self.model._ar_lock:
+            self._reset(memory)
+            first = 0
+            if self.tgt_in.is_cuda and self.graph is None:
+                self._capture()  # ran step 0
+                first = 1
+            run = self.step if self.graph is None else self.graph.replay
+            for i in range(first, self.L):
+                if i and bool(self.done):
+                    break
+                run()
+            logits = None if self.logits is None else self.logits.clone()
+            return self.tgt_in.clone(), logits
 
 
 class PARSeq(TorchModel):
@@ -245,6 +255,9 @@ class PARSeq(TorchModel):
         #: (batch size, memory length) -> _CachedARLoop (its buffers and its
         #: CUDA graph); a narrower canvas gives a shorter memory
         self._ar_loops = {}
+        #: held by a decode on the loops' shared state, and while a loop is
+        #: made (see _CachedARLoop)
+        self._ar_lock = threading.Lock()
         self.int8_kv = _int8_kv_default(self.device)
         if self.int8_kv:
             _notice_int8_kv_default()
@@ -283,10 +296,11 @@ class PARSeq(TorchModel):
         follows) the per-step logits, on the loop state kept for batch size
         ``B`` and this memory's length (see ``_CachedARLoop``)."""
         key = (B, memory.shape[1])
-        loop = self._ar_loops.get(key)
-        if loop is None or loop.int8_kv != self.int8_kv:
-            loop = self._ar_loops[key] = _CachedARLoop(self, B, L, causal,
-                                                       self.int8_kv)
+        with self._ar_lock:
+            loop = self._ar_loops.get(key)
+            if loop is None or loop.int8_kv != self.int8_kv:
+                loop = self._ar_loops[key] = _CachedARLoop(self, B, L, causal,
+                                                           self.int8_kv)
         return loop(memory)
 
     def _ar_uncached(self, memory, B, L, causal):

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -167,11 +168,19 @@ def build() -> _Library:
     return _Library(out, seconds, log)
 
 
+#: held while a library is built or loaded: threads that reach their first
+#: launch together (DocumentAnalyzer.batch) build it once, and would
+#: otherwise write the same temporary files
+_BUILD_LOCK = threading.Lock()
+
+
 def library() -> _Library:
     """The process's kernel library, built at first use."""
     global _LOADED
     if _LOADED is None:
-        _LOADED = build()
+        with _BUILD_LOCK:
+            if _LOADED is None:
+                _LOADED = build()
     return _LOADED
 
 
@@ -184,8 +193,14 @@ def host_library(stem: str) -> ctypes.CDLL:
     first use with the host's g++ into ``BUILD_DIR`` (named by a hash of
     the source and flags) and loaded; raises KernelBuildError when it
     cannot be built."""
-    if stem in _HOST:
-        return _HOST[stem]
+    if stem not in _HOST:
+        with _BUILD_LOCK:
+            if stem not in _HOST:
+                _HOST[stem] = _build_host(stem)
+    return _HOST[stem]
+
+
+def _build_host(stem):
     src = CSRC / f"{stem}.cpp"
     h = hashlib.sha256(" ".join(HOST_FLAGS).encode() + src.read_bytes())
     out = BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
@@ -203,5 +218,4 @@ def host_library(stem: str) -> ctypes.CDLL:
                 f"{cxx} failed (exit {proc.returncode}) on {src.name}:\n"
                 f"{proc.stdout}{proc.stderr}")
         os.replace(tmp, out)
-    _HOST[stem] = ctypes.CDLL(str(out))
-    return _HOST[stem]
+    return ctypes.CDLL(str(out))

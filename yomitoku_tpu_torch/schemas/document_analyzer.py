@@ -1,8 +1,8 @@
-"""Result schemas of the ported task modules (the port's copy of
-yomitoku_tpu/schemas/document_analyzer.py): the same field names, shapes,
-descriptions and validators, so results compare field by field with the
-JAX package's.  ``DocumentAnalyzerSchema`` and its exporters wait for the
-DocumentAnalyzer slice.  Written against pydantic v2.
+"""Result schemas of the ported task modules and of DocumentAnalyzer (the
+port's copy of yomitoku_tpu/schemas/document_analyzer.py): the same field
+names, shapes, descriptions and validators, so results compare field by
+field with the JAX package's; ``DocumentAnalyzerSchema`` writes itself out
+through the port's exporters (``..export``).  Written against pydantic v2.
 """
 
 from typing import List, Union
@@ -34,6 +34,28 @@ class Element(BaseSchema):
     )
     contents: Union[str, None] = Field(
         ..., description="Text content of the element"
+    )
+
+
+class ParagraphSchema(BaseSchema):
+    box: Box = Field(
+        ..., description="Bounding box of the paragraph in the format [x1, y1, x2, y2]"
+    )
+    contents: Union[str, None] = Field(
+        ..., description="Text content of the paragraph"
+    )
+    direction: Union[str, None] = Field(
+        ..., description="Text direction, e.g., ['horizontal' or 'vertical']"
+    )
+    order: Union[int, None] = Field(
+        ..., description="Order of the paragraph in the document"
+    )
+    role: Union[str, None] = Field(
+        ...,
+        description=(
+            "Role of the paragraph, e.g., ['section_headings', 'page_header', "
+            "'page_footer'])"
+        ),
     )
 
 
@@ -133,6 +155,52 @@ class LayoutParserSchema(BaseSchema):
     paragraphs: List[Element] = Field(..., description="List of detected paragraphs")
     tables: List[Element] = Field(..., description="List of detected tables")
     figures: List[Element] = Field(..., description="List of detected figures")
+
+
+class FigureSchema(BaseSchema):
+    box: Box = Field(
+        ..., description="Bounding box of the figure in the format [x1, y1, x2, y2]"
+    )
+    order: Union[int, None] = Field(
+        ..., description="Order of the figure in the document"
+    )
+    paragraphs: List[ParagraphSchema] = Field(
+        ..., description="List of paragraphs associated with the figure"
+    )
+    direction: Union[str, None] = Field(
+        ..., description="Text direction, e.g., ['horizontal' or 'vertical']"
+    )
+
+
+class DocumentAnalyzerSchema(BaseSchema):
+    paragraphs: List[ParagraphSchema] = Field(
+        ..., description="List of detected paragraphs"
+    )
+    tables: List[TableStructureRecognizerSchema] = Field(
+        ..., description="List of detected tables"
+    )
+    words: List[WordPrediction] = Field(..., description="List of recognized words")
+    figures: List[FigureSchema] = Field(..., description="List of detected figures")
+
+    def to_html(self, out_path: str, **kwargs):
+        from ..export import export_html
+
+        return export_html(self, out_path, **kwargs)
+
+    def to_markdown(self, out_path: str, **kwargs):
+        from ..export import export_markdown
+
+        return export_markdown(self, out_path, **kwargs)
+
+    def to_csv(self, out_path: str, **kwargs):
+        from ..export import export_csv
+
+        return export_csv(self, out_path, **kwargs)
+
+    def to_json(self, out_path: str, **kwargs):
+        from ..export import export_json
+
+        return export_json(self, out_path, **kwargs)
 
 
 class TextRecognizerSchema(BaseSchema):

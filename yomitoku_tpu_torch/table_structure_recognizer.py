@@ -16,7 +16,7 @@ repeated here.
 import cv2
 import numpy as np
 
-from .base import BaseModelCatalog, BaseModule
+from .base import BaseModelCatalog, BaseModule, check_num_devices
 from .configs import TableStructureRecognizerRTDETRv2Config
 from .layout_parser import filter_contained_rectangles_within_category
 from .models.rtdetr import RTDETRv2
@@ -91,9 +91,12 @@ class TableStructureRecognizer(BaseModule):
         device="cuda",
         visualize=False,
         from_pretrained=True,
+        infer_onnx=False,  # accepted, as in the JAX package; unused
+        num_devices=None,
         dtype=None,
     ):
         super().__init__()
+        check_num_devices(num_devices)
         self.load_model(model_name, path_cfg, device=device,
                         from_pretrained=from_pretrained, dtype=dtype)
         self.visualize = visualize

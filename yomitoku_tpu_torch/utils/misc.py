@@ -1,7 +1,12 @@
 """Geometry and small host utilities (the port's copy of what it calls of
-yomitoku_tpu/utils/misc.py): the charset loader and the box predicates of
-the layout and table filters, with the same integer-truncation semantics."""
+yomitoku_tpu/utils/misc.py): the charset loader, the image writer of the
+figure exports, and the box predicates of the layout and table filters and
+of DocumentAnalyzer's aggregation, with the same integer-truncation
+semantics."""
 
+import os
+
+import cv2
 import numpy as np
 
 
@@ -14,6 +19,17 @@ def filter_by_flag(elements, flags):
     if len(elements) != len(flags):
         raise ValueError(f"{len(elements)} elements but {len(flags)} flags")
     return [e for e, keep in zip(elements, flags) if keep]
+
+
+def save_image(img, path):
+    success, buffer = cv2.imencode(".jpg", img)
+    basedir = os.path.dirname(path)
+    if basedir:
+        os.makedirs(basedir, exist_ok=True)
+    if not success:
+        raise ValueError("Failed to encode image")
+    with open(path, "wb") as f:
+        f.write(buffer.tobytes())
 
 
 def calc_intersection(rect_a, rect_b):
@@ -75,3 +91,9 @@ def overlap_ratio_matrix(boxes_a, boxes_b):
 def containment_matrix(boxes_a, boxes_b, threshold=0.8):
     """(n, m) bool: is_contained(a_i, b_j) — b_j mostly inside a_i."""
     return overlap_ratio_matrix(boxes_a, boxes_b) > threshold
+
+
+def quad_to_xyxy(quad):
+    xs = [p[0] for p in quad]
+    ys = [p[1] for p in quad]
+    return min(xs), min(ys), max(xs), max(ys)

@@ -1,8 +1,9 @@
 """Visualisation of the task results (the port's copy of
-``det_visualizer``, ``rec_visualizer``, ``layout_visualizer`` and
-``table_visualizer`` of yomitoku_tpu/utils/visualizer.py): detection quads
-and heatmap, recognized text (vertical top-to-bottom where PIL has
-libraqm), boxes per category and table cells, drawn with cv2 and PIL."""
+``det_visualizer``, ``rec_visualizer``, ``layout_visualizer``,
+``table_visualizer`` and ``reading_order_visualizer`` of
+yomitoku_tpu/utils/visualizer.py): detection quads and heatmap, recognized
+text (vertical top-to-bottom where PIL has libraqm), boxes per category,
+table cells and the reading-order arrows, drawn with cv2 and PIL."""
 
 import cv2
 import numpy as np
@@ -84,4 +85,49 @@ def table_visualizer(img, table):
         out = cv2.putText(
             out, text, (x1, y1), cv2.FONT_HERSHEY_SIMPLEX, 0.5, (255, 0, 0), 2
         )
+    return out
+
+
+def _reading_order_arrows(img, elements, line_color, tip_size):
+    out = img.copy()
+    prev_center = None
+    for i, element in enumerate(elements):
+        x1, y1, x2, y2 = element.box
+        center = (x1 + (x2 - x1) / 2, y1 + (y2 - y1) / 2)
+        cv2.putText(
+            out,
+            str(i),
+            (int(center[0]), int(center[1])),
+            cv2.FONT_HERSHEY_SIMPLEX,
+            1,
+            (0, 200, 0),
+            2,
+        )
+        if prev_center is not None:
+            length = float(np.linalg.norm(np.array(center) - np.array(prev_center)))
+            tip = tip_size / length if length > 0 else 0
+            cv2.arrowedLine(
+                out,
+                (int(prev_center[0]), int(prev_center[1])),
+                (int(center[0]), int(center[1])),
+                line_color,
+                2,
+                tipLength=tip,
+            )
+        prev_center = center
+    return out
+
+
+def reading_order_visualizer(
+    img, results, line_color=(0, 0, 255), tip_size=10, visualize_figure_letter=False
+):
+    elements = sorted(
+        results.paragraphs + results.tables + results.figures, key=lambda x: x.order
+    )
+    out = _reading_order_arrows(img, elements, line_color, tip_size)
+    if visualize_figure_letter:
+        for figure in results.figures:
+            out = _reading_order_arrows(
+                out, figure.paragraphs, line_color=(0, 255, 0), tip_size=5
+            )
     return out
