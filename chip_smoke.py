@@ -6,10 +6,11 @@
     python3 chip_smoke.py --deform-kernels [ROOT]
     python3 chip_smoke.py --page
     python3 chip_smoke.py --document
+    python3 chip_smoke.py --cli
 
 With no arguments it runs the phases below, each printed as it runs; any
 failure exits non-zero.  ``--page`` runs phase 8 alone, ``--document``
-phase 9.  ``--fused-kernels [ROOT]`` runs only phase 7's
+phase 9, ``--cli`` phase 9's analyzer setup and then phase 10.  ``--fused-kernels [ROOT]`` runs only phase 7's
 bottleneck kernels at their eleven shapes and the fused DBNet forward's
 device busy, and ``--deform-kernels [ROOT]`` only phase 2's
 ms_deformable_attention lines at its three shapes, on the package of this checkout or of another
@@ -205,6 +206,26 @@ each ends with a JSON line of its times.
    share, and the detector and layout analyzer on the analyzer's two
    threads against new ones and against each alone (the detector also on
    a new thread, with cuDNN on and off).
+10. The CLI backend (``yomitoku_tpu_torch.cli.main``), the CUDA defaults:
+   the PDF engine's host C++ (rasterizer, CCITT, JBIG2) built with g++,
+   demo/sample.pdf (2 pages) and demo/sample_scan.pdf (1 CCITT page)
+   rendered at 200 dpi with the port's ``load_pdf`` (3556x2667, ink on
+   every page, ms/page); then ``main()`` in this process on
+   demo/sample.pdf with ``-d cuda``, each analyzer the CLI builds given
+   phase 9's weights and painted detector after its own construction.
+   Path ``cli``: the first ``-f json`` run, counted (kernels 1-5 each
+   launched, no bf16 launch on an FMA or scalar route), each page's JSON
+   equal to ``convert_json`` of that analyzer's ``__call__`` on the same
+   rendered page, and ``batch`` on its two pages at max_in_flight 1
+   against 4 (pages/s); then ``-f json`` again (pages/s end to end, and per
+   page the construction, render, ``batch`` and export), once under
+   torch.profiler (device idle share), ``-f md -v``, ``-f csv``,
+   ``-f pdf`` (the searchable-PDF writer's ms), ``-f pdf --combine``
+   (re-opened with the port's PdfDocument: 2 pages whose text layers hold
+   every word of the JSON pages), ``-f json`` on demo/sample_scan.pdf and
+   ``-f html`` where lxml imports; every output file present and not
+   empty, under build/chip_smoke/cli/, the numbers in
+   build/chip_smoke/cli.json.
 
 Phase 3 pins YOMITOKU_TPU_INT8_KV=0 (the full cache, which its f32
 card-vs-CPU check compares with the CPU's), phase 6 leaves it at its
@@ -3211,6 +3232,23 @@ def check_same(got, want, what):
     check(g == w, f"{what}: {_first_difference(g, w)}")
 
 
+def prepared_analyzer(table):
+    """Phase 9's analyzer: ``DocumentAnalyzer(device="cuda")`` with its
+    score heads made findable on ``table`` (sample_table.png) and the
+    detector painted (paint_detector)."""
+    from yomitoku_tpu_torch.document_analyzer import DocumentAnalyzer
+
+    t0 = time.perf_counter()
+    da = DocumentAnalyzer(device="cuda")
+    findable(da, table)
+    paint_detector(da.text_detector)
+    log(f"document: DocumentAnalyzer(device='cuda') built and its score heads spread, "
+        f"balanced and thinned in {time.perf_counter() - t0:.1f} s (dbnetv2_1, "
+        f"parseq-large-v4_1, rtdetrv2v2, rtdetrv2; seed-0 weights; the detector's map "
+        f"painted with each page's lines after its forward)")
+    return da
+
+
 def document_pages(ctx, sample, table):
     """The three pages of phase 9 and five more cut from them with other
     line counts (several share a recognizer batch bucket, so an AR loop)."""
@@ -3343,14 +3381,7 @@ def _phase_document(card, ctx):
     numbers = {}
     sample = cv2.imread(str(ROOT / "demo" / "sample_text.png"))
     table = cv2.imread(str(ROOT / "demo" / "sample_table.png"))
-    t0 = time.perf_counter()
-    da = DocumentAnalyzer(device="cuda")
-    findable(da, table)
-    paint_detector(da.text_detector)
-    log(f"document: DocumentAnalyzer(device='cuda') built and its score heads spread, "
-        f"balanced and thinned in {time.perf_counter() - t0:.1f} s (dbnetv2_1, "
-        f"parseq-large-v4_1, rtdetrv2v2, rtdetrv2; seed-0 weights; the detector's map "
-        f"painted with each page's lines after its forward)")
+    da = ctx["document_analyzer"] = prepared_analyzer(table)
     pages = document_pages(ctx, sample, table)
     main = ("sample_table", "sample_text", "lines_136")
 
@@ -3553,6 +3584,380 @@ def timed_ar_lock(model):
         model._ar_lock = real
 
 
+# ------------------------------------------------------------------ phase 10
+
+
+#: the PDFs phase 10 renders and runs the CLI on, with their page counts
+CLI_PDFS = {"sample": ("sample.pdf", 2), "scan": ("sample_scan.pdf", 1)}
+#: the host C++ libraries of the PDF engine
+PDF_LIBRARIES = ("rasterizer", "ccitt", "jbig2")
+#: phase 10's outputs
+CLI_OUT = OUT / "cli"
+
+
+def text_layer(path):
+    """The strings a searchable PDF's text layer shows, per page: each
+    ``Tj`` operand of the page's content decoded through its font's
+    ToUnicode CMap (the port's own PDF parser)."""
+    from yomitoku_tpu_torch.data.pdf.cos import Keyword, Name, Parser
+    from yomitoku_tpu_torch.data.pdf.document import PdfDocument
+    from yomitoku_tpu_torch.data.pdf.render import _parse_tounicode
+
+    doc = PdfDocument(str(path))
+    pages = []
+    for i in range(doc.n_pages):
+        page = doc.get_page(i)
+        resources = doc.resolve(page.get(Name("Resources"))) or {}
+        cmaps = {}
+        for name, font in (doc.resolve(resources.get(Name("Font"))) or {}).items():
+            tounicode = doc.resolve(font).get(Name("ToUnicode"))
+            cmaps[str(name)] = (_parse_tounicode(doc.get_stream_data(doc.resolve(tounicode)))
+                                if tounicode is not None else {})
+        parser = Parser(doc.get_page_content(page), 0)
+        operands, cmap, shown = [], {}, []
+        while True:
+            parser.skip_ws()
+            if parser.pos >= len(parser.data):
+                break
+            obj = parser.parse_object()
+            if not isinstance(obj, Keyword):
+                operands.append(obj)
+                continue
+            if str(obj) == "Tf":
+                cmap = cmaps.get(str(operands[0]), {})
+            elif str(obj) == "Tj":
+                codes = operands[-1]
+                shown.append("".join(chr(cmap.get(int.from_bytes(codes[j:j + 2], "big"),
+                                                  0xFFFD))
+                                     for j in range(0, len(codes), 2)))
+            operands = []
+        pages.append(shown)
+    return pages
+
+
+def words_missing_from_layer(shown, doc):
+    """The words of ``doc`` (a DocumentAnalyzerSchema) that the page's text
+    layer ``shown`` (text_layer) does not hold -> (missing contents, the
+    number of words looked for).  Looked for: every word the writer places,
+    those inside a paragraph, cell or figure paragraph (0.7-contained)
+    with text and a box of some height and width; a horizontal word as one
+    string, a vertical one (in full width) as a run of one-character
+    strings; a character the embedded font has no glyph for matches any."""
+    import re
+
+    from yomitoku_tpu_torch.utils import searchable_pdf
+    from yomitoku_tpu_torch.utils.jp_text import to_full_width
+
+    cmap = searchable_pdf._EmbeddedFont(searchable_pdf.FONT_PATH).cmap
+    whole = "\x00".join(shown)
+    runs = "".join(shown)  # a vertical word's characters, one string each
+    missing, placed = [], 0
+    # a word inside a cell and a paragraph is placed twice, looked for once
+    words = {id(w): w for w in searchable_pdf._collect_sorted_words(doc)}
+    for word in words.values():
+        x1, y1, x2, y2 = searchable_pdf._poly2rect(word.points)
+        if not word.content or x2 <= x1 or y2 <= y1:
+            continue
+        placed += 1
+        vertical = word.direction == "vertical"
+        text = to_full_width(word.content) if vertical else word.content
+        pattern = "".join(re.escape(c) if cmap.get(ord(c), 0) else "." for c in text)
+        if not re.search(pattern, runs if vertical else whole, re.S):
+            missing.append(word.content)
+    return missing, placed
+
+
+class _TimedPages:
+    """A PdfPageIterator whose iteration sums the seconds its pages take
+    to render."""
+
+    def __init__(self, pages, clock):
+        self.pages, self.clock = pages, clock
+
+    def __len__(self):
+        return len(self.pages)
+
+    def __getitem__(self, index):
+        return self.pages[index]
+
+    def __iter__(self):
+        it = iter(self.pages)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                page = next(it)
+            except StopIteration:
+                return
+            finally:
+                self.clock["render_s"] += time.perf_counter() - t0
+            yield page
+
+
+@contextlib.contextmanager
+def cli_harness(src):
+    """The CLI module with its DocumentAnalyzer, load_pdf and
+    create_searchable_pdf wrapped: after the CLI's own construction, each
+    analyzer takes ``src``'s weights (phase 9's findable score heads) and
+    its detector is painted (paint_detector); the wrappers sum the seconds
+    of construction, PDF render, ``batch`` and the searchable-PDF writer
+    into the yielded clock, and list the analyzers built with their
+    arguments."""
+    import torch
+
+    from yomitoku_tpu_torch.cli import main as cli
+
+    clock = dict(construct_s=0.0, render_s=0.0, analyze_s=0.0, writer_s=0.0, built=[])
+    real = (cli.DocumentAnalyzer, cli.load_pdf, cli.create_searchable_pdf)
+
+    def make(**kwargs):
+        t0 = time.perf_counter()
+        da = real[0](**kwargs)
+        same_weights(da, src)
+        paint_detector(da.text_detector)
+        batch = da.batch
+
+        def timed_batch(imgs, *args, **kw):
+            t1 = time.perf_counter()
+            out = batch(imgs, *args, **kw)
+            torch.cuda.synchronize()
+            clock["analyze_s"] += time.perf_counter() - t1
+            return out
+
+        da.batch = timed_batch
+        clock["built"][:] = [(kwargs, da)]  # the latest only: the card keeps one
+        clock["construct_s"] += time.perf_counter() - t0
+        return da
+
+    def writer(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real[2](*args, **kwargs)
+        clock["writer_s"] += time.perf_counter() - t0
+        return out
+
+    cli.DocumentAnalyzer = make
+    cli.load_pdf = lambda *a, **k: _TimedPages(real[1](*a, **k), clock)
+    cli.create_searchable_pdf = writer
+    try:
+        yield cli, clock
+    finally:
+        cli.DocumentAnalyzer, cli.load_pdf, cli.create_searchable_pdf = real
+
+
+def run_cli(cli, clock, name, pdf, flags):
+    """``yomitoku_torch demo/<pdf> <flags> -o build/chip_smoke/cli/<name>
+    -d cuda`` in this process -> (seconds, the run's clock, its files)."""
+    out = CLI_OUT / name
+    argv = sys.argv
+    sys.argv = ["yomitoku_torch", str(ROOT / "demo" / pdf), *flags, "-o", str(out),
+                "-d", "cuda"]
+    before = {k: v for k, v in clock.items() if k != "built"}
+    t0 = time.perf_counter()
+    try:
+        cli.main()
+    finally:
+        sys.argv = argv
+    import torch
+
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    spent = {k: clock[k] - before[k] for k in before}
+    files = sorted(p for p in out.rglob("*") if p.is_file())
+    check(files and all(p.stat().st_size > 0 for p in files),
+          f"cli {name}: an output is missing or empty: {[p.name for p in files]}")
+    return took, spent, files
+
+
+def expected_cli_files(stem, n_pages, ext, vis=False, combine=False):
+    names = [f"demo_{stem}.{ext}"] if combine else [
+        f"demo_{stem}_p{i}.{ext}" for i in range(1, n_pages + 1)]
+    if vis:
+        names += [f"demo_{stem}_p{i}_{kind}.jpg" for i in range(1, n_pages + 1)
+                  for kind in ("ocr", "layout")]
+    return sorted(names)
+
+
+def phase_cli(card, ctx):
+    """The CLI backend (yomitoku_tpu_torch.cli.main) on demo/sample.pdf,
+    the CUDA defaults -> (launches by path, numbers)."""
+    with _env(YOMITOKU_TPU_INT8_KV=None, YOMITOKU_TPU_INT8_ENCODER=None,
+              YOMITOKU_TPU_HOST_CROPS=None, YOMITOKU_TPU_DEVICE_CROPS=None,
+              YOMITOKU_TPU_REC_WIDTH_BUCKETS=None):
+        return _phase_cli(card, ctx)
+
+
+def _phase_cli(card, ctx):
+    import shutil
+
+    import cv2
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from yomitoku_tpu_torch import ops
+    from yomitoku_tpu_torch.data import load_pdf
+    from yomitoku_tpu_torch.export import convert_json
+    from yomitoku_tpu_torch.ops import _build
+
+    numbers = {}
+    # the PDF engine's host C++, built here (g++; loaded only where a build
+    # of the same sources exists), then the two demo PDFs
+    built = {}
+    for stem in PDF_LIBRARIES:
+        t0 = time.perf_counter()
+        _build.host_library(stem)
+        built[stem] = time.perf_counter() - t0
+    numbers["host_build_s"] = dict(built, total=sum(built.values()))
+    log(f"cli: host C++ of the PDF engine built and loaded in "
+        f"{numbers['host_build_s']['total']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()) + ")")
+    rendered = {}
+    for key, (pdf, n) in CLI_PDFS.items():
+        t0 = time.perf_counter()
+        pages = list(load_pdf(ROOT / "demo" / pdf, dpi=200))
+        ms = (time.perf_counter() - t0) * 1e3 / max(len(pages), 1)
+        ink = [float((p.mean(axis=2) < 128).mean()) for p in pages]
+        log(f"cli: demo/{pdf} rendered at 200 dpi: {len(pages)} pages "
+            f"{[p.shape for p in pages]}, {ms:.0f} ms/page, ink share "
+            f"{', '.join(f'{v:.3f}' for v in ink)}")
+        check(len(pages) == n and all(p.shape == (3556, 2667, 3) and p.dtype.name == "uint8"
+                                      for p in pages), f"demo/{pdf}: pages of the wrong shape")
+        check(all(v > 0.005 for v in ink), f"demo/{pdf}: a rendered page is blank")
+        rendered[key] = pages
+        numbers[f"render_ms_per_page_{key}"] = ms
+
+    src = ctx.get("document_analyzer")
+    if src is None:
+        src = ctx["document_analyzer"] = prepared_analyzer(
+            cv2.imread(str(ROOT / "demo" / "sample_table.png")))
+    shutil.rmtree(CLI_OUT, ignore_errors=True)
+    try:
+        import lxml  # noqa: F401
+        html = True
+    except ImportError:
+        html = False
+    sample, n = CLI_PDFS["sample"]
+    paths, runs = {}, {}
+    with cli_harness(src) as (cli, clock):
+        # path cli: the first run, counted
+        ops.reset_launches()
+        took, spent, files = run_cli(cli, clock, "json", sample, ["-f", "json"])
+        torch.cuda.synchronize()
+        paths["cli"] = dict(ops.launches)
+        log(f"cli: path cli launches {paths['cli']}")
+        check(all(paths["cli"][k] > 0 for k in DOCUMENT_KERNELS),
+              f"a kernel of the CLI path was never launched: {paths['cli']}")
+        check_attention_routes("cli")
+        check_gemm_routes("cli")
+        check_deform_routes("cli", paths["cli"]["ms_deformable_attention"])
+        runs["json"] = dict(s=took, **spent)
+        kwargs, da = clock["built"][-1]
+        check(kwargs["device"] == "cuda" and kwargs["num_devices"] is None
+              and kwargs["configs"]["ocr"]["text_recognizer"]["model_name"]
+              == "parseq-large-v4_1"
+              and kwargs["configs"]["ocr"]["text_detector"]["model_name"] == "dbnetv2_1",
+              f"cli: the analyzer was built with {kwargs}")
+        check([p.name for p in files] == expected_cli_files("sample", n, "json"),
+              f"cli json: files {[p.name for p in files]}")
+        docs = []
+        for i, (page, path) in enumerate(zip(rendered["sample"], files), 1):
+            doc = da(page)[0]
+            want = convert_json(doc, None, False, page, False).model_dump()
+            got = json.loads(path.read_text(encoding="utf-8"))
+            check(got == want, f"cli json page {i} against __call__: "
+                  f"{_first_difference(got, want)}")
+            check(doc.words, f"cli json page {i}: no words")
+            docs.append(doc)
+        log(f"cli: -f json: each page's JSON equals convert_json of the analyzer's "
+            f"__call__ on the same rendered page ({[len(d.words) for d in docs]} words, "
+            f"{[len(d.paragraphs) for d in docs]} paragraphs, "
+            f"{[len(d.tables) for d in docs]} tables)")
+        # the CLI's chunk (here both pages) through batch at its default
+        # max_in_flight against one page at a time, on the same analyzer
+        secs = interleaved({k: (lambda k=k: da.batch(rendered["sample"], max_in_flight=k))
+                            for k in (1, IN_FLIGHT)}, runs=3)
+        numbers["chunk_pages_s"] = {str(k): n / v for k, v in secs.items()}
+        log(f"cli: batch of sample.pdf's {n} pages: {n / secs[1]:.3f} pages/s at "
+            f"max_in_flight=1, {n / secs[IN_FLIGHT]:.3f} at {IN_FLIGHT} (the CLI's default; "
+            f"median of 3, in turns); card {card}")
+
+        # timed: a second -f json run, and one under torch.profiler
+        took, spent, _ = run_cli(cli, clock, "json_warm", sample, ["-f", "json"])
+        runs["json_warm"] = dict(s=took, **spent)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            took, spent, _ = run_cli(cli, clock, "json_profiled", sample, ["-f", "json"])
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e6
+        runs["json_profiled"] = dict(s=took, device_busy_s=busy, idle_share=1 - busy / took,
+                                     **spent)
+
+        for name, flags, stem, kw in (
+                ("md_vis", ["-f", "md", "-v"], "sample", dict(ext="md", vis=True)),
+                ("csv", ["-f", "csv"], "sample", dict(ext="csv")),
+                ("pdf", ["-f", "pdf"], "sample", dict(ext="pdf")),
+                ("pdf_combine", ["-f", "pdf", "--combine"], "sample",
+                 dict(ext="pdf", combine=True)),
+                ("scan", ["-f", "json"], "sample_scan", dict(ext="json")),
+                *([("html", ["-f", "html"], "sample", dict(ext="html"))] if html else [])):
+            pdf = CLI_PDFS["scan"][0] if stem == "sample_scan" else sample
+            took, spent, files = run_cli(cli, clock, name, pdf, flags)
+            runs[name] = dict(s=took, **spent)
+            want = expected_cli_files(stem, CLI_PDFS["scan" if stem == "sample_scan"
+                                                     else "sample"][1], **kw)
+            check([p.name for p in files] == want,
+                  f"cli {name}: files {[p.name for p in files]} against {want}")
+            log(f"cli: {' '.join(flags)} on demo/{pdf}: {took:.2f} s, "
+                f"{len(files)} files, {sum(p.stat().st_size for p in files)} bytes")
+        if not html:
+            log("cli: -f html not run: lxml does not import here")
+
+    del da, src
+    torch.cuda.empty_cache()
+
+    # the searchable PDF: two pages whose text layers hold the words
+    combined = CLI_OUT / "pdf_combine" / "demo_sample.pdf"
+    layer = text_layer(combined)
+    check(len(layer) == n, f"searchable PDF: {len(layer)} pages, want {n}")
+    placed = []
+    for i, (shown, doc) in enumerate(zip(layer, docs), 1):
+        missing, looked_for = words_missing_from_layer(shown, doc)
+        check(not missing and looked_for > 0, f"searchable PDF page {i}: of "
+              f"{looked_for} words, not in the text layer: {missing[:5]}")
+        placed.append(f"{looked_for} of {len(doc.words)}")
+    log(f"cli: -f pdf --combine: {n} pages, their text layers ({[len(s) for s in layer]} "
+        f"strings) hold every word the writer places ({', '.join(placed)} words: those "
+        f"inside a paragraph, cell or figure); the writer took "
+        f"{runs['pdf_combine']['writer_s'] * 1e3:.0f} ms for {n} pages")
+
+    numbers["runs"] = runs
+    warm = runs["json_warm"]
+    pages_s = n / warm["s"]
+    other = warm["s"] - warm["construct_s"] - warm["render_s"] - warm["analyze_s"]
+    numbers["json"] = dict(
+        pages=n, pages_s=pages_s, pages_s_without_construction=n / (
+            warm["s"] - warm["construct_s"]),
+        per_page_ms=dict(construct=warm["construct_s"] * 1e3 / n,
+                         render=warm["render_s"] * 1e3 / n,
+                         analyzer=warm["analyze_s"] * 1e3 / n,
+                         export_and_rest=other * 1e3 / n),
+        cold_s=runs["json"]["s"], idle_share=runs["json_profiled"]["idle_share"],
+        device_busy_s=runs["json_profiled"]["device_busy_s"],
+        writer_ms_per_page=runs["pdf"]["writer_s"] * 1e3 / n)
+    j = numbers["json"]
+    log(f"cli: yomitoku_torch demo/sample.pdf -f json: {pages_s:.3f} pages/s end to end "
+        f"({warm['s']:.2f} s for {n} pages, the analyzer's construction included; "
+        f"{j['pages_s_without_construction']:.3f} pages/s without it; first run "
+        f"{j['cold_s']:.2f} s); per page: construction {j['per_page_ms']['construct']:.0f} ms, "
+        f"PDF render {j['per_page_ms']['render']:.0f} ms, analyzer (batch) "
+        f"{j['per_page_ms']['analyzer']:.0f} ms, export and the rest "
+        f"{j['per_page_ms']['export_and_rest']:.0f} ms; searchable-PDF writer "
+        f"{j['writer_ms_per_page']:.0f} ms/page; card {card}")
+    log(f"cli: one -f json run under torch.profiler: {runs['json_profiled']['s']:.2f} s wall, "
+        f"device busy {j['device_busy_s']:.3f} s, idle share {j['idle_share']:.3f}; "
+        f"card {card}")
+    (OUT / "cli.json").write_text(json.dumps(numbers, indent=1))
+    return paths, numbers
+
+
 def fused_kernels_only(root):
     """``--fused-kernels [ROOT]``: kernels 10 and 11 at their eleven shapes
     (against their plain versions, then timed against the unfused cuDNN
@@ -3627,6 +4032,31 @@ def page_only(root):
     return 0
 
 
+def cli_only(root):
+    """``--cli``: phase 9's analyzer setup (prepared_analyzer), then phase
+    10 (the CLI backend on demo/sample.pdf), on this checkout's package."""
+    from yomitoku_tpu_torch.ops import _build
+
+    if root != ROOT:
+        raise SmokeFailure("--cli runs on this checkout only")
+    card = card_line()
+    log(f"card: {card}")
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    with _env(YOMITOKU_TPU_INT8_KV=None, YOMITOKU_TPU_INT8_ENCODER=None,
+              YOMITOKU_TPU_HOST_CROPS=None, YOMITOKU_TPU_DEVICE_CROPS=None,
+              YOMITOKU_TPU_REC_WIDTH_BUCKETS=None):
+        import cv2
+
+        ctx = {"document_analyzer": prepared_analyzer(
+            cv2.imread(str(ROOT / "demo" / "sample_table.png")))}
+    paths, numbers = phase_cli(card, ctx)
+    log(card)
+    print(json.dumps({"launches_by_path": paths, "cli": numbers}), flush=True)
+    return 0
+
+
 def document_only(root):
     """``--document``: phase 9 (the DocumentAnalyzer path) alone, on this
     checkout's package, with the synthetic 136-line page of phase 3."""
@@ -3648,7 +4078,7 @@ def document_only(root):
 
 #: the modes that run one part on the package at ROOT
 MODES = {"--fused-kernels": fused_kernels_only, "--deform-kernels": deform_kernels_only,
-         "--page": page_only, "--document": document_only}
+         "--page": page_only, "--document": document_only, "--cli": cli_only}
 
 
 def main():
@@ -3675,7 +4105,7 @@ def main():
             return 1
     if args:
         log(f"FAIL: unknown arguments {args} (none, or --fused-kernels [ROOT], "
-            "--deform-kernels [ROOT], --page or --document)")
+            "--deform-kernels [ROOT], --page, --document or --cli)")
         return 1
     try:
         card = phase_card()
@@ -3693,6 +4123,8 @@ def main():
         paths.update(page_paths)
         document_paths, document_numbers = phase_document(card, ctx)
         paths.update(document_paths)
+        cli_paths, cli_numbers = phase_cli(card, ctx)
+        paths.update(cli_paths)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1
@@ -3702,6 +4134,7 @@ def main():
     (OUT / "fused_backbone.json").write_text(json.dumps(fused_numbers, indent=1))
     (OUT / "page_route.json").write_text(json.dumps(page_numbers, indent=1))
     (OUT / "document.json").write_text(json.dumps(document_numbers, indent=1))
+    (OUT / "cli.json").write_text(json.dumps(cli_numbers, indent=1))
     log(card)  # as nvidia-smi prints it: name, power limit
     for name, at in layout_kernels.items():
         shaped.setdefault(name, {}).update(at)

@@ -2,12 +2,14 @@
 yomitoku_tpu/data/functions.py): the detector's shortest-edge resize, the
 ImageNet statistics DBNet standardises with, and the crop, rotate and pad
 steps of the recognizer's ``ParseqDataset``; ``load_image`` and
-``validate_image`` re-exported from ``.image``, as the JAX module does."""
+``validate_image`` re-exported from ``.image``, and ``load_pdf`` and
+``PdfPageIterator`` from ``.pdf``, as the JAX module does."""
 
 import cv2
 import numpy as np
 
 from .image import load_image, validate_image  # re-export  # noqa: F401
+from .pdf import load_pdf, PdfPageIterator  # re-export  # noqa: F401
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)

@@ -8,8 +8,9 @@ at the repository root, named by a hash of the sources and flags: a
 changed source rebuilds, an unchanged one reuses the library.  A failed
 build raises with nvcc's output; nothing falls back to the plain version.
 
-The host C++ of the port (``csrc/*.cpp``: the DBNet contours) builds the
-same way with the host's g++, one library per source (``host_library``).
+The host C++ of the port (``csrc/*.cpp``: the DBNet contours, and the PDF
+engine's rasterizer, CCITT and JBIG2 decoders) builds the same way with
+the host's g++, one library per source (``host_library``).
 
 Nothing here runs at import time: the first kernel launch builds.
 """
@@ -17,6 +18,7 @@ Nothing here runs at import time: the first kernel launch builds.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -186,6 +188,7 @@ def library() -> _Library:
 
 HOST_FLAGS = ("-O2", "-shared", "-fPIC")
 _HOST = {}
+_INCLUDE = re.compile(r'^#include "([^"]+)"', re.M)
 
 
 def host_library(stem: str) -> ctypes.CDLL:
@@ -202,7 +205,12 @@ def host_library(stem: str) -> ctypes.CDLL:
 
 def _build_host(stem):
     src = CSRC / f"{stem}.cpp"
-    h = hashlib.sha256(" ".join(HOST_FLAGS).encode() + src.read_bytes())
+    text = src.read_bytes()
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode() + text)
+    # a source that includes another (jbig2.cpp includes ccitt.cpp)
+    # rebuilds when either changes
+    for name in _INCLUDE.findall(text.decode("utf-8", "replace")):
+        h.update((CSRC / name).read_bytes())
     out = BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
