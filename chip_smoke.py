@@ -7,13 +7,15 @@
     python3 chip_smoke.py --page
     python3 chip_smoke.py --document
     python3 chip_smoke.py --cli
+    python3 chip_smoke.py --semantic
 
 With no arguments it runs the phases below, each printed as it runs; any
 failure exits non-zero.  ``--page`` runs phase 8 alone, ``--document``
-phase 9, ``--cli`` phase 9's analyzer setup and then phase 10.  ``--fused-kernels [ROOT]`` runs only phase 7's
+phase 9, ``--cli`` phase 9's analyzer setup and then phase 10,
+``--semantic`` phase 9's analyzer setup and then phase 11.  ``--fused-kernels [ROOT]`` runs only phase 7's
 bottleneck kernels at their eleven shapes and the fused DBNet forward's
 device busy, and ``--deform-kernels [ROOT]`` only phase 2's
-ms_deformable_attention lines at its three shapes, on the package of this checkout or of another
+ms_deformable_attention lines at its four shapes, on the package of this checkout or of another
 commit unpacked at ROOT (git archive), to compare two trees on one card;
 each ends with a JSON line of its times.
 
@@ -41,7 +43,8 @@ each ends with a JSON line of its times.
    warm-up.  The same for the layout kernels at RT-DETR's shapes:
    ``ms_deformable_attention`` at the layout decoder's (B=1, Lq=300), the
    table recognizer's (B=4, Lq=300) and the cell detector's Lq=2500 (stock:
-   ``F.grid_sample`` per level; a line each with the route of the bf16 and
+   ``F.grid_sample`` per level; also the cell detector's four tables at
+   Lq=2500; a line each with the route of the bf16 and
    f32 calls, bf16 and f32 device and per-call times, the tap bytes B Lq
    nh P 4 c itemsize and the achieved tap GB/s beside the bound (the value
    rows the in-map taps need, counted on these inputs, beside the bound
@@ -50,7 +53,8 @@ each ends with a JSON line of its times.
    element off 16-byte alignment, held to the plain version and timed),
    and ``fused_attention_heads`` at the AIFI
    (L=400) and decoder (L=300) self-attention, 8 heads of 32, at B=1 and
-   B=4 (stock: SDPA).  At each attention shape (the refine, AIFI and
+   B=4, and at the cell detector's decoder self-attention over 2,500
+   queries at B=1 and B=4, which must take route "wgmma" (stock: SDPA).  At each attention shape (the refine, AIFI and
    decoder at B=1 and 4, and the ViT's in phase 7) a line ``attention
    ...`` gives the attention kernel's route, its device time against one
    SDPA call's (profiler), its bound and TFLOP/s; at the refine's and the
@@ -226,6 +230,30 @@ each ends with a JSON line of its times.
    ``-f html`` where lxml imports; every output file present and not
    empty, under build/chip_smoke/cli/, the numbers in
    build/chip_smoke/cli.json.
+11. Table semantics (``TableSemanticParser`` on the unfused route), the
+   CUDA defaults: the full-width parser (rtdetrv2v2 layout, the
+   rtdetrv2_beta cell detector at 640x640 with 2,500 queries, dbnetv2_1,
+   parseq-large-v4_1) with phase 9's layout, detector and recognizer
+   weights and painted detector, the cell detections pinned after the real
+   forward, readback and filter to a 4x4 grid and to 4 key-value rows,
+   alternating per table (``utils.synthetic_heads.pinned_filter_packed``).
+   Path ``semantic``: one ``__call__`` on demo/sample_table.png, counted
+   (kernels 1-5 each launched, the deformable kernel 6 times for the layout
+   parser and 6 per cell-detector chunk, no bf16 launch on an FMA or scalar
+   route); the schema with at least one grid and one key-value item, its
+   ids in order; one cell-detector call counted alone (its decoder's
+   self-attention on "wgmma"); ``batch`` of three pages at max_in_flight 1
+   and 4 on the page and the host route, each page equal to its own
+   ``__call__``; ``yomitoku_torch_extract sample_table.png -v -d cuda`` in
+   process with a schema naming cells of the pinned grid and a key (written
+   to build/chip_smoke/semantic/schema.yaml), its parser built by the CLI
+   and given the same weights, its JSON equal to ``run_rule_extraction`` on
+   that parser's own ``__call__`` and every file present and not empty; an
+   f32 cell detector on the card against the CPU on a 640x640 table crop;
+   then ms/page on both routes, the cell detector per call at 1 and 4
+   tables with device busy, the parse's host time, ``batch`` pages/s at 1
+   and 4 in flight and one page's idle share, in
+   build/chip_smoke/semantic.json.
 
 Phase 3 pins YOMITOKU_TPU_INT8_KV=0 (the full cache, which its f32
 card-vs-CPU check compares with the CPU's), phase 6 leaves it at its
@@ -301,12 +329,17 @@ HBM_BYTES_S, BF16_FLOP_S, INT8_OP_S, F32_FLOP_S = 3.35e12, 989e12, 1979e12, 67e1
 # 32, points (4, 4, 4); queries of the layout decoder and the cell detector
 LEVELS, D_DETR, POINTS = ((80, 80), (40, 40), (20, 20)), 256, (4, 4, 4)
 #: (batch, Lq): the layout parser's page, the table recognizer's batch of
-#: TABLE_BOXES crops, and the cell detector's queries
-DEFORM_QUERIES = {"lq300": (1, 300), "b4_lq300": (4, 300), "lq2500": (1, 2500)}
+#: TABLE_BOXES crops, and the cell detector's queries on one and four tables
+DEFORM_QUERIES = {"lq300": (1, 300), "b4_lq300": (4, 300), "lq2500": (1, 2500),
+                  "b4_lq2500": (4, 2500)}
 #: fused_attention_heads at RT-DETR's self-attention: (batch, L of q, k and
-#: v), the page and the table recognizer's batch
+#: v), the page and the table recognizer's batch, and the cell detector's
+#: decoder over 2,500 queries on one and four tables
 RTDETR_ATTENTION = {"aifi": (1, 400), "decoder": (1, 300),
-                    "aifi_b4": (4, 400), "decoder_b4": (4, 300)}
+                    "aifi_b4": (4, 400), "decoder_b4": (4, 300),
+                    "cell_decoder": (1, 2500), "cell_decoder_b4": (4, 2500)}
+#: the attention shapes whose 128-row blocks fill the card: route "wgmma"
+WGMMA_ATTENTION = ("cell_decoder", "cell_decoder_b4")
 #: the fused-backbone path's kernels
 FUSED_KERNELS = ("fused_bottleneck", "fused_identity_stage")
 #: fused_bottleneck at each distinct stride-1 block of DBNet (1600x1184 ->
@@ -1146,6 +1179,8 @@ def phase_layout_kernels(names=None, own=True):
                 res.update(attention_numbers(lambda: kern(*bf, *tail), sdpa_call(*bf, *tail),
                                              kernel_ops(name, bf, tail)["bf16"]))
             log_attention(name, label, res)
+            check(label not in WGMMA_ATTENTION or res["attention_route"] == "wgmma",
+                  f"{name} [{label}]: route {res['attention_route']} (wgmma expected)")
         else:
             with torch.no_grad():
                 res.update(deform_numbers(label, ref, f32, bf, tail, res, own))
@@ -1540,16 +1575,21 @@ def _in_page(schema, w, h, what):
               f"{what}: box {el.box} / score {el.score} off the page")
 
 
-def _rtdetr_f32_vs_cpu(cfg, images, fused=False, page=None):
+def _rtdetr_f32_vs_cpu(cfg, images, fused=False, page=None, what=None):
     """One RT-DETRv2 in f32 on the card and on the CPU, seed-0 weights on
     both: the same top-k selected queries outside near-ties (scores within
     1e-3 of the k-th's magnitude), then, over the queries both sides
     selected (at least 90% of k), logits within 1e-3 of the largest and
-    boxes within 1e-3, matched by query index.  ``fused``: the card runs
+    boxes within 1e-3, matched by query index.  Each side's output rows
+    map to queries by its model's own selection, the same ``torch.topk``
+    call on the same scores on its device: two queries of bit-equal score
+    may come in either order there (numpy's stable sort orders them by
+    index, which parts from the top-k at such ties).  ``fused``: the card runs
     the fused backbone (its switch set by the caller) and the CPU the
     plain versions of its kernels, the gates forced open.  ``page``: a
     padded uint8 page, cropped on each device by the page route
-    (``forward_from_page``) with ``images`` = (maps, out_hw)."""
+    (``forward_from_page``) with ``images`` = (maps, out_hw).  ``what``:
+    the printed line's prefix."""
     import numpy as np
     import torch
 
@@ -1558,13 +1598,14 @@ def _rtdetr_f32_vs_cpu(cfg, images, fused=False, page=None):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    outs, scores = [], []
+    k = cfg.RTDETRTransformerv2.num_queries
+    outs, scores, selected = [], [], []
     kernels = LAYOUT_KERNELS + (("fused_bottleneck",) if fused else ())
     for device in ("cuda", "cpu"):
         model = RTDETRv2(cfg, device=device, dtype=torch.float32)
         seen = {}
         hook = model.decoder.enc_score_head.register_forward_hook(
-            lambda m, i, o: seen.__setitem__("s", o.float().amax(-1)[0].cpu().numpy()))
+            lambda m, i, o: seen.__setitem__("s", o.float().amax(-1)))
         n0 = dict(ops.launches)
         undo = _force_fused_on_cpu() if fused and device == "cpu" else None
         try:
@@ -1580,22 +1621,21 @@ def _rtdetr_f32_vs_cpu(cfg, images, fused=False, page=None):
             torch.cuda.synchronize()
             check(all(ops.launches[k] > n0[k] for k in kernels),
                   f"f32 RT-DETR run missed a kernel: {n0} -> {ops.launches}")
-        outs.append({k: v[0].cpu().numpy() for k, v in out.items()})
-        scores.append(seen["s"])
+        outs.append({name: v[0].cpu().numpy() for name, v in out.items()})
+        scores.append(seen["s"][0].cpu().numpy())
+        selected.append(torch.topk(seen["s"], k, dim=1).indices[0].cpu().numpy())
         del model
-    k = cfg.RTDETRTransformerv2.num_queries
-    (got, want), (s_g, s_c) = outs, scores
-    order_g = np.argsort(-s_g, kind="stable")
-    order_c = np.argsort(-s_c, kind="stable")
+    (got, want), (s_g, s_c), (sel_g, sel_c) = outs, scores, selected
+    order_c = np.argsort(-s_c, kind="stable")  # for the k-th and (k+1)-th scores
     kth = s_c[order_c[k - 1]]
     tie = 1e-3 * abs(kth)
-    differ = set(order_g[:k]) ^ set(order_c[:k])
+    differ = set(sel_g) ^ set(sel_c)
     near = [i for i in differ if abs(s_c[i] - kth) <= tie]
     d_score = float(np.abs(s_g - s_c).max())
     check(len(near) == len(differ),
           f"f32 selected queries differ outside near-ties: {sorted(differ)}")
-    row_g = {q: r for r, q in enumerate(order_g[:k])}
-    row_c = {q: r for r, q in enumerate(order_c[:k])}
+    row_g = {q: r for r, q in enumerate(sel_g)}
+    row_c = {q: r for r, q in enumerate(sel_c)}
     common = sorted(set(row_g) & set(row_c))
     check(len(common) >= 0.9 * k,
           f"f32 card and CPU share only {len(common)} of {k} selected queries")
@@ -1605,7 +1645,8 @@ def _rtdetr_f32_vs_cpu(cfg, images, fused=False, page=None):
     limit = 1e-3 * float(np.abs(want["pred_logits"]).max())
     at = (f"{images[1][0]}x{images[1][1]} from the page" if page is not None
           else f"{images.shape[1]}x{images.shape[2]}")
-    log(f"{'fused' if fused else 'page' if page is not None else 'layout'}: f32 RT-DETRv2 "
+    what = what or ("fused" if fused else "page" if page is not None else "layout")
+    log(f"{what}: f32 RT-DETRv2 "
         f"card vs CPU at {at}: "
         f"selection score max|d| {d_score:.3e}; k-th/(k+1)-th gap "
         f"{kth - s_c[order_c[k]]:.3e}; {len(differ)} selected queries differ"
@@ -3958,6 +3999,321 @@ def _phase_cli(card, ctx):
     return paths, numbers
 
 
+# ------------------------------------------------------------------ phase 11
+
+
+#: the kernels the TableSemanticParser path runs by default
+SEMANTIC_KERNELS = DOCUMENT_KERNELS
+#: phase 11's outputs
+SEMANTIC_OUT = OUT / "semantic"
+#: RT-DETRv2 calls per cell-detector chunk of up to 64 tables: the deformable
+#: kernel in each of the 6 decoder layers; the attention kernel in the AIFI
+#: and the 6 decoder layers
+DEFORM_PER_CALL, ATTENTION_PER_CALL = 6, 7
+
+
+def prepared_semantic_parser(src):
+    """``TableSemanticParser(device="cuda", visualize=False)`` with the four
+    default models (rtdetrv2v2 layout, rtdetrv2_beta cells at 2,500 queries,
+    dbnetv2_1, parseq-large-v4_1), the layout parser, detector and
+    recognizer given ``src``'s (phase 9's analyzer's) weights in place, the
+    detector painted, and the cell detections pinned after the real forward,
+    readback and filter (``utils.synthetic_heads.pinned_filter_packed``:
+    with random weights a 2,500-query head passes hundreds of boxes a table,
+    whose quadratic host filters would time a load no checkpoint makes)."""
+    from yomitoku_tpu_torch.table_semantic_parser import TableSemanticParser
+
+    t0 = time.perf_counter()
+    tsp = TableSemanticParser(device="cuda", visualize=False)
+    semantic_weights(tsp, src)
+    log(f"semantic: TableSemanticParser(device='cuda') built in "
+        f"{time.perf_counter() - t0:.1f} s (rtdetrv2v2, rtdetrv2_beta at "
+        f"{tsp.cell_detector._cfg.RTDETRTransformerv2.num_queries} queries and "
+        f"{tsp.cell_detector._cfg.RTDETRTransformerv2.num_classes} classes, dbnetv2_1, "
+        f"parseq-large-v4_1; the cell detector {tsp.cell_detector.model.param_count():,} "
+        f"params, {tsp.cell_detector.model.dtype}, seed-0 weights)")
+    return tsp
+
+
+def semantic_weights(tsp, src):
+    """``src``'s layout parser, detector and recognizer weights into
+    ``tsp``'s, in place; the detector painted; the cell detections
+    pinned."""
+    from yomitoku_tpu_torch.utils.synthetic_heads import pinned_filter_packed
+
+    for dst, model in ((tsp.layout_parser, src.layout.layout_parser.model),
+                       (tsp.text_detector, src.text_detector.model),
+                       (tsp.text_recognizer, src.text_recognizer.model)):
+        dst.model.load_state_dict(model.state_dict())
+    paint_detector(tsp.text_detector)
+    cd = tsp.cell_detector
+    cd.postprocessor.filter_packed = pinned_filter_packed(cd)
+
+
+def check_semantic_ids(doc, what):
+    """At least one grid and one key-value item; the ids t{i}, g{i},
+    kv{i}, p{i} in order, and every cell id a key of its table."""
+    grids = sum(len(t.grids) for t in doc.tables)
+    kv = sum(len(t.kv_items) for t in doc.tables)
+    check(grids >= 1 and kv >= 1, f"{what}: {grids} grids and {kv} key-value items")
+    check([t.id for t in doc.tables] == [f"t{i}" for i in range(len(doc.tables))]
+          and all([g.id for g in t.grids] == [f"g{i}" for i in range(len(t.grids))]
+                  and [k.id for k in t.kv_items] == [f"kv{i}" for i in range(len(t.kv_items))]
+                  and all(cid == c.id for cid, c in t.cells.items())
+                  for t in doc.tables)
+          and [p.id for p in doc.paragraphs] == [f"p{i}" for i in range(len(doc.paragraphs))],
+          f"{what}: ids out of order")
+    return grids, kv
+
+
+def _semantic_counts(doc):
+    return dict(tables=len(doc.tables), grids=sum(len(t.grids) for t in doc.tables),
+                kv_items=sum(len(t.kv_items) for t in doc.tables),
+                cells=sum(len(t.cells) for t in doc.tables),
+                paragraphs=len(doc.paragraphs), words=len(doc.words))
+
+
+def semantic_schema(doc):
+    """An extraction schema for the rule CLI that names cells of the first
+    pinned grid (a value cell by id, the header cells as table columns) and
+    the key text of the first key-value item."""
+    grid = next(g for t in doc.tables for g in t.grids)
+    kv_table = next(t for t in doc.tables if t.kv_items)
+    key = kv_table.cells[kv_table.kv_items[0].key[0]]
+    return {"fields": [
+        {"name": "grid_value", "cell_id": grid.data[-1][0]},
+        {"name": "kv_key", "description": key.contents or key.id},
+        {"name": "kv_value", "cell_id": kv_table.kv_items[0].value},
+        {"name": "grid", "structure": "table", "columns": [
+            {"name": f"col{i}", "cell_id": header[-1]}
+            for i, header in enumerate(grid.col_headers[:2])]},
+    ]}
+
+
+def phase_semantic(card, ctx):
+    """The TableSemanticParser path, the CUDA defaults (the page route, the
+    int8 memory-K/V cache) -> (launches by path, numbers)."""
+    with _env(YOMITOKU_TPU_INT8_KV=None, YOMITOKU_TPU_INT8_ENCODER=None,
+              YOMITOKU_TPU_HOST_CROPS=None, YOMITOKU_TPU_DEVICE_CROPS=None,
+              YOMITOKU_TPU_REC_WIDTH_BUCKETS=None):
+        return _phase_semantic(card, ctx)
+
+
+def _phase_semantic(card, ctx):
+    import asyncio
+    import copy
+    import shutil
+
+    import cv2
+    import numpy as np
+    import torch
+    import yaml
+
+    from yomitoku_tpu_torch import ops
+    from yomitoku_tpu_torch.cli import extract_rule
+    from yomitoku_tpu_torch.extractor import ExtractionSchema, run_rule_extraction
+    from yomitoku_tpu_torch.ops._common import attention_route_launches
+    from yomitoku_tpu_torch.ops.device_crop import DevicePage
+    from yomitoku_tpu_torch.schemas import TableSemanticParserSchema
+    from yomitoku_tpu_torch.utils.stagetrace import collect
+
+    numbers = {}
+    table = cv2.imread(str(ROOT / "demo" / "sample_table.png"))
+    sample = cv2.imread(str(ROOT / "demo" / "sample_text.png"))
+    src = ctx.get("document_analyzer")
+    if src is None:
+        src = ctx["document_analyzer"] = prepared_analyzer(table)
+    tsp = prepared_semantic_parser(src)
+    cd = tsp.cell_detector
+    layout, _ = tsp.layout_parser(table, page=DevicePage(table, "cuda"))
+    tables = list(layout.tables)
+    check(len(tables) >= 2, f"semantic: the layout parser found {len(tables)} tables on "
+          "sample_table.png (two or more wanted: a grid and key-value items)")
+    chunks = -(-len(tables) // 64)
+
+    # path semantic: one __call__ on the page route, counted
+    paths = {}
+    ops.reset_launches()
+    doc, _, _ = tsp(table)
+    torch.cuda.synchronize()
+    paths["semantic"] = launched = dict(ops.launches)
+    log(f"semantic: path semantic launches {launched} ({len(tables)} tables, "
+        f"{chunks} cell-detector chunk)")
+    check(all(launched[k] > 0 for k in SEMANTIC_KERNELS),
+          f"a kernel of the semantic path was never launched: {launched}")
+    check(launched["ms_deformable_attention"] == DEFORM_PER_CALL * (1 + chunks),
+          f"semantic: {launched['ms_deformable_attention']} deformable launches, "
+          f"{DEFORM_PER_CALL} each for the layout parser and {chunks} cell chunk(s) expected")
+    check_attention_routes("semantic")
+    check_gemm_routes("semantic")
+    check_deform_routes("semantic", launched["ms_deformable_attention"])
+    doc = TableSemanticParserSchema.model_validate(doc.model_dump())
+    grids, kv = check_semantic_ids(doc, "sample_table.png")
+    numbers["counts"] = {"sample_table": _semantic_counts(doc)}
+    SEMANTIC_OUT.mkdir(parents=True, exist_ok=True)
+    doc.to_json(str(SEMANTIC_OUT / "sample_table.json"))
+    log(f"semantic: sample_table.png: {len(doc.tables)} tables ({grids} grids, {kv} key-value "
+        f"items, {sum(len(t.cells) for t in doc.tables)} cells, "
+        f"{sum(bool(c.contents) for t in doc.tables for c in t.cells.values())} with text), "
+        f"{len(doc.paragraphs)} paragraphs, {len(doc.words)} words; ids in order")
+
+    # the cell detector alone on the page's tables, counted: its
+    # self-attention over 2,500 queries on "wgmma"
+    page = DevicePage(table, "cuda")
+    ops.reset_launches()
+    cd(table, tables, page=page)
+    torch.cuda.synchronize()
+    per_call, routes = dict(ops.launches), dict(attention_route_launches)
+    log(f"semantic: one CellDetector call on {len(tables)} tables: launches {per_call}, "
+        f"attention by route {routes}")
+    check(per_call["ms_deformable_attention"] == DEFORM_PER_CALL * chunks
+          and per_call["fused_attention_heads"] == ATTENTION_PER_CALL * chunks
+          and routes["wgmma"] >= (ATTENTION_PER_CALL - 1) * chunks and routes["fma"] == 0,
+          f"semantic: the cell detector's launches {per_call} / routes {routes}: its decoder's "
+          "self-attention did not run on wgmma")
+    numbers["cell_detector_launches_per_call"] = dict(per_call, attention_routes=routes)
+
+    # batch of three pages at max_in_flight 1 and 4 on both routes, each
+    # page equal to its own __call__
+    pages = {"sample_table": table, "sample_text": sample,
+             "sample_table_top": table[: table.shape[0] // 2]}
+    for route in ("page", "host"):
+        with _env(YOMITOKU_TPU_HOST_CROPS="1" if route == "host" else None):
+            want = {n: tsp(p)[0].model_dump() for n, p in pages.items()}
+            for k in (1, IN_FLIGHT):
+                got = tsp.batch(list(pages.values()), max_in_flight=k)
+                for name, (g, _, _) in zip(pages, got):
+                    gd = g.model_dump()
+                    check(gd == want[name], f"semantic: {route} route, batch at "
+                          f"max_in_flight={k}, page {name}: {_first_difference(gd, want[name])}")
+        numbers["counts"].update({f"{route}_{n}": dict(tables=len(d["tables"]))
+                                  for n, d in want.items()})
+    log(f"semantic: batch of {len(pages)} pages at max_in_flight 1 and {IN_FLIGHT}, on the page "
+        "route and on the host route: every page equals its own __call__, bit for bit")
+
+    # the rule-extraction CLI in process on sample_table.png, its parser
+    # built by the CLI and given this parser's weights
+    shutil.rmtree(SEMANTIC_OUT / "cli", ignore_errors=True)
+    schema_path = SEMANTIC_OUT / "schema.yaml"
+    schema_path.write_text(yaml.safe_dump(semantic_schema(doc), allow_unicode=True),
+                           encoding="utf-8")
+    built = []
+    real = extract_rule.TableSemanticParser
+
+    def make(**kwargs):
+        parser = real(**kwargs)
+        semantic_weights(parser, src)
+        built.append((kwargs, parser))
+        return parser
+
+    extract_rule.TableSemanticParser = make
+    argv, sys.argv = sys.argv, ["yomitoku_torch_extract", str(ROOT / "demo" / "sample_table.png"),
+                                "-s", str(schema_path), "-o", str(SEMANTIC_OUT / "cli"), "-v",
+                                "-d", "cuda"]
+    try:
+        t0 = time.perf_counter()
+        extract_rule.main()
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+    finally:
+        sys.argv, extract_rule.TableSemanticParser = argv, real
+    (kwargs, parser), = built
+    check(kwargs == {"configs": {}, "device": "cuda", "visualize": True},
+          f"semantic cli: the parser was built with {kwargs}")
+    files = sorted(p.name for p in (SEMANTIC_OUT / "cli").iterdir())
+    want_files = ["sample_table_p1_extract.json", "sample_table_p1_extract_extract_vis.jpg",
+                  "sample_table_p1_layout.jpg", "sample_table_p1_ocr.jpg"]
+    check(files == want_files and all((SEMANTIC_OUT / "cli" / f).stat().st_size > 0
+                                      for f in files),
+          f"semantic cli: files {files}, {want_files} wanted, none empty")
+    own, _, _ = parser(table)
+    want = run_rule_extraction(own, table, ExtractionSchema.from_yaml(str(schema_path)),
+                               outdir=str(SEMANTIC_OUT / "direct"), filename="sample_table")
+    got = json.loads((SEMANTIC_OUT / "cli" / "sample_table_p1_extract.json").read_text(
+        encoding="utf-8"))
+    check(got == want, f"semantic cli: the JSON against run_rule_extraction: "
+          f"{_first_difference(got, want)}")
+    found = {k: v.get("source") for k, v in got["fields"].items()}
+    log(f"semantic: yomitoku_torch_extract sample_table.png -v -d cuda in process: {cli_s:.2f} s "
+        f"(the parser's construction included), files {files}; the JSON equals "
+        f"run_rule_extraction on the parser's own __call__; fields by source {found}")
+    numbers["cli"] = dict(s=cli_s, sources=found)
+    del parser, built
+    torch.cuda.empty_cache()
+
+    # f32 cell detector on the card against the CPU, 640x640, 2,500 queries
+    x1, y1, x2, y2 = map(int, tables[0].box)
+    crop = cv2.resize(cv2.cvtColor(table[y1:y2, x1:x2], cv2.COLOR_BGR2RGB), (640, 640),
+                      interpolation=cv2.INTER_AREA)
+    _rtdetr_f32_vs_cpu(cd._cfg, np.ascontiguousarray(crop)[None], what="semantic")
+    torch.cuda.empty_cache()
+
+    # timings (not gated)
+    def host(fn):
+        def run():
+            with _env(YOMITOKU_TPU_HOST_CROPS="1"):
+                return fn()
+        return run
+
+    ms = {k: v * 1e3 for k, v in interleaved({
+        "device": lambda: tsp(table), "host": host(lambda: tsp(table))}).items()}
+    numbers["ms_per_page"] = dict(device_route=ms["device"], host_route=ms["host"])
+    log(f"semantic: TableSemanticParser ms/page on sample_table.png, device / host route: "
+        f"{ms['device']:.1f} / {ms['host']:.1f} (median of 5, in turns); card {card}")
+
+    cells = {}
+    four = (tables * 4)[:4]
+    for n, ts in ((1, tables[:1]), (4, four)):
+        wall, device, n_ops, _ = profiled(lambda ts=ts: cd(table, ts, page=page), runs=5)
+        busy = sum(device.values())
+        cells[str(n)] = dict(ms=wall, device_busy_ms=busy, idle_share=1 - busy / wall,
+                             device_ops_per_call=n_ops,
+                             deform_ms=sum(v for k, v in device.items() if DEFORM_KERNEL in k),
+                             attention_ms=sum(v for k, v in device.items() if "attention" in k))
+    numbers["cell_detector"] = cells
+    log("semantic: CellDetector per call (the page route, profiled, 5 calls): " + "; ".join(
+        f"{n} table{'s' if n != '1' else ''} {c['ms']:.1f} ms wall, device busy "
+        f"{c['device_busy_ms']:.1f} ms (idle share {c['idle_share']:.2f}), {c['device_ops_per_call']:.0f} "
+        f"device ops, attention {c['attention_ms']:.3f} ms, deformable {c['deform_ms']:.3f} ms"
+        for n, c in cells.items()) + f"; card {card}")
+
+    results = asyncio.run(tsp.run_models(table))
+    runs = []
+    for _ in range(5):
+        args = copy.deepcopy(results)
+        with collect() as stats:
+            t0 = time.perf_counter()
+            tsp._finalize(table, *args)
+            runs.append(dict(total=time.perf_counter() - t0,
+                             aggregate=stats.seconds[("aggregate", "host")],
+                             parse=stats.seconds[("semantic", "parse")]))
+    host_ms = {k: statistics.median(r[k] for r in runs) * 1e3 for k in runs[0]}
+    numbers["host_parse_ms"] = host_ms
+    log(f"semantic: the parse's host stage on sample_table.png (_finalize, median of 5): "
+        f"{host_ms['total']:.2f} ms, of which the words' aggregation {host_ms['aggregate']:.2f} "
+        f"ms and clustering with the grid and key-value parsers {host_ms['parse']:.2f} ms")
+
+    batch = list(pages.values())
+    s = interleaved({k: (lambda k=k: tsp.batch(batch, max_in_flight=k))
+                     for k in (1, IN_FLIGHT)}, runs=3)
+    numbers["batch_pages_s"] = {str(k): len(batch) / v for k, v in s.items()}
+    log(f"semantic: batch of {len(batch)} pages: {len(batch) / s[1]:.2f} pages/s at "
+        f"max_in_flight=1, {len(batch) / s[IN_FLIGHT]:.2f} at {IN_FLIGHT} (median of 3, in "
+        f"turns); card {card}")
+
+    wall, device, n_ops, _ = profiled(lambda: tsp(table), runs=3)
+    busy = sum(device.values())
+    numbers["profile_sample_table"] = dict(wall_ms=wall, device_busy_ms=busy,
+                                           idle_share=1 - busy / wall,
+                                           device_ops_per_call=n_ops)
+    log(f"semantic: sample_table.png profiled: {wall:.1f} ms/page wall, device busy {busy:.1f} "
+        f"ms (idle share {1 - busy / wall:.2f}), {n_ops:.0f} device ops per page; card {card}")
+    (OUT / "semantic.json").write_text(json.dumps(numbers, indent=1))
+    del tsp
+    torch.cuda.empty_cache()
+    return paths, numbers
+
+
 def fused_kernels_only(root):
     """``--fused-kernels [ROOT]``: kernels 10 and 11 at their eleven shapes
     (against their plain versions, then timed against the unfused cuDNN
@@ -3994,7 +4350,7 @@ def fused_kernels_only(root):
 
 def deform_kernels_only(root):
     """``--deform-kernels [ROOT]``: phase 2's ms_deformable_attention lines
-    alone, at its three shapes (lq300, b4_lq300, lq2500), on the package at
+    alone, at its four shapes (lq300, b4_lq300, lq2500, b4_lq2500), on the package at
     ROOT: this checkout's, or another commit's unpacked beside it, to
     compare the two on one card in turns (the route and scalar-route lines
     only for this checkout's)."""
@@ -4057,6 +4413,32 @@ def cli_only(root):
     return 0
 
 
+def semantic_only(root):
+    """``--semantic``: phase 9's analyzer setup (prepared_analyzer), then
+    phase 11 (the TableSemanticParser path and the rule-extraction CLI), on
+    this checkout's package."""
+    from yomitoku_tpu_torch.ops import _build
+
+    if root != ROOT:
+        raise SmokeFailure("--semantic runs on this checkout only")
+    card = card_line()
+    log(f"card: {card}")
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    with _env(YOMITOKU_TPU_INT8_KV=None, YOMITOKU_TPU_INT8_ENCODER=None,
+              YOMITOKU_TPU_HOST_CROPS=None, YOMITOKU_TPU_DEVICE_CROPS=None,
+              YOMITOKU_TPU_REC_WIDTH_BUCKETS=None):
+        import cv2
+
+        ctx = {"document_analyzer": prepared_analyzer(
+            cv2.imread(str(ROOT / "demo" / "sample_table.png")))}
+    paths, numbers = phase_semantic(card, ctx)
+    log(card)
+    print(json.dumps({"launches_by_path": paths, "semantic": numbers}), flush=True)
+    return 0
+
+
 def document_only(root):
     """``--document``: phase 9 (the DocumentAnalyzer path) alone, on this
     checkout's package, with the synthetic 136-line page of phase 3."""
@@ -4078,7 +4460,8 @@ def document_only(root):
 
 #: the modes that run one part on the package at ROOT
 MODES = {"--fused-kernels": fused_kernels_only, "--deform-kernels": deform_kernels_only,
-         "--page": page_only, "--document": document_only, "--cli": cli_only}
+         "--page": page_only, "--document": document_only, "--cli": cli_only,
+         "--semantic": semantic_only}
 
 
 def main():
@@ -4105,7 +4488,7 @@ def main():
             return 1
     if args:
         log(f"FAIL: unknown arguments {args} (none, or --fused-kernels [ROOT], "
-            "--deform-kernels [ROOT], --page, --document or --cli)")
+            "--deform-kernels [ROOT], --page, --document, --cli or --semantic)")
         return 1
     try:
         card = phase_card()
@@ -4125,6 +4508,8 @@ def main():
         paths.update(document_paths)
         cli_paths, cli_numbers = phase_cli(card, ctx)
         paths.update(cli_paths)
+        semantic_paths, semantic_numbers = phase_semantic(card, ctx)
+        paths.update(semantic_paths)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1
@@ -4135,6 +4520,7 @@ def main():
     (OUT / "page_route.json").write_text(json.dumps(page_numbers, indent=1))
     (OUT / "document.json").write_text(json.dumps(document_numbers, indent=1))
     (OUT / "cli.json").write_text(json.dumps(cli_numbers, indent=1))
+    (OUT / "semantic.json").write_text(json.dumps(semantic_numbers, indent=1))
     log(card)  # as nvidia-smi prints it: name, power limit
     for name, at in layout_kernels.items():
         shaped.setdefault(name, {}).update(at)

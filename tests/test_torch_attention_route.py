@@ -80,7 +80,23 @@ def test_table_batches_take_wgmma(what, lq, sms):
         _takes_wgmma((BF16, BF16, b, 8, lq, 32), sms)
 
 
+@pytest.mark.parametrize("sms", [114, H100_SMS])
+@pytest.mark.parametrize("what,lq", [("cell_aifi", 400), ("cell_decoder", 2500)])
+def test_cell_detector_batches_take_wgmma(what, lq, sms):
+    """The cell detector's AIFI and its decoder's self-attention over 2,500
+    queries at every batch of 1 to 64 tables; the decoder's 20 blocks of
+    128 rows a head fill the card at every batch, so it takes "wgmma"
+    unsplit, its last 80-key tile ragged (2500 = 31 x 80 + 20)."""
+    for b in range(1, 65):
+        _takes_wgmma((BF16, BF16, b, 8, lq, 32), sms)
+        if lq == 2500:
+            assert attention_route(BF16, BF16, b, 8, lq, 32, True, sms) == ("wgmma", 1)
+
+
 @pytest.mark.parametrize("what,args,want", [
+    ("cell_decoder", (BF16, BF16, 1, 8, 2500, 32), ("wgmma", 1)),
+    ("cell_decoder_b4", (BF16, BF16, 4, 8, 2500, 32), ("wgmma", 1)),
+    ("cell_aifi_b4", (BF16, BF16, 4, 8, 400, 32), ("wgmma_small", 1)),
     ("aifi_b2", (BF16, BF16, 2, 8, 400, 32), ("wgmma_small", 2)),
     ("aifi_b8", (BF16, BF16, 8, 8, 400, 32), ("wgmma", 1)),
     ("decoder_b64", (BF16, BF16, 64, 8, 300, 32), ("wgmma", 1)),

@@ -176,6 +176,8 @@ DEFORM_CASES = [
     (1, 1, 2, 32, SMALL, (4, 4, 4), "contiguous"),
     # the table recognizer's page-route batches (region buckets)
     *[(b, 300, 8, 32, DETR, (4, 4, 4), "contiguous") for b in (2, 8, 16, 64)],
+    # the cell detector's 2,500 queries over four tables
+    (4, 2500, 8, 32, DETR, (4, 4, 4), "contiguous"),
 ]
 
 
@@ -281,6 +283,11 @@ ATTENTION_CASES = [
     (16, 8, 300, 300, 32, "heads", "bfloat16", "bfloat16", "wgmma"),
     (64, 8, 400, 400, 32, "heads", "bfloat16", "bfloat16", "wgmma"),
     (64, 8, 300, 300, 32, "heads", "bfloat16", "bfloat16", "wgmma"),
+    # the cell detector's decoder self-attention over 2,500 queries, on
+    # one and four tables: 128-row blocks, the last 80-key tile ragged
+    (1, 8, 2500, 2500, 32, "heads", "bfloat16", "bfloat16", "wgmma"),
+    (4, 8, 2500, 2500, 32, "heads", "bfloat16", "bfloat16", "wgmma"),
+    (1, 8, 2500, 2500, 32, "heads", "float32", "float32", "fma"),
     # the recognizer's 400-wide width bucket: the ViT at 200 tokens and the
     # refine's 101 queries over 200 keys (three 80-key tiles, ragged)
     (128, 8, 200, 200, 96, "packed", "bfloat16", "bfloat16", "wgmma"),
@@ -1140,3 +1147,61 @@ def test_document_batch_on_a_cold_analyzer_equals_calls():
         got = cold.batch(pages, max_in_flight=4)
         assert [g[0].model_dump() for g in got] == want
     assert cold.text_recognizer.model._ar_loops
+
+
+@pytest.mark.cuda
+def test_cell_detector_page_call_f32_matches_cpu():
+    """The cell detector of tests/yaml/layout_small.yaml (128x128, 20
+    queries, 8 classes) in f32 on the card and on the CPU from the same
+    seed, its score head calibrated on the CPU so that cells, headers and
+    empties pass its threshold, on three tables cropped from one DevicePage
+    on each device: the filtered detections (labels equal, scores within
+    1e-3, boxes within 0.05 px) once no score lies within 1e-3 of the
+    threshold, then the cells equal in id, role and box."""
+    _require_cuda()
+    from pathlib import Path
+    from types import SimpleNamespace
+
+    import cv2
+
+    from yomitoku_tpu_torch.ops.device_crop import DevicePage
+    from yomitoku_tpu_torch.table_cell_detector import CellDetector
+
+    cfg = str(Path(__file__).parent / "yaml" / "layout_small.yaml")
+    cpu = CellDetector(path_cfg=cfg, device="cpu", from_pretrained=False)
+    gpu = CellDetector(path_cfg=cfg, device="cuda", dtype=torch.float32,
+                       from_pretrained=False)
+    page = np.full((480, 640, 3), 255, np.uint8)
+    for x in range(20, 620, 60):
+        cv2.line(page, (x, 20), (x, 460), (0, 0, 0), 2)
+    for y in range(20, 460, 40):
+        cv2.line(page, (20, y), (620, y), (0, 0, 0), 2)
+        cv2.putText(page, f"r{y}", (30, y + 28), cv2.FONT_HERSHEY_SIMPLEX, 0.6, (0, 0, 0), 1)
+    tables = [SimpleNamespace(box=b, role=None)
+              for b in ([20, 20, 620, 460], [20, 20, 320, 240], [300, 200, 620, 460])]
+    crops = np.stack([d["array"] for d in cpu.preprocess(page, tables)])
+    head = cpu.model.decoder.dec_score_head[cpu.model.decoder.eval_idx]
+    with torch.no_grad():
+        head.bias.zero_()
+        median = cpu.model(crops)["pred_logits"].flatten(0, 1).median(0).values
+        head.bias.copy_(torch.tensor([-2.0, 0.4, -2.0, 0.2, -2.0, -2.0, -0.5, 0.1]) - median)
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    seen = {}
+    for name, cd in (("cpu", cpu), ("gpu", gpu)):
+        real = cd.postprocessor.filter_packed
+        cd.postprocessor.filter_packed = (
+            lambda packed, sizes, th, _n=name, _r=real:
+            seen.setdefault(_n, (np.asarray(packed), _r(packed, sizes, th)))[1])
+    n0 = ops.launches["ms_deformable_attention"]
+    got = gpu(page, tables, page=DevicePage(page, "cuda"))
+    torch.cuda.synchronize()
+    assert ops.launches["ms_deformable_attention"] > n0
+    want = cpu(page, tables, page=DevicePage(page, "cpu"))
+    (packed_c, filt_c), (packed_g, filt_g) = seen["cpu"], seen["gpu"]
+    assert np.abs(packed_c[..., 1] - cpu.thresh_score).min() > 1e-3
+    for g, w in zip(filt_g, filt_c):
+        assert np.array_equal(g["labels"], w["labels"])
+        assert np.abs(g["scores"] - w["scores"]).max(initial=0) <= 1e-3
+        assert np.abs(g["boxes"] - w["boxes"]).max(initial=0) <= 0.05
+    assert sum(len(t.cells) for t in want) > 10
+    assert [t.model_dump() for t in got] == [t.model_dump() for t in want]

@@ -204,3 +204,45 @@ except ImportError:
                          cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
     assert out.stdout.strip().endswith("ok")
+
+
+def test_extractors_import_without_openai(tmp_path):
+    """The LLM extraction CLI and the extractor import, and extract by
+    rule, on a machine without ``openai``; only a request to a server
+    (``call_llm``) needs it, and then its ImportError says so."""
+    script = f"""
+import sys
+sys.modules["openai"] = None  # import openai raises ImportError
+sys.path.insert(0, {str(ROOT)!r})
+import numpy as np
+import yomitoku_tpu_torch.cli.extract, yomitoku_tpu_torch.cli.extract_rule
+from yomitoku_tpu_torch.extractor import ExtractionSchema, run_rule_extraction
+from yomitoku_tpu_torch.extractor.llm_client import call_llm
+from yomitoku_tpu_torch.schemas import TableSemanticParserSchema
+out = run_rule_extraction(
+    TableSemanticParserSchema(tables=[], paragraphs=[], words=[]),
+    np.zeros((8, 8, 3), np.uint8),
+    ExtractionSchema.model_validate({{"fields": [{{"name": "a", "regex": "x"}}]}}),
+    outdir={str(tmp_path)!r}, filename="o")
+assert out["fields"]["a"]["source"] == "not_found", out
+try:
+    call_llm([{{"role": "user", "content": "x"}}], "m")
+except ImportError as e:
+    print("ok" if "openai package is required" in str(e) else e)
+"""
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_lazy_exports_resolve(probe):
+    """The package's lazy names, the table-semantics classes among them,
+    each resolve to the class of its module, and importing the port loads
+    no ``openai``."""
+    import yomitoku_tpu_torch
+
+    for name in ("CellDetector", "TableSemanticParser", "DocumentAnalyzer"):
+        cls = getattr(yomitoku_tpu_torch, name)
+        assert cls.__name__ == name and cls.__module__.startswith("yomitoku_tpu_torch.")
+    assert "openai" not in probe["loaded"]

@@ -1,6 +1,7 @@
 from .rtdetr import (
     LayoutParserRTDETRv2Config,
     LayoutParserRTDETRv2V2Config,
+    TableCellParserRTDETRv2BetaConfig,
     TableStructureRecognizerRTDETRv2Config,
 )
 from .text_detector import (
@@ -30,4 +31,5 @@ __all__ = [
     "LayoutParserRTDETRv2Config",
     "LayoutParserRTDETRv2V2Config",
     "TableStructureRecognizerRTDETRv2Config",
+    "TableCellParserRTDETRv2BetaConfig",
 ]

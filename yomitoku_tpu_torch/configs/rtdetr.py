@@ -1,9 +1,10 @@
-"""RT-DETRv2 configs of the layout parser and the table-structure
-recognizer (the port's copy of yomitoku_tpu/configs/rtdetr.py; the cell
-detector's config waits for its slice).
+"""RT-DETRv2 configs of the layout parser, the table-structure recognizer
+and the table cell detector (the port's copy of
+yomitoku_tpu/configs/rtdetr.py).
 
 Reference parity: configs/cfg_layout_parser_rtdtrv2*.py,
-cfg_table_structure_recognizer_rtdtrv2.py.
+cfg_table_structure_recognizer_rtdtrv2.py, the cell detector's beta
+config.
 Variants share the architecture and differ in classes/queries/thresholds.
 """
 
@@ -114,3 +115,27 @@ class TableStructureRecognizerRTDETRv2Config:
     HybridEncoder: RTDETREncoder = field(default_factory=RTDETREncoder)
     RTDETRTransformerv2: RTDETRDecoder = field(default_factory=_decoder(3))
     category: List[str] = field(default_factory=lambda: ["row", "col", "span"])
+
+
+@dataclass
+class TableCellParserRTDETRv2BetaConfig:
+    hf_hub_repo: str = "KotaroKinoshita/yomitoku-cell-detector-rtdtrv2-beta"
+    thresh_score: float = 0.5
+    data: RTDETRData = field(default_factory=RTDETRData)
+    PResNet: RTDETRBackbone = field(default_factory=RTDETRBackbone)
+    HybridEncoder: RTDETREncoder = field(default_factory=RTDETREncoder)
+    RTDETRTransformerv2: RTDETRDecoder = field(
+        default_factory=_decoder(8, num_queries=2500, num_denoising=1000)
+    )
+    category: List[str] = field(
+        default_factory=lambda: [
+            "table",
+            "cell",
+            "form",
+            "header",
+            "check",
+            "select",
+            "group",
+            "empty",
+        ]
+    )

@@ -26,7 +26,7 @@ from .schemas import TableStructureRecognizerSchema
 from .utils.misc import calc_intersection, filter_by_flag, is_contained
 
 
-#: the most tables the page route crops and runs in one batch
+#: the most regions (tables) the page route crops and runs in one batch
 REGION_CHUNK = 64
 
 
@@ -34,6 +34,26 @@ class TableStructureRecognizerModelCatalog(BaseModelCatalog):
     def __init__(self):
         super().__init__()
         self.register("rtdetrv2", TableStructureRecognizerRTDETRv2Config, RTDETRv2)
+
+
+def filtered_regions_from_page(model, page, data, out_hw, postprocessor, threshold):
+    """The page route's forward of a region detector (the table recognizer
+    and the cell detector): the regions of ``data`` (each one's "size"
+    (h, w) and "offset" (x, y) on the page) cropped and resized to
+    ``out_hw`` on ``model``'s device, at most REGION_CHUNK at a time, and
+    each chunk's top-k filtered at ``threshold`` -> one {labels, boxes,
+    scores} dict per region, in region coordinates."""
+    page_dev = page_on(page, model.device)
+    filtered = []
+    for s in range(0, len(data), REGION_CHUNK):
+        chunk = data[s:s + REGION_CHUNK]
+        mats, _ = region_mats([(d["offset"][0], d["offset"][1],
+                                d["offset"][0] + d["size"][1],
+                                d["offset"][1] + d["size"][0]) for d in chunk], out_hw)
+        preds = model.forward_from_page(page_dev, mats, out_hw)
+        sizes = [[d["size"][1], d["size"][0]] for d in chunk]
+        filtered.extend(postprocessor(preds, sizes, threshold))
+    return filtered
 
 
 def extract_cells(row_boxes, col_boxes):
@@ -134,23 +154,6 @@ class TableStructureRecognizer(BaseModule):
             out.append({"size": (y2 - y1, x2 - x1), "offset": (x1, y1)})
         return out
 
-    def _filtered_from_page(self, page, data):
-        """The page route's forward: the tables' regions cropped on the
-        device, at most REGION_CHUNK at a time, and each chunk's filtered
-        top-k."""
-        out_hw = tuple(self._cfg.data.img_size)
-        page_dev = page_on(page, self.device)
-        filtered = []
-        for s in range(0, len(data), REGION_CHUNK):
-            chunk = data[s:s + REGION_CHUNK]
-            mats, _ = region_mats([(d["offset"][0], d["offset"][1],
-                                    d["offset"][0] + d["size"][1],
-                                    d["offset"][1] + d["size"][0]) for d in chunk], out_hw)
-            preds = self.model.forward_from_page(page_dev, mats, out_hw)
-            sizes = [[d["size"][1], d["size"][0]] for d in chunk]
-            filtered.extend(self.postprocessor(preds, sizes, self.thresh_score))
-        return filtered
-
     def postprocess(self, preds, data):
         """``preds``: one table's filtered {labels, boxes, scores}."""
         category_elements = {c: [] for c in self.label_mapper.values()}
@@ -203,7 +206,9 @@ class TableStructureRecognizer(BaseModule):
         if data:
             # one batched forward over all tables, one readback for all
             if page is not None:
-                filtered = self._filtered_from_page(page, data)
+                filtered = filtered_regions_from_page(
+                    self.model, page, data, tuple(self._cfg.data.img_size),
+                    self.postprocessor, self.thresh_score)
             else:
                 preds = self.model(np.stack([d["array"] for d in data]))
                 sizes = [[d["size"][1], d["size"][0]] for d in data]

@@ -1,13 +1,18 @@
 """Geometry and small host utilities (the port's copy of what it calls of
 yomitoku_tpu/utils/misc.py): the charset loader, the image writer of the
-figure exports, and the box predicates of the layout and table filters and
-of DocumentAnalyzer's aggregation, with the same integer-truncation
-semantics."""
+figure exports, the box predicates of the layout and table filters and of
+DocumentAnalyzer's aggregation, with the same integer-truncation
+semantics, and the scalar adjacency views and lattice walk of the table
+semantics (``utils.adjacency`` holds the matrix forms)."""
 
+import math
 import os
+from collections import deque
 
 import cv2
 import numpy as np
+
+from .adjacency import bottom_adjacency_matrix, right_adjacency_matrix
 
 
 def load_charset(charset_path):
@@ -97,3 +102,107 @@ def quad_to_xyxy(quad):
     xs = [p[0] for p in quad]
     ys = [p[1] for p in quad]
     return min(xs), min(ys), max(xs), max(ys)
+
+
+def calc_iou(rect_a, rect_b):
+    intersection = calc_intersection(rect_a, rect_b)
+    if intersection is None:
+        return 0
+    ix1, iy1, ix2, iy2 = intersection
+    ax1, ay1, ax2, ay2 = rect_a
+    bx1, by1, bx2, by2 = rect_b
+    inter = (ix2 - ix1) * (iy2 - iy1)
+    a_area = (ax2 - ax1) * (ay2 - ay1)
+    b_area = (bx2 - bx1) * (by2 - by1)
+    return inter / (a_area + b_area - inter)
+
+
+def is_intersected_horizontal(rect_a, rect_b, threshold=0.5):
+    """Vertical-interval overlap >= threshold * min height."""
+    _, ay1, _, ay2 = map(int, rect_a)
+    _, by1, _, by2 = map(int, rect_b)
+    overlap = max(0, min(ay2, by2) - max(ay1, by1))
+    min_height = min(ay2 - ay1, by2 - by1)
+    return (overlap / min_height) >= threshold
+
+
+def is_intersected_vertical(rect_a, rect_b):
+    """Any horizontal-interval overlap at all."""
+    ax1, _, ax2, _ = map(int, rect_a)
+    bx1, _, bx2, _ = map(int, rect_b)
+    return max(0, min(ax2, bx2) - max(ax1, bx1)) != 0
+
+
+def convert_table_array(table):
+    """TableStructure -> 2-D array of cell contents (1-indexed rows/cols)."""
+    arr = [["" for _ in range(table.n_col)] for _ in range(table.n_row)]
+    for cell in table.cells:
+        r0, c0 = cell.row - 1, cell.col - 1
+        for i in range(r0, r0 + cell.row_span):
+            for j in range(c0, c0 + cell.col_span):
+                arr[i][j] = cell.contents
+    return arr
+
+
+def convert_table_array_to_dict(table_array, header_row=1):
+    n_rows = len(table_array)
+    n_cols = len(table_array[0])
+    header_cols = []
+    for i in range(n_cols):
+        header = [table_array[j][i] for j in range(header_row)]
+        header_cols.append("_".join(header) if header else f"col_{i}")
+    out = []
+    for i in range(header_row, n_rows):
+        out.append({header_cols[j]: table_array[i][j] for j in range(n_cols)})
+    return out
+
+
+def clamp(t, lo, hi):
+    return max(lo, min(hi, t))
+
+
+def point_distance(p, q):
+    return math.hypot(p[0] - q[0], p[1] - q[1])
+
+
+def is_right_adjacent(box_a, box_b, dist_threshold=15, overlap_ratio_th=0.1,
+                      ignore_dist_threshold=10, rule="soft"):
+    """Scalar view of ``adjacency.right_adjacency_matrix`` — is box_b the
+    right-neighbor of box_a?  Rules: "soft" allows 1:1/1:N/N:1/N:M joins,
+    "hard" only 1:1, "nest" only the child-side corner condition."""
+    return bool(
+        right_adjacency_matrix(
+            [box_a], [box_b], dist_threshold=dist_threshold,
+            overlap_ratio_th=overlap_ratio_th,
+            ignore_dist_threshold=ignore_dist_threshold, rule=rule,
+        )[0, 0]
+    )
+
+
+def is_bottom_adjacent(box_a, box_b, dist_threshold=15, overlap_ratio_th=0.1,
+                       ignore_dist_threshold=10, rule="soft"):
+    """Scalar view of ``adjacency.bottom_adjacency_matrix`` — is box_b the
+    bottom-neighbor of box_a?"""
+    return bool(
+        bottom_adjacency_matrix(
+            [box_a], [box_b], dist_threshold=dist_threshold,
+            overlap_ratio_th=overlap_ratio_th,
+            ignore_dist_threshold=ignore_dist_threshold, rule=rule,
+        )[0, 0]
+    )
+
+
+def get_line_with_head(dag, head, dir_value: str):
+    """BFS over a networkx DiGraph from ``head`` following edges tagged
+    dir == dir_value."""
+    line_nodes = []
+    queue = deque([head])
+    while queue:
+        u = queue.popleft()
+        if u not in dag.nodes:
+            continue
+        line_nodes.append(u)
+        for v in dag.successors(u):
+            if dag[u][v].get("dir") == dir_value:
+                queue.append(v)
+    return line_nodes

@@ -1,9 +1,10 @@
 """Visualisation of the task results (the port's copy of
 ``det_visualizer``, ``rec_visualizer``, ``layout_visualizer``,
-``table_visualizer`` and ``reading_order_visualizer`` of
-yomitoku_tpu/utils/visualizer.py): detection quads and heatmap, recognized
-text (vertical top-to-bottom where PIL has libraqm), boxes per category,
-table cells and the reading-order arrows, drawn with cv2 and PIL."""
+``table_visualizer``, ``cell_detector_visualizer`` and
+``reading_order_visualizer`` of yomitoku_tpu/utils/visualizer.py):
+detection quads and heatmap, recognized text (vertical top-to-bottom where
+PIL has libraqm), boxes per category, table cells, the cell detector's
+roles and ids, and the reading-order arrows, drawn with cv2 and PIL."""
 
 import cv2
 import numpy as np
@@ -86,6 +87,41 @@ def table_visualizer(img, table):
             out, text, (x1, y1), cv2.FONT_HERSHEY_SIMPLEX, 0.5, (255, 0, 0), 2
         )
     return out
+
+
+def cell_detector_visualizer(img1, img2, cells):
+    out1 = img1.copy()
+    out2 = img2.copy()
+    fill = np.full_like(img1, 255)
+    colors = {
+        "cell": (255, 128, 0),
+        "empty": (255, 0, 255),
+        "header": (0, 255, 0),
+        "group": (255, 255, 0),
+    }
+    for cell in cells:
+        if cell.role in ("cell", "empty", "header"):
+            x1, y1, x2, y2 = map(int, cell.box)
+            color = colors.get(cell.role, (200, 200, 200))
+            fill = cv2.rectangle(fill, (x1, y1), (x2, y2), color, -1)
+            out1 = cv2.rectangle(out1, (x1, y1), (x2, y2), color, 2)
+    out1 = np.where(
+        fill == 255, img1.copy(), cv2.addWeighted(img1.copy(), 0.7, fill, 0.3, 0)
+    )
+    for c in cells:
+        x1, y1, x2, y2 = map(int, c.box)
+        target = out1 if c.role != "group" else out2
+        cv2.rectangle(target, (x1, y1), (x2, y2), colors.get(c.role, (200, 200, 200)), 2)
+        cv2.putText(
+            target,
+            c.id,
+            (int((x1 + x2) / 2), int((y1 + y2) / 2)),
+            cv2.FONT_HERSHEY_SIMPLEX,
+            0.8,
+            (0, 0, 255),
+            2,
+        )
+    return out1, out2
 
 
 def _reading_order_arrows(img, elements, line_color, tip_size):
