@@ -192,9 +192,24 @@ each ends with a JSON line of its times.
    recognizer's score heads spread and balanced (utils.synthetic_heads)
    and thinned to a few tables, figures and paragraphs a page, the
    detector's map painted with the page's lines after its real forward
-   (seed-0 DBNet finds one or two words a page).  Path ``document_page``:
-   demo/sample_table.png, demo/sample_text.png and the synthetic page,
-   counted (kernels 1-5 each launched), each schema validated, inside its
+   (seed-0 DBNet finds one or two words a page; the ink comes from each
+   DevicePage's host image, so the fused program's detector leg waits for
+   nothing).  Path ``document_page``: demo/sample_table.png,
+   demo/sample_text.png and the synthetic page on the fused page route
+   (ops/fused_page.py, the CUDA default), counted (kernels 1-5 each
+   launched), with each page's slots (the tables the host kept, slot
+   hits, tables on the chunked route, saturation warnings; every kept
+   table whose box a slot holds read from it, and min(tables, 4) slot hits
+   wherever the host's filter kept every table the device selected); path
+   ``document_unfused``: the same pages with YOMITOKU_TPU_NO_FUSED_PAGE=1,
+   counted, with the same words and tables as the fused route and the
+   table recognizer's scores within ROUTE_SCORE_LIMIT (cells per table,
+   which bf16 rounds apart by batch size, listed); sample_table.png with
+   its layout pinned to four tables (the four slots): the routes' schemas
+   equal bit for bit; one fused page enqueued under
+   torch.cuda.set_sync_debug_mode("error") (nothing waits for the card
+   before the wire's readback) and profiled (one device-to-host copy per
+   program call); each schema validated, inside its
    page and exported (JSON read back as the schema; Markdown, CSV, HTML
    where lxml imports); sample_table.png's schema equal to the detector,
    layout analyzer, recognizer, ocr_aggregate and aggregate called one at
@@ -204,10 +219,12 @@ each ends with a JSON line of its times.
    page equal to its own ``__call__`` on a second analyzer with the same
    weights, with the AR loop's lock held and waited seconds; the analyzer
    in f32 on the card against the CPU on the top 400 rows of
-   sample_table.png (equal counts, boxes within 1 px, strings equal where
-   the CPU's top-2 gaps are at least 1e-4); then ms/page on both routes,
-   batch pages/s at max_in_flight 1 and 4, one page's device busy and idle
-   share, and the detector and layout analyzer on the analyzer's two
+   sample_table.png, both on the fused route (equal counts, boxes within
+   1 px, strings equal where the CPU's top-2 gaps are at least 1e-4); then
+   ms/page on the fused, unfused and host routes, and on the fused and
+   unfused routes batch pages/s at max_in_flight 1 and 4, one page's device
+   busy, idle share, device ops and device-to-host copies; and the detector
+   and layout analyzer on the analyzer's two
    threads against new ones and against each alone (the detector also on
    a new thread, with cuDNN on and off).
 10. The CLI backend (``yomitoku_tpu_torch.cli.main``), the CUDA defaults:
@@ -218,10 +235,12 @@ each ends with a JSON line of its times.
    demo/sample.pdf with ``-d cuda``, each analyzer the CLI builds given
    phase 9's weights and painted detector after its own construction.
    Path ``cli``: the first ``-f json`` run, counted (kernels 1-5 each
-   launched, no bf16 launch on an FMA or scalar route), each page's JSON
-   equal to ``convert_json`` of that analyzer's ``__call__`` on the same
-   rendered page, and ``batch`` on its two pages at max_in_flight 1
-   against 4 (pages/s); then ``-f json`` again (pages/s end to end, and per
+   launched, no bf16 launch on an FMA or scalar route; the fused route),
+   each page's JSON equal to ``convert_json`` of that analyzer's
+   ``__call__`` on the same rendered page, with each page's slots gated as
+   in phase 9 and the routes compared as there, and
+   on both routes ms/page, ``batch`` on its two pages at max_in_flight 1
+   and 4 (pages/s) and one page profiled; then ``-f json`` again (pages/s end to end, and per
    page the construction, render, ``batch`` and export), once under
    torch.profiler (device idle share), ``-f md -v``, ``-f csv``,
    ``-f pdf`` (the searchable-PDF writer's ms), ``-f pdf --combine``
@@ -230,30 +249,38 @@ each ends with a JSON line of its times.
    ``-f html`` where lxml imports; every output file present and not
    empty, under build/chip_smoke/cli/, the numbers in
    build/chip_smoke/cli.json.
-11. Table semantics (``TableSemanticParser`` on the unfused route), the
-   CUDA defaults: the full-width parser (rtdetrv2v2 layout, the
+11. Table semantics (``TableSemanticParser``), the CUDA defaults (the
+   fused page route, with the cell detector in its region slot): the
+   full-width parser (rtdetrv2v2 layout, the
    rtdetrv2_beta cell detector at 640x640 with 2,500 queries, dbnetv2_1,
    parseq-large-v4_1) with phase 9's layout, detector and recognizer
    weights and painted detector, the cell detections pinned after the real
-   forward, readback and filter to a 4x4 grid and to 4 key-value rows,
-   alternating per table (``utils.synthetic_heads.pinned_filter_packed``).
+   forward, readback and filter to a 4x4 grid or to 4 key-value rows by
+   the parity of the crop's w + h, the same on both routes
+   (``utils.synthetic_heads.pinned_filter_packed``).
    Path ``semantic``: one ``__call__`` on demo/sample_table.png, counted
    (kernels 1-5 each launched, the deformable kernel 6 times for the layout
-   parser and 6 per cell-detector chunk, no bf16 launch on an FMA or scalar
-   route); the schema with at least one grid and one key-value item, its
+   parser, 6 for the four slots and 6 per chunk of the tables the slots
+   missed, no bf16 launch on an FMA or scalar route; the slots gated as in
+   phase 9); path ``semantic_unfused``: the same page with
+   YOMITOKU_TPU_NO_FUSED_PAGE=1, counted (6 per cell-detector chunk), with
+   the same tables, grids and key-value items as the fused route; the
+   fused program's sync check and device-to-host count as in phase 9; the
+   schema with at least one grid and one key-value item, its
    ids in order; one cell-detector call counted alone (its decoder's
    self-attention on "wgmma"); ``batch`` of three pages at max_in_flight 1
-   and 4 on the page and the host route, each page equal to its own
-   ``__call__``; ``yomitoku_torch_extract sample_table.png -v -d cuda`` in
+   and 4 on the fused, the unfused and the host route, each page equal to
+   its own ``__call__``; ``yomitoku_torch_extract sample_table.png -v -d cuda`` in
    process with a schema naming cells of the pinned grid and a key (written
    to build/chip_smoke/semantic/schema.yaml), its parser built by the CLI
    and given the same weights, its JSON equal to ``run_rule_extraction`` on
    that parser's own ``__call__`` and every file present and not empty; an
    f32 cell detector on the card against the CPU on a 640x640 table crop;
-   then ms/page on both routes, the cell detector per call at 1 and 4
-   tables with device busy, the parse's host time, ``batch`` pages/s at 1
-   and 4 in flight and one page's idle share, in
-   build/chip_smoke/semantic.json.
+   then ms/page on the fused, unfused and host routes, the cell detector
+   per call at 1 and 4 tables with device busy, the parse's host time, and
+   on the fused and unfused routes ``batch`` pages/s at 1 and 4 in flight
+   and one page's device busy, idle share, device ops and device-to-host
+   copies, in build/chip_smoke/semantic.json.
 
 Phase 3 pins YOMITOKU_TPU_INT8_KV=0 (the full cache, which its f32
 card-vs-CPU check compares with the CPU's), phase 6 leaves it at its
@@ -276,6 +303,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -3186,28 +3214,222 @@ def _ink_lines(bgr, out_hw):
     return (cv2.erode(lines, rect(1, 3)) * 230).astype(np.uint8)[None]
 
 
+#: the host image of each DevicePage made since paint_detector first ran,
+#: by (device, data pointer) of its padded page (the most recent 64)
+_PAGE_IMAGES = {}
+_PAGE_IMAGES_LOCK = threading.Lock()
+
+
+def _remember_page_images():
+    """Make every DevicePage remember its host image (_PAGE_IMAGES), so that
+    a painted detector finds its page's ink without reading the page back
+    from the card: on the fused route the detector's leg must not wait for
+    the card before the wire's readback."""
+    from yomitoku_tpu_torch.ops.device_crop import DevicePage
+
+    if getattr(DevicePage, "_remembers_images", False):
+        return
+    init = DevicePage.__init__
+
+    def remembering(self, img_bgr, device, align=512):
+        init(self, img_bgr, device, align)
+        with _PAGE_IMAGES_LOCK:
+            _PAGE_IMAGES[(self.dev.device, self.dev.data_ptr())] = img_bgr
+            while len(_PAGE_IMAGES) > 64:
+                _PAGE_IMAGES.pop(next(iter(_PAGE_IMAGES)))
+
+    DevicePage.__init__ = remembering
+    DevicePage._remembers_images = True
+
+
 def paint_detector(det):
-    """After the detector's real forward and readback, swap its map's
-    contents for the page's ink joined into lines (_ink_lines), as the JAX
-    package's bench.py paints its detector's map: seed-0 DBNet weights find
-    one or two words on a page, too few lines for the recognizer's batch
-    kernels (fused_mlp_ln takes 3 lines or more, fused_mlp 11).  The
-    contours, the crops and everything after them run on the painted
-    lines."""
+    """After the detector's real forward, swap its map's contents for the
+    page's ink joined into lines (_ink_lines), as the JAX package's
+    bench.py paints its detector's map: seed-0 DBNet weights find one or
+    two words on a page, too few lines for the recognizer's batch kernels
+    (fused_mlp_ln takes 3 lines or more, fused_mlp 11).  The contours, the
+    crops and everything after them run on the painted lines.  On the page
+    routes (``forward_from_page``, which the unfused route reads back and
+    the fused program ships in its wire) the ink comes from the page's host
+    image (_remember_page_images) and goes up from pinned memory without a
+    wait."""
+    import torch
+
+    _remember_page_images()
     model = det.model
-    from_page, from_u8 = model.forward_binary_from_page, model.forward_binary_u8
+    from_page, from_u8 = model.forward_from_page, model.forward_binary_u8
 
     def painted_from_page(page, src_hw, out_hw):
         real = from_page(page, src_hw, out_hw)
         h, w = src_hw
-        return _ink_lines(page[:h, :w].cpu().numpy(), real.shape[1:])
+        with _PAGE_IMAGES_LOCK:
+            img = _PAGE_IMAGES.get((page.device, page.data_ptr()))
+        if img is None:  # a page made before the first paint_detector
+            img = page[:h, :w].cpu().numpy()
+        lines = torch.from_numpy(_ink_lines(img[:h, :w], real.shape[1:]))
+        if real.is_cuda:
+            lines = lines.pin_memory()
+        return lines.to(real.device, non_blocking=True)
 
     def painted_u8(images_u8):
         real = from_u8(images_u8)
         return _ink_lines(images_u8[0], real.shape[1:])
 
-    model.forward_binary_from_page = painted_from_page
+    model.forward_from_page = painted_from_page
     model.forward_binary_u8 = painted_u8
+
+
+@contextlib.contextmanager
+def unpainted(det):
+    """The detector's real page forward for the block."""
+    model = det.model
+    painted = model.__dict__.pop("forward_from_page", None)
+    try:
+        yield
+    finally:
+        if painted is not None:
+            model.forward_from_page = painted
+
+
+#: the two routes of phases 9-11: the fused page program (the CUDA
+#: default) and the unfused route beside it
+ROUTES = {"fused": None, "unfused": "1"}
+
+
+def on_route(route, fn):
+    """``fn`` with YOMITOKU_TPU_NO_FUSED_PAGE set for ``route``."""
+    def run():
+        with _env(YOMITOKU_TPU_NO_FUSED_PAGE=ROUTES[route]):
+            return fn()
+    return run
+
+
+@contextlib.contextmanager
+def slot_stats():
+    """Per fused page, in call order: the tables the host kept, ``held``
+    (those whose box a valid slot holds), ``hits`` (filled from their
+    slot), ``saturated`` (held, but re-dispatched for a saturated capped
+    top-k, with the warning counted from the log), ``fallback`` (on the
+    chunked route) and ``dropped`` (valid slots whose box the host's filter
+    did not keep: it drops tables inside tables, the device does not)."""
+    import logging
+
+    from yomitoku_tpu_torch.ops import fused_page
+
+    pages, warnings = [], []
+    real = fused_page.FusedPageAnalysis.consume_region_slots
+
+    class Saturated(logging.Handler):
+        def emit(self, record):
+            if "saturated" in record.getMessage():
+                warnings.append(record)
+
+    def spy(self, region_data, packed_t, sel, valid, *args):
+        warnings.clear()
+        out = real(self, region_data, packed_t, sel, valid, *args)
+        kept = {(d["offset"][0], d["offset"][1], d["offset"][0] + d["size"][1],
+                 d["offset"][1] + d["size"][0]) for d in region_data}
+        slots = {tuple(b) for b, v in zip(sel.tolist(), valid) if v}
+        n, fallback = len(region_data), len(out[1])
+        pages.append(dict(tables=n, held=len(kept & slots), hits=n - fallback,
+                          fallback=fallback, dropped=len(slots - kept),
+                          warnings=len(warnings)))
+        pages[-1]["saturated"] = pages[-1]["held"] - pages[-1]["hits"]
+        return out
+
+    logger = logging.getLogger(fused_page.__name__)
+    handler = Saturated()
+    logger.addHandler(handler)
+    fused_page.FusedPageAnalysis.consume_region_slots = spy
+    try:
+        yield pages
+    finally:
+        fused_page.FusedPageAnalysis.consume_region_slots = real
+        logger.removeHandler(handler)
+
+
+def check_slots(pages, what):
+    """Every slot box the host kept was read from its slot or, with a
+    warning, re-dispatched; the rest of the tables took the chunked route;
+    and where the host kept every table the device selected, the slots
+    held min(tables, 4) of them."""
+    for i, p in enumerate(pages):
+        check(p["hits"] + p["saturated"] == p["held"] and p["saturated"] == p["warnings"]
+              and p["fallback"] == p["tables"] - p["hits"],
+              f"{what}: fused page {i}: slots {p}")
+        check(p["dropped"] or p["held"] == min(p["tables"], 4),
+              f"{what}: fused page {i}: {p['held']} of {p['tables']} tables in the slots, "
+              f"{min(p['tables'], 4)} expected: a slot's box is off the host's ({p})")
+
+
+def log_slots(pages, names, what):
+    log(f"{what}: fused slots per page (tables kept / slot hits / chunked route / "
+        f"saturation warnings / slots the host's filter dropped): " + "; ".join(
+            f"{n} {p['tables']}/{p['hits']}/{p['fallback']}/{p['warnings']}/{p['dropped']}"
+            for n, p in zip(names, pages)))
+
+
+def d2h_per_call(launched, runs):
+    """Device-to-host copies per call in a profiler window."""
+    return sum(n for k, n in launched.items() if "DtoH" in k) / runs
+
+
+def check_fused_program(prog, page, sizes, executor, det, what):
+    """One fused page enqueued under torch.cuda.set_sync_debug_mode("error")
+    (the detector's real forward, not the painted map): nothing may wait for
+    the card before the wire's readback; then one call profiled: exactly one
+    device-to-host copy -> numbers."""
+    import torch
+
+    with unpainted(det):
+        prog(page, page.hw, *sizes, executor=executor)  # stages the maps
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            wire = prog.enqueue(page, page.hw, *sizes, executor=executor)
+        except RuntimeError as e:
+            raise SmokeFailure(f"{what}: the fused program waited for the card before its "
+                               f"readback: {e}") from e
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        nbytes = wire.numel()
+        wire.cpu()
+    _, _, n_ops, launched = profiled(lambda: prog(page, page.hw, *sizes, executor=executor),
+                                     runs=3)
+    d2h = d2h_per_call(launched, 3)
+    check(d2h == 1, f"{what}: {d2h} device-to-host copies per fused program call, 1 expected")
+    log(f"{what}: the fused program enqueued with torch.cuda.set_sync_debug_mode('error'): "
+        f"no wait for the card before the readback of its {nbytes:,}-byte wire; profiled: "
+        f"{d2h:.0f} device-to-host copy and {n_ops:.0f} device ops per call")
+    return dict(wire_bytes=nbytes, d2h_per_call=d2h, device_ops_per_call=n_ops)
+
+
+def route_numbers(what, card, one, batch, n_pages):
+    """Both routes of ``one`` (a page) and ``batch(k)`` (``n_pages`` pages at
+    max_in_flight k), in turns: ms per page, batch pages/s at 1 and
+    IN_FLIGHT, and one page profiled: wall, device busy, idle share,
+    device ops (kernels and copies) and device-to-host copies -> numbers."""
+    ms = {r: v * 1e3 for r, v in interleaved({r: on_route(r, one) for r in ROUTES}).items()}
+    s = interleaved({(r, k): on_route(r, lambda k=k: batch(k))
+                     for r in ROUTES for k in (1, IN_FLIGHT)}, runs=2)
+    numbers = {}
+    for r in ROUTES:
+        wall, device, n_ops, launched = on_route(r, lambda: profiled(one, runs=3))()
+        busy = sum(device.values())
+        numbers[r] = dict(ms_per_page=ms[r],
+                          batch_pages_s={str(k): n_pages / s[(r, k)] for k in (1, IN_FLIGHT)},
+                          profiled_wall_ms=wall, device_busy_ms=busy,
+                          idle_share=1 - busy / wall, device_ops_per_page=n_ops,
+                          d2h_per_page=d2h_per_call(launched, 3))
+    for r, n in numbers.items():
+        log(f"{what}: {r} route: {n['ms_per_page']:.1f} ms/page (median of 5, routes in "
+            f"turns); batch of {n_pages} pages {n['batch_pages_s']['1']:.2f} pages/s at "
+            f"max_in_flight=1, {n['batch_pages_s'][str(IN_FLIGHT)]:.2f} at {IN_FLIGHT} "
+            f"(median of 2); one page profiled {n['profiled_wall_ms']:.1f} ms wall, device "
+            f"busy {n['device_busy_ms']:.1f} ms (idle share {n['idle_share']:.2f}), "
+            f"{n['device_ops_per_page']:.0f} device ops, {n['d2h_per_page']:.0f} "
+            f"device-to-host copies per page; card {card}")
+    return numbers
 
 
 def _models(da):
@@ -3339,9 +3561,127 @@ def _structure(doc):
             [(f.order, f.direction, [para(p) for p in f.paragraphs]) for f in doc.figures])
 
 
+#: the largest difference between the two routes' region-model scores of
+#: one table (sorted top-k) that bf16 rounding explains: the routes run the
+#: region model on other batches (four slots and the chunked rest against
+#: all of a page's tables), and bf16 convolutions and GEMMs round apart by
+#: batch size; a wrong crop moves the scores by far more
+ROUTE_SCORE_LIMIT = 5e-2
+#: four table boxes (cx, cy, w, h in [0, 1]) and their logits, for the pages
+#: whose tables fill the four slots exactly (pinned_tables)
+FOUR_TABLES = [((0.27, 0.2, 0.42, 0.26), 4.0), ((0.73, 0.2, 0.42, 0.26), 3.5),
+               ((0.27, 0.62, 0.42, 0.3), 3.0), ((0.73, 0.66, 0.42, 0.3), 2.5)]
+
+
+@contextlib.contextmanager
+def region_rows(module):
+    """Each region's top-k rows as ``module``'s host filter sees them, on
+    either route: [((w, h), (k, 6) rows)] in call order."""
+    import numpy as np
+
+    post = module.postprocessor
+    own = post.__dict__.get("filter_packed")
+    real = post.filter_packed
+    seen = []
+
+    def spy(packed, orig_sizes, threshold):
+        sizes = np.asarray(orig_sizes, np.float32).reshape(-1, 2)
+        for row, (w, h) in zip(np.asarray(packed), sizes):
+            seen.append(((int(w), int(h)), row.copy()))
+        return real(packed, orig_sizes, threshold)
+
+    post.filter_packed = spy
+    try:
+        yield seen
+    finally:
+        if own is None:
+            del post.filter_packed
+        else:
+            post.filter_packed = own
+
+
+@contextlib.contextmanager
+def pinned_tables(module, tables=FOUR_TABLES):
+    """A layout parser's output pinned after its real forward: ``tables``
+    [(cxcywh, table logit)] in its first queries, no other query a table."""
+    import torch
+
+    label = next(i for i, c in module.label_mapper.items() if c == "tables")
+
+    def hook(mod, inputs, out):
+        logits, boxes = out["pred_logits"].clone(), out["pred_boxes"].clone()
+        logits[..., label] = -8.0
+        for q, (box, logit) in enumerate(tables):
+            logits[:, q] = -8.0
+            logits[:, q, label] = logit
+            boxes[:, q] = torch.tensor(box, dtype=boxes.dtype, device=boxes.device)
+        return {**out, "pred_logits": logits, "pred_boxes": boxes}
+
+    handle = module.model.decoder.register_forward_hook(hook)
+    try:
+        yield
+    finally:
+        handle.remove()
+
+
+def check_routes_agree(fused, unfused, rows, what):
+    """The fused and the unfused route's pages alike: the same words (quads
+    and strings), the same tables through the region model (``rows``:
+    {route: region_rows of the page}; their crops' sizes), and each table's
+    region-model scores within ROUTE_SCORE_LIMIT (sorted top-k) -> numbers:
+    the tables, those whose cells differ between the routes (bf16 batch
+    rounding near the threshold; not gated), and the largest score
+    difference."""
+    import numpy as np
+
+    check([(w.points, w.content) for w in fused.words]
+          == [(w.points, w.content) for w in unfused.words],
+          f"{what}: the routes' words differ ({len(fused.words)} against "
+          f"{len(unfused.words)})")
+    by_size = {r: {} for r in rows}
+    for r, seen in rows.items():
+        for size, row in seen:
+            by_size[r].setdefault(size, row)
+    check(sorted(size for size, _ in rows["fused"]) == sorted(size for size, _ in
+                                                              rows["unfused"]),
+          f"{what}: other tables reached the region model on the two routes: "
+          f"{sorted(by_size['fused'])} against {sorted(by_size['unfused'])}")
+    d_score = max([float(np.abs(np.sort(by_size["fused"][k][:, 1])
+                                - np.sort(by_size["unfused"][k][:, 1])).max())
+                   for k in by_size["fused"]] or [0.0])
+    check(d_score <= ROUTE_SCORE_LIMIT,
+          f"{what}: a table's region-model scores part by {d_score:.4f} between the routes "
+          f"(limit {ROUTE_SCORE_LIMIT})")
+    cells = lambda d: {(t.box[2] - t.box[0], t.box[3] - t.box[1]): len(t.cells)  # noqa: E731
+                       for t in d.tables}
+    got, want = cells(fused), cells(unfused)
+    differ = sorted(k for k in got.keys() | want.keys() if got.get(k) != want.get(k))
+    return dict(tables=len(by_size["fused"]), cells_differ=len(differ),
+                cells=[(k, got.get(k), want.get(k)) for k in differ], max_d_score=d_score)
+
+
+def check_four_tables(da, table, what):
+    """sample_table.png with its layout pinned to four tables, which fill
+    the four slots: the region model runs on the same four crops on both
+    routes, a batch of four each, so the two routes' schemas are equal, bit
+    for bit."""
+    lp = da.layout.layout_parser if hasattr(da, "layout") else da.layout_parser
+    with pinned_tables(lp), slot_stats() as slots:
+        fused = da(table)[0]
+        with _env(YOMITOKU_TPU_NO_FUSED_PAGE="1"):
+            unfused = da(table)[0]
+    check([(p["tables"], p["hits"]) for p in slots] == [(4, 4)],
+          f"{what}: the four pinned tables did not fill the four slots: {slots}")
+    check_same(fused, unfused, f"{what}: four pinned tables, fused against unfused route")
+    log(f"{what}: sample_table.png with its layout pinned to four tables (four slot hits): "
+        f"the fused route's schema equals the unfused route's, bit for bit "
+        f"({len(fused.tables)} tables)")
+
+
 def f32_card_vs_cpu(da, img):
     """The analyzer in f32 on the card against the CPU, the same weights,
-    the page route on both (YOMITOKU_TPU_DEVICE_CROPS=1 on the CPU), the
+    the page route and the fused page program on both
+    (YOMITOKU_TPU_DEVICE_CROPS=1 on the CPU), the
     full memory-K/V cache: equal counts, boxes within 1 px, strings equal
     where the CPU's greedy decode has every top-2 gap at least 1e-4 ->
     numbers."""
@@ -3369,6 +3709,8 @@ def f32_card_vs_cpu(da, img):
         t0 = time.perf_counter()
         want, _, _ = cpu(img)
         cpu_s = time.perf_counter() - t0
+    check(card._fused_page_program is not None and cpu._fused_page_program is not None,
+          "f32 analyzer: the card or the CPU did not take the fused route")
     counts = lambda d: (len(d.words), len(d.paragraphs), len(d.figures),  # noqa: E731
                         [len(t.cells) for t in d.tables])
     log(f"document: f32 analyzer on a {img.shape[1]}x{img.shape[0]} page: the CPU took "
@@ -3414,6 +3756,7 @@ def _phase_document(card, ctx):
     import torch
 
     from yomitoku_tpu_torch import ops
+    from yomitoku_tpu_torch.data.functions import shortest_edge_size
     from yomitoku_tpu_torch.document_analyzer import DocumentAnalyzer
     from yomitoku_tpu_torch.ocr import ocr_aggregate
     from yomitoku_tpu_torch.ops.device_crop import DevicePage
@@ -3426,18 +3769,64 @@ def _phase_document(card, ctx):
     pages = document_pages(ctx, sample, table)
     main = ("sample_table", "sample_text", "lines_136")
 
-    # path document_page: the three pages, counted
+    # path document_page: the three pages on the fused route (the
+    # default), counted, with the slots of each page
     paths = {}
-    ops.reset_launches()
-    docs = {name: da(pages[name])[0] for name in main}
-    torch.cuda.synchronize()
-    paths["document_page"] = dict(ops.launches)
+    tsr = da.layout.table_structure_recognizer
+    rows = {r: {} for r in ROUTES}
+    with slot_stats() as slots, region_rows(tsr) as seen:
+        ops.reset_launches()
+        docs = {}
+        for name in main:
+            docs[name] = da(pages[name])[0]
+            rows["fused"][name] = list(seen)
+            seen.clear()
+        torch.cuda.synchronize()
+        paths["document_page"] = dict(ops.launches)
     log(f"document: document_page launches {paths['document_page']}")
     check(all(paths["document_page"][k] > 0 for k in DOCUMENT_KERNELS),
           f"a kernel of the document path was never launched: {paths['document_page']}")
+    check(len(slots) == len(main), f"document: {len(slots)} fused pages of {len(main)}")
     check_attention_routes("document")
     check_gemm_routes("document")
     check_deform_routes("document", paths["document_page"]["ms_deformable_attention"])
+    log_slots(slots, main, "document")
+    check_slots(slots, "document")
+    numbers["slots"] = dict(zip(main, slots))
+
+    # path document_unfused: the same pages on the unfused route, counted,
+    # and the two routes' pages alike
+    with _env(YOMITOKU_TPU_NO_FUSED_PAGE="1"), region_rows(tsr) as seen:
+        ops.reset_launches()
+        unfused = {}
+        for name in main:
+            unfused[name] = da(pages[name])[0]
+            rows["unfused"][name] = list(seen)
+            seen.clear()
+        torch.cuda.synchronize()
+        paths["document_unfused"] = dict(ops.launches)
+    log(f"document: document_unfused launches {paths['document_unfused']}")
+    check(all(paths["document_unfused"][k] > 0 for k in DOCUMENT_KERNELS),
+          f"a kernel of the unfused document path was never launched: "
+          f"{paths['document_unfused']}")
+    agree = numbers["routes_agree"] = {
+        name: check_routes_agree(docs[name], unfused[name],
+                                 {r: rows[r][name] for r in ROUTES}, f"document: {name}")
+        for name in main}
+    log("document: bf16 fused route against the unfused route: the same words (quads and "
+        "strings) and the same tables through the table recognizer, its scores within "
+        f"{ROUTE_SCORE_LIMIT} (" + "; ".join(
+            f"{n}: {a['tables']} tables, max |d score| {a['max_d_score']:.4f}, cells differ on "
+            f"{a['cells_differ']} {a['cells']}" for n, a in agree.items()) + ")")
+    check_four_tables(da, table, "document")
+
+    prog = da._ensure_fused_program()
+    det_cfg = da.text_detector._cfg.data
+    sizes = (shortest_edge_size(*table.shape[:2], det_cfg.shortest_size, det_cfg.limit_size),
+             tuple(da.layout.layout_parser._cfg.data.img_size),
+             tuple(da.layout.table_structure_recognizer._cfg.data.img_size))
+    numbers["fused_program"] = check_fused_program(
+        prog, DevicePage(table, "cuda"), sizes, da._workers, da.text_detector, "document")
     for name, doc in docs.items():
         h, w = pages[name].shape[:2]
         doc = DocumentAnalyzerSchema.model_validate(doc.model_dump())
@@ -3462,11 +3851,12 @@ def _phase_document(card, ctx):
     rec, _ = da.text_recognizer(table, det.points, page=page)
     ocr = OCRSchema(words=ocr_aggregate(det, rec))
     composed = DocumentAnalyzerSchema(**da.aggregate(ocr, lay))
-    check_same(da(table)[0], composed, "analyzer against its modules one at a time")
-    log("document: sample_table.png through the analyzer (detector and layout on two "
-        "threads) equals the detector, layout analyzer, recognizer, ocr_aggregate and "
-        "aggregate called one at a time on one DevicePage: words, paragraphs, tables, "
-        "cells' contents, figures and order")
+    check_same(on_route("unfused", lambda: da(table))()[0], composed,
+               "analyzer against its modules one at a time")
+    log("document: sample_table.png through the analyzer's unfused route (detector and "
+        "layout on two threads) equals the detector, layout analyzer, recognizer, "
+        "ocr_aggregate and aggregate called one at a time on one DevicePage: words, "
+        "paragraphs, tables, cells' contents, figures and order")
 
     # path document_batch: a fresh analyzer, its AR graphs captured while
     # other pages run, against one __call__ per page on `da`
@@ -3515,31 +3905,22 @@ def _phase_document(card, ctx):
     timed = ("sample_table", "sample_text")
     fns = {}
     for name in timed:
-        fns[(name, "device")] = lambda p=pages[name]: da(p)
+        for r in ROUTES:
+            fns[(name, r)] = on_route(r, lambda p=pages[name]: da(p))
         fns[(name, "host")] = host(lambda p=pages[name]: da(p))
     ms = {k: v * 1e3 for k, v in interleaved(fns).items()}
-    numbers["ms_per_page"] = {name: dict(device_route=ms[(name, "device")],
+    numbers["ms_per_page"] = {name: dict(fused_route=ms[(name, "fused")],
+                                         unfused_route=ms[(name, "unfused")],
                                          host_route=ms[(name, "host")]) for name in timed}
-    log("document: analyzer ms/page, device / host route: " + "; ".join(
-        f"{name} {ms[(name, 'device')]:.1f} / {ms[(name, 'host')]:.1f}" for name in timed)
+    log("document: analyzer ms/page, fused / unfused page route / host route: " + "; ".join(
+        f"{name} {ms[(name, 'fused')]:.1f} / {ms[(name, 'unfused')]:.1f} / "
+        f"{ms[(name, 'host')]:.1f}" for name in timed)
         + f"; median of 5, routes in turns; card {card}")
 
     batch = [pages[n] for n in names]
-    s = interleaved({k: (lambda k=k: da.batch(batch, max_in_flight=k))
-                     for k in (1, IN_FLIGHT)}, runs=3)
-    numbers["batch_pages_s"] = {str(k): len(batch) / v for k, v in s.items()}
-    log(f"document: batch of {len(batch)} pages: {len(batch) / s[1]:.2f} pages/s at "
-        f"max_in_flight=1, {len(batch) / s[IN_FLIGHT]:.2f} at {IN_FLIGHT} (median of 3, "
-        f"in turns); card {card}")
-
-    wall, device, n_ops, _ = profiled(lambda: da(table), runs=3)
-    busy = sum(device.values())
-    numbers["profile_sample_table"] = dict(wall_ms=wall, device_busy_ms=busy,
-                                           idle_share=1 - busy / wall,
-                                           device_ops_per_call=n_ops)
-    log(f"document: sample_table.png profiled: {wall:.1f} ms/page wall, device busy "
-        f"{busy:.1f} ms (idle share {1 - busy / wall:.2f}), {n_ops:.0f} device ops per "
-        f"page; card {card}")
+    numbers["routes"] = route_numbers(
+        "document (sample_table.png)", card, lambda: da(table),
+        lambda k: da.batch(batch, max_in_flight=k), len(batch))
 
     def both(pool):
         page = DevicePage(table, "cuda")
@@ -3899,27 +4280,47 @@ def _phase_cli(card, ctx):
               f"cli: the analyzer was built with {kwargs}")
         check([p.name for p in files] == expected_cli_files("sample", n, "json"),
               f"cli json: files {[p.name for p in files]}")
-        docs = []
-        for i, (page, path) in enumerate(zip(rendered["sample"], files), 1):
-            doc = da(page)[0]
-            want = convert_json(doc, None, False, page, False).model_dump()
-            got = json.loads(path.read_text(encoding="utf-8"))
-            check(got == want, f"cli json page {i} against __call__: "
-                  f"{_first_difference(got, want)}")
-            check(doc.words, f"cli json page {i}: no words")
-            docs.append(doc)
+        docs, rows = [], []
+        tsr = da.layout.table_structure_recognizer
+        with slot_stats() as slots, region_rows(tsr) as seen:
+            for i, (page, path) in enumerate(zip(rendered["sample"], files), 1):
+                doc = da(page)[0]
+                rows.append({"fused": list(seen)})
+                seen.clear()
+                want = convert_json(doc, None, False, page, False).model_dump()
+                got = json.loads(path.read_text(encoding="utf-8"))
+                check(got == want, f"cli json page {i} against __call__: "
+                      f"{_first_difference(got, want)}")
+                check(doc.words, f"cli json page {i}: no words")
+                docs.append(doc)
         log(f"cli: -f json: each page's JSON equals convert_json of the analyzer's "
             f"__call__ on the same rendered page ({[len(d.words) for d in docs]} words, "
             f"{[len(d.paragraphs) for d in docs]} paragraphs, "
             f"{[len(d.tables) for d in docs]} tables)")
+        names = [f"page {i}" for i in range(1, n + 1)]
+        check(len(slots) == n, f"cli: {len(slots)} fused pages of {n}")
+        log_slots(slots, names, "cli")
+        check_slots(slots, "cli")
+        numbers["slots"] = dict(zip(names, slots))
+        agree = []
+        with _env(YOMITOKU_TPU_NO_FUSED_PAGE="1"), region_rows(tsr) as seen:
+            for name, page, doc, r in zip(names, rendered["sample"], docs, rows):
+                unfused = da(page)[0]
+                r["unfused"] = list(seen)
+                seen.clear()
+                agree.append(check_routes_agree(doc, unfused, r, f"cli: {name}"))
+        numbers["routes_agree"] = agree
+        log("cli: bf16 fused route against the unfused route on both pages: the same words "
+            f"and tables, the table recognizer's scores within {ROUTE_SCORE_LIMIT} (" + "; ".join(
+                f"{name}: {a['tables']} tables, max |d score| {a['max_d_score']:.4f}, cells "
+                f"differ on {a['cells_differ']}" for name, a in zip(names, agree)) + ")")
         # the CLI's chunk (here both pages) through batch at its default
-        # max_in_flight against one page at a time, on the same analyzer
-        secs = interleaved({k: (lambda k=k: da.batch(rendered["sample"], max_in_flight=k))
-                            for k in (1, IN_FLIGHT)}, runs=3)
-        numbers["chunk_pages_s"] = {str(k): n / v for k, v in secs.items()}
-        log(f"cli: batch of sample.pdf's {n} pages: {n / secs[1]:.3f} pages/s at "
-            f"max_in_flight=1, {n / secs[IN_FLIGHT]:.3f} at {IN_FLIGHT} (the CLI's default; "
-            f"median of 3, in turns); card {card}")
+        # max_in_flight against one page at a time, on the same analyzer,
+        # on both routes
+        numbers["routes"] = route_numbers(
+            "cli (sample.pdf, 200 dpi)", card, lambda: da(rendered["sample"][0]),
+            lambda k: da.batch(rendered["sample"], max_in_flight=k), n)
+        numbers["chunk_pages_s"] = numbers["routes"]["fused"]["batch_pages_s"]
 
         # timed: a second -f json run, and one under torch.profiler
         took, spent, _ = run_cli(cli, clock, "json_warm", sample, ["-f", "json"])
@@ -4131,22 +4532,60 @@ def _phase_semantic(card, ctx):
           "sample_table.png (two or more wanted: a grid and key-value items)")
     chunks = -(-len(tables) // 64)
 
-    # path semantic: one __call__ on the page route, counted
+    # path semantic: one __call__ on the fused route (the default),
+    # counted: the layout parser, the cell detector on the four slots and
+    # on a chunk of the tables the slots missed
     paths = {}
-    ops.reset_launches()
-    doc, _, _ = tsp(table)
-    torch.cuda.synchronize()
-    paths["semantic"] = launched = dict(ops.launches)
-    log(f"semantic: path semantic launches {launched} ({len(tables)} tables, "
-        f"{chunks} cell-detector chunk)")
+    with slot_stats() as slots:
+        ops.reset_launches()
+        doc, _, _ = tsp(table)
+        torch.cuda.synchronize()
+        paths["semantic"] = launched = dict(ops.launches)
+    check(len(slots) == 1, f"semantic: {len(slots)} fused pages of 1")
+    log_slots(slots, ["sample_table"], "semantic")
+    check_slots(slots, "semantic")
+    numbers["slots"] = slots[0]
+    missed = -(-slots[0]["fallback"] // 64)
+    log(f"semantic: path semantic launches {launched} ({len(tables)} tables, the slots and "
+        f"{missed} chunk of the tables they missed)")
     check(all(launched[k] > 0 for k in SEMANTIC_KERNELS),
           f"a kernel of the semantic path was never launched: {launched}")
-    check(launched["ms_deformable_attention"] == DEFORM_PER_CALL * (1 + chunks),
+    check(launched["ms_deformable_attention"] == DEFORM_PER_CALL * (2 + missed),
           f"semantic: {launched['ms_deformable_attention']} deformable launches, "
-          f"{DEFORM_PER_CALL} each for the layout parser and {chunks} cell chunk(s) expected")
+          f"{DEFORM_PER_CALL} each for the layout parser, the slots and {missed} chunk(s) of "
+          "missed tables expected")
     check_attention_routes("semantic")
     check_gemm_routes("semantic")
     check_deform_routes("semantic", launched["ms_deformable_attention"])
+
+    # path semantic_unfused: the same page on the unfused route, counted;
+    # the same grids and key-value items on both routes
+    with _env(YOMITOKU_TPU_NO_FUSED_PAGE="1"):
+        ops.reset_launches()
+        unfused, _, _ = tsp(table)
+        torch.cuda.synchronize()
+        paths["semantic_unfused"] = launched = dict(ops.launches)
+    log(f"semantic: path semantic_unfused launches {launched} ({len(tables)} tables, "
+        f"{chunks} cell-detector chunk)")
+    check(all(launched[k] > 0 for k in SEMANTIC_KERNELS),
+          f"a kernel of the unfused semantic path was never launched: {launched}")
+    check(launched["ms_deformable_attention"] == DEFORM_PER_CALL * (1 + chunks),
+          f"semantic: {launched['ms_deformable_attention']} deformable launches on the "
+          f"unfused route, {DEFORM_PER_CALL} each for the layout parser and {chunks} cell "
+          "chunk(s) expected")
+    parsed = lambda d: [(t.box, [g.model_dump() for g in t.grids],  # noqa: E731
+                         [k.model_dump() for k in t.kv_items]) for t in d.tables]
+    check(parsed(doc) == parsed(unfused),
+          f"semantic: the routes' grids or key-value items differ: "
+          f"{_first_difference(parsed(doc), parsed(unfused))}")
+    same = doc.model_dump() == unfused.model_dump()
+    log(f"semantic: bf16 fused route against the unfused route on sample_table.png: the same "
+        f"tables, grids and key-value items; the whole schema {'equal' if same else 'not equal'}")
+    numbers["routes_schema_equal"] = same
+    sizes = tsp._fused_sizes(table)
+    numbers["fused_program"] = check_fused_program(
+        tsp._ensure_fused_program(), DevicePage(table, "cuda"), sizes, tsp._workers,
+        tsp.text_detector, "semantic")
     doc = TableSemanticParserSchema.model_validate(doc.model_dump())
     grids, kv = check_semantic_ids(doc, "sample_table.png")
     numbers["counts"] = {"sample_table": _semantic_counts(doc)}
@@ -4177,8 +4616,9 @@ def _phase_semantic(card, ctx):
     # page equal to its own __call__
     pages = {"sample_table": table, "sample_text": sample,
              "sample_table_top": table[: table.shape[0] // 2]}
-    for route in ("page", "host"):
-        with _env(YOMITOKU_TPU_HOST_CROPS="1" if route == "host" else None):
+    for route in ("page", "unfused", "host"):
+        with _env(YOMITOKU_TPU_HOST_CROPS="1" if route == "host" else None,
+                  YOMITOKU_TPU_NO_FUSED_PAGE="1" if route == "unfused" else None):
             want = {n: tsp(p)[0].model_dump() for n, p in pages.items()}
             for k in (1, IN_FLIGHT):
                 got = tsp.batch(list(pages.values()), max_in_flight=k)
@@ -4189,7 +4629,8 @@ def _phase_semantic(card, ctx):
         numbers["counts"].update({f"{route}_{n}": dict(tables=len(d["tables"]))
                                   for n, d in want.items()})
     log(f"semantic: batch of {len(pages)} pages at max_in_flight 1 and {IN_FLIGHT}, on the page "
-        "route and on the host route: every page equals its own __call__, bit for bit")
+        "route (fused, then unfused) and on the host route: every page equals its own "
+        "__call__, bit for bit")
 
     # the rule-extraction CLI in process on sample_table.png, its parser
     # built by the CLI and given this parser's weights
@@ -4256,10 +4697,13 @@ def _phase_semantic(card, ctx):
         return run
 
     ms = {k: v * 1e3 for k, v in interleaved({
-        "device": lambda: tsp(table), "host": host(lambda: tsp(table))}).items()}
-    numbers["ms_per_page"] = dict(device_route=ms["device"], host_route=ms["host"])
-    log(f"semantic: TableSemanticParser ms/page on sample_table.png, device / host route: "
-        f"{ms['device']:.1f} / {ms['host']:.1f} (median of 5, in turns); card {card}")
+        "fused": lambda: tsp(table), "unfused": on_route("unfused", lambda: tsp(table)),
+        "host": host(lambda: tsp(table))}).items()}
+    numbers["ms_per_page"] = dict(fused_route=ms["fused"], unfused_route=ms["unfused"],
+                                  host_route=ms["host"])
+    log(f"semantic: TableSemanticParser ms/page on sample_table.png, fused / unfused page "
+        f"route / host route: {ms['fused']:.1f} / {ms['unfused']:.1f} / {ms['host']:.1f} "
+        f"(median of 5, in turns); card {card}")
 
     cells = {}
     four = (tables * 4)[:4]
@@ -4294,20 +4738,9 @@ def _phase_semantic(card, ctx):
         f"ms and clustering with the grid and key-value parsers {host_ms['parse']:.2f} ms")
 
     batch = list(pages.values())
-    s = interleaved({k: (lambda k=k: tsp.batch(batch, max_in_flight=k))
-                     for k in (1, IN_FLIGHT)}, runs=3)
-    numbers["batch_pages_s"] = {str(k): len(batch) / v for k, v in s.items()}
-    log(f"semantic: batch of {len(batch)} pages: {len(batch) / s[1]:.2f} pages/s at "
-        f"max_in_flight=1, {len(batch) / s[IN_FLIGHT]:.2f} at {IN_FLIGHT} (median of 3, in "
-        f"turns); card {card}")
-
-    wall, device, n_ops, _ = profiled(lambda: tsp(table), runs=3)
-    busy = sum(device.values())
-    numbers["profile_sample_table"] = dict(wall_ms=wall, device_busy_ms=busy,
-                                           idle_share=1 - busy / wall,
-                                           device_ops_per_call=n_ops)
-    log(f"semantic: sample_table.png profiled: {wall:.1f} ms/page wall, device busy {busy:.1f} "
-        f"ms (idle share {1 - busy / wall:.2f}), {n_ops:.0f} device ops per page; card {card}")
+    numbers["routes"] = route_numbers(
+        "semantic (sample_table.png)", card, lambda: tsp(table),
+        lambda k: tsp.batch(batch, max_in_flight=k), len(batch))
     (OUT / "semantic.json").write_text(json.dumps(numbers, indent=1))
     del tsp
     torch.cuda.empty_cache()

@@ -1205,3 +1205,86 @@ def test_cell_detector_page_call_f32_matches_cpu():
         assert np.abs(g["boxes"] - w["boxes"]).max(initial=0) <= 0.05
     assert sum(len(t.cells) for t in want) > 10
     assert [t.model_dump() for t in got] == [t.model_dump() for t in want]
+
+
+# ------------------------------------------------------- fused page program
+
+
+def _fused_program(device, det_sd=None, lay_sd=None, region_sd=None):
+    """The fused page program on ``device`` in f32: the detector of
+    tests/yaml/det_small.yaml, the layout parser and the region model of
+    layout_small.yaml (the layout's table logit raised by 3, so that a few
+    tables clear 0.5), weights from the given state dicts."""
+    from pathlib import Path
+
+    from yomitoku_tpu_torch.layout_parser import LayoutParser
+    from yomitoku_tpu_torch.ops.fused_page import FusedPageAnalysis
+    from yomitoku_tpu_torch.text_detector import TextDetector
+
+    yaml = Path(__file__).parent / "yaml"
+    kw = dict(device=device, dtype=torch.float32, from_pretrained=False)
+    det = TextDetector(path_cfg=str(yaml / "det_small.yaml"), **kw).model
+    lay = LayoutParser(path_cfg=str(yaml / "layout_small.yaml"), **kw).model
+    region = LayoutParser(path_cfg=str(yaml / "layout_small.yaml"), **kw).model
+    if det_sd is None:
+        with torch.no_grad():
+            head = lay.decoder.dec_score_head[lay.decoder.eval_idx]
+            head.bias[0] += 3.0
+    else:
+        det.load_state_dict(det_sd)
+        lay.load_state_dict(lay_sd)
+        region.load_state_dict(region_sd)
+    prog = FusedPageAnalysis(det, lay, region, lay_top_k=20, tsr_top_k=20, table_label=0,
+                             lay_thresh=0.5)
+    return prog, (det, lay, region)
+
+
+@pytest.mark.cuda
+def test_small_fused_program_f32_matches_cpu():
+    """The fused page program in f32 on the card against the CPU, the same
+    weights and page: the detector's map within one uint8 quantum, the
+    same slots (boxes and validity), the layout's and each slot's rows
+    within 1e-3 in score and 1e-2 px in box, matched by label, score and
+    box; and nothing waits for the card before the wire's readback
+    (torch.cuda.set_sync_debug_mode("error") around the enqueue, after a
+    first page has staged the page maps)."""
+    _require_cuda()
+    from concurrent.futures import ThreadPoolExecutor
+
+    from yomitoku_tpu_torch.ops.device_crop import DevicePage
+
+    card, models = _fused_program("cuda")
+    cpu, _ = _fused_program("cpu", *[{k: v.cpu() for k, v in m.state_dict().items()}
+                                     for m in models])
+    rng = np.random.default_rng(5)
+    img = np.full((150, 230, 3), 255, np.uint8)
+    for _ in range(14):
+        x0, y0 = rng.integers(0, 170), rng.integers(0, 120)
+        img[y0:y0 + 20, x0:x0 + 55] = rng.integers(0, 160, 3)
+    hws = ((64, 96), (128, 128), (128, 128))
+    with ThreadPoolExecutor(2) as pool:
+        page = DevicePage(img, "cuda")
+        got = card(page, page.hw, *hws, executor=pool)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            wire = card.enqueue(page, page.hw, *hws, executor=pool)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        np.testing.assert_array_equal(card._split_wire(wire.cpu().numpy(), hws[0])[3], got[3])
+    cpage = DevicePage(img, "cpu")
+    want = cpu(cpage, cpage.hw, *hws)
+    assert np.abs(got[0].astype(int) - want[0].astype(int)).max() <= 1
+    slots = lambda out: sorted(map(tuple, out[3][out[4]].tolist()))  # noqa: E731
+    assert slots(got) == slots(want) and len(slots(got)) >= 1
+
+    def same_rows(g, w):
+        # the rows clear of the k-th score, which both sides select alike
+        for row in g[g[:, 1] > w[:, 1].min() + 1e-3]:
+            hits = [r for r in w if r[0] == row[0] and abs(r[1] - row[1]) <= 1e-3
+                    and np.abs(r[2:] - row[2:]).max() <= 1e-2]
+            assert len(hits) >= 1, row
+
+    same_rows(got[1][0], want[1][0])
+    slot_of = {tuple(b): j for j, b in enumerate(want[3].tolist()) if want[4][j]}
+    for j in np.nonzero(got[4])[0]:
+        same_rows(got[2][j, 0], want[2][slot_of[tuple(got[3][j].tolist())], 0])

@@ -242,8 +242,11 @@ def test_call_api_matches_jax():
     assert _NO_DEFAULT not in (_params(port_da.DocumentAnalyzer, "__init__").values())
     assert inspect.iscoroutinefunction(port_da.DocumentAnalyzer.run)
     tree = ast.parse(inspect.getsource(port_da))
-    assert "_run_fused" not in {n.name for n in ast.walk(tree)
-                                if isinstance(n, ast.FunctionDef)}
+    defined = {n.name for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)}
+    # the fused page route is ported; the page-batched data-parallel one is not
+    assert {"_run_fused", "_fused_host_postwire", "_ensure_fused_program",
+            "_fused_page_enabled"} <= defined
+    assert not {"_batch_dp", "_batch_dp_fused"} & defined
 
 
 def test_num_devices_above_one_raises():

@@ -8,43 +8,60 @@ offsets).  The aggregation helpers are the JAX module's, numpy on the host
 as there: one containment matrix drives word-to-element assignment, figure
 absorption and the quad split.
 
-``run`` takes the JAX package's unfused route on every device.  Where
-device crops are on for the detector's device (CUDA, by default) the page
-is uploaded once, as one DevicePage that the detector, the layout parser,
-the table recognizer and the line recognizer crop on the device; a module
-on another device uploads its own.  The JAX package's fused page program
-(one device program for detector, layout and table recognition) is not
-ported yet, and ``num_devices`` above 1 raises, so ``batch`` runs pages on
-threads only.  Neither the page nor the image is kept on the analyzer, so
+``run`` takes the JAX package's routes.  Where device crops are on for
+the detector's device (CUDA, by default) the page is uploaded once, as
+one DevicePage.  Where the detector, the layout parser and the table
+recognizer all lie on that page's device and YOMITOKU_TPU_NO_FUSED_PAGE
+is unset, the page takes the fused page program (ops/fused_page.py, the
+CUDA default as the JAX package's is on an accelerator): the detector,
+the layout, the device's selection of up to four tables and the table
+recognizer on them, read back once; then on the host the layout filter,
+the slots' matching, the chunked region route for the tables the slots
+missed (overlapped with the contours), the recognizer and the
+aggregation.  Everywhere else the unfused route runs: the detector and
+the layout analyzer on the page, each module on another device uploading
+its own.  ``num_devices`` above 1 raises, so ``batch`` runs pages on
+threads only (the JAX package's page-batched fused program is not
+ported).  Neither the page nor the image is kept on the analyzer, so
 ``batch`` may run ``__call__`` on several threads; the models' shared
 state is guarded where they keep it (PARSeq's AR loop,
-models/parseq.py).
+models/parseq.py), and the fused program, built once, under its lock.
 
-The detector and the layout analyzer run on two worker threads that the
-analyzer keeps for its lifetime, where the JAX package makes two for each
-page: PyTorch keeps cuDNN's convolution plans per thread, so on a new
-thread every convolution of DBNet and RT-DETRv2 is planned again, which
-on an H100 costs more than the models' own time (chip_smoke.py phase 9
-measures both, and the detector with cuDNN off).
+The detector and the layout analyzer (on the fused route: the program's
+two legs) run on two worker threads that the analyzer keeps for its
+lifetime, where the JAX package makes two for each page (and runs its
+fused program on the caller's thread): PyTorch keeps cuDNN's convolution
+plans per thread, so on a new thread every convolution of DBNet and
+RT-DETRv2 is planned again, which on an H100 costs more than the models'
+own time (chip_smoke.py phase 9 measures both, and the detector with
+cuDNN off).
 """
 
 import asyncio
 import math
+import os
 import re
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from .data.functions import shortest_edge_size
 from .layout_analyzer import LayoutAnalyzer
 from .ocr import ocr_aggregate
 from .ops.device_crop import DevicePage, device_crops_enabled, lies_on
+from .ops.fused_page import FusedPageAnalysis
 from .reading_order import prediction_reading_order
 from .schemas import (
     DocumentAnalyzerSchema,
     FigureSchema,
+    LayoutAnalyzerSchema,
+    LayoutParserSchema,
     OCRSchema,
     ParagraphSchema,
+    TextDetectorSchema,
 )
+from .table_structure_recognizer import collect_filtered_regions, dispatch_regions_from_page
 from .text_detector import TextDetector
 from .text_recognizer import TextRecognizer
 from .utils.misc import containment_matrix, overlap_ratio_matrix, quad_to_xyxy
@@ -414,6 +431,9 @@ class DocumentAnalyzer:
         #: and end when the analyzer is collected
         self._workers = ThreadPoolExecutor(
             max_workers=2, thread_name_prefix="DocumentAnalyzer")
+        #: the fused page program, built at the first fused page
+        self._fused_page_program = None
+        self._fused_page_lock = threading.Lock()
 
     def aggregate(self, ocr_res, layout_res):
         """Assign words to table cells and layout paragraphs, then order
@@ -515,13 +535,125 @@ class DocumentAnalyzer:
             "words": ocr_res.words,
         }
 
+    def _ensure_fused_program(self):
+        """The fused page program, built once: ``batch`` runs several
+        pages at once, and each would otherwise build its own."""
+        if self._fused_page_program is None:
+            with self._fused_page_lock:
+                if self._fused_page_program is None:
+                    lp = self.layout.layout_parser
+                    tsr = self.layout.table_structure_recognizer
+                    table_label = next(
+                        i for i, c in lp.label_mapper.items() if c == "tables")
+                    self._fused_page_program = FusedPageAnalysis(
+                        self.text_detector.model, lp.model, tsr.model,
+                        lay_top_k=lp.postprocessor.num_top_queries,
+                        tsr_top_k=tsr.postprocessor.num_top_queries,
+                        table_label=table_label,
+                        lay_thresh=lp.thresh_score,
+                    )
+        return self._fused_page_program
+
+    def _fused_host_postwire(self, img, page, prob, packed, packed_t, sel, sel_valid):
+        """The host side of one page's wire: the layout filter, each kept
+        table matched to its slot (the misses take the chunked region
+        route, enqueued before the contours and read back after them), the
+        detector's contours, the split across cells -> (results_det,
+        results_layout, layout_schema)."""
+        det = self.text_detector
+        lp = self.layout.layout_parser
+        tsr = self.layout.table_structure_recognizer
+        ori_h, ori_w = img.shape[:2]
+        tsr_hw = tuple(tsr._cfg.data.img_size)
+
+        outputs = lp.postprocessor.filter_packed(packed, [[ori_w, ori_h]], lp.thresh_score)
+        results_layout = LayoutParserSchema(**lp.filtering_elements(outputs[0]))
+
+        tsr_data = tsr._preprocess_meta(img, [t.box for t in results_layout.tables])
+        filtered, missing_idx, missing_data = self._ensure_fused_program().consume_region_slots(
+            tsr_data, packed_t, sel, sel_valid, tsr.postprocessor, tsr.thresh_score)
+        chunks = (dispatch_regions_from_page(tsr.model, page, missing_data, tsr_hw)
+                  if missing_data else [])
+
+        with segment("det", "contours"):
+            quads, scores = det.postprocess({"binary": prob}, (ori_h, ori_w))
+        results_det = TextDetectorSchema(points=quads, scores=scores)
+
+        for i, one in zip(missing_idx, collect_filtered_regions(
+                chunks, tsr.postprocessor, tsr.thresh_score)):
+            filtered[i] = one
+        tables = tsr.tables_from_filtered(tsr_data, filtered)
+        layout_schema = LayoutAnalyzerSchema(
+            paragraphs=results_layout.paragraphs,
+            tables=tables,
+            figures=results_layout.figures,
+        )
+        if self.split_text_across_cells:
+            results_det = _split_text_across_cells(results_det, layout_schema)
+        return results_det, results_layout, layout_schema
+
+    def _run_fused(self, img, page):
+        """The fused page route: the program's two legs on the analyzer's
+        worker threads, one readback, the host side of the wire, then the
+        recognizer on this thread and the aggregation."""
+        det = self.text_detector
+        lp = self.layout.layout_parser
+        tsr = self.layout.table_structure_recognizer
+        ori_h, ori_w = img.shape[:2]
+        det_hw = shortest_edge_size(
+            ori_h, ori_w, det._cfg.data.shortest_size, det._cfg.data.limit_size)
+        wire = self._ensure_fused_program()(
+            page, page.hw, det_hw, tuple(lp._cfg.data.img_size),
+            tuple(tsr._cfg.data.img_size), executor=self._workers)
+        results_det, results_layout, layout_schema = self._fused_host_postwire(
+            img, page, *wire)
+
+        vis_det = None
+        layout_vis = None
+        if self.visualize:
+            from .utils.visualizer import (
+                det_visualizer,
+                layout_visualizer,
+                table_visualizer,
+            )
+
+            vis_det = det_visualizer(img, results_det.points)
+            layout_vis = layout_visualizer(results_layout, img)
+            for table in layout_schema.tables:
+                layout_vis = table_visualizer(layout_vis, table)
+
+        rec_page = page if lies_on(page, self.text_recognizer.device) else None
+        results_rec, ocr = self.text_recognizer(
+            img, results_det.points, vis_det, page=rec_page)
+        with segment("aggregate", "host"):
+            results_ocr = OCRSchema(words=ocr_aggregate(results_det, results_rec))
+            outputs = self.aggregate(results_ocr, layout_schema)
+        return DocumentAnalyzerSchema(**outputs), ocr, layout_vis
+
+    @staticmethod
+    def _fused_page_enabled():
+        return not os.environ.get("YOMITOKU_TPU_NO_FUSED_PAGE")
+
+    def _takes_fused_route(self, page):
+        """The fused route: a DevicePage, the switch unset, and the
+        detector, the layout parser and the table recognizer on the page's
+        device."""
+        return (page is not None and self._fused_page_enabled() and all(
+            lies_on(page, m.device) for m in (
+                self.text_detector, self.layout.layout_parser,
+                self.layout.table_structure_recognizer)))
+
     async def run(self, img):
         """Analyse one BGR page -> (DocumentAnalyzerSchema, ocr vis, layout
-        vis): the detector and the layout analyzer on the analyzer's two
-        worker threads over one DevicePage (where device crops are on),
-        then the recognizer on the same page, then the aggregation."""
+        vis): the fused page route where it applies (see the module
+        docstring); else the detector and the layout analyzer on the
+        analyzer's two worker threads over one DevicePage (where device
+        crops are on), then the recognizer on the same page, then the
+        aggregation."""
         device = self.text_detector.device
         page = DevicePage(img, device) if device_crops_enabled(device) else None
+        if self._takes_fused_route(page):
+            return self._run_fused(img, page)
         loop = asyncio.get_running_loop()
         (results_det, _), (results_layout, layout) = await asyncio.gather(
             loop.run_in_executor(self._workers, self.text_detector, img, page),
@@ -565,9 +697,11 @@ class DocumentAnalyzer:
         tokenizer, aggregation) overlap another page's device work ->
         [(DocumentAnalyzerSchema, ocr vis, layout vis)] in input order.
         The models are shared: their kernels queue on the device's stream,
-        the pages' detector and layout calls share the analyzer's two
-        worker threads, and the recognizer's AR loop takes one page at a
-        time."""
+        the pages' detector and layout calls (on the fused route, the
+        program's two legs) share the analyzer's two worker threads, so
+        four pages in flight queue their legs on two threads, as intended:
+        those threads keep cuDNN's plans.  The recognizer's AR loop takes
+        one page at a time."""
         if not imgs:
             return []
         with ThreadPoolExecutor(max_workers=max_in_flight) as executor:

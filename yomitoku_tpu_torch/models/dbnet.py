@@ -10,6 +10,8 @@ channels_last memory when a fused-backbone switch is on
 (models/layers/resnet.py), which the NHWC input already is.
 """
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -19,6 +21,16 @@ from ..data.functions import IMAGENET_MEAN, IMAGENET_STD
 
 from .base import TorchModel
 from .layers.resnet import FrozenBatchNorm, ResNetFeatures
+
+
+@functools.lru_cache(maxsize=8)
+def _statistics(device):
+    """The ImageNet mean and 1 / std on the 0-255 scale, float32 on
+    ``device``, uploaded once per device: an upload per call would block
+    the host on every page."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32) * 255.0
+    inv = 1.0 / (torch.tensor(IMAGENET_STD, dtype=torch.float32) * 255.0)
+    return mean.to(device), inv.to(device)
 
 
 def _resize_bilinear(x, h, w):
@@ -152,9 +164,8 @@ class DBNet(TorchModel):
         on the device.  The BGR input meets RGB-ordered ImageNet
         statistics, because the reference flips the channels twice
         (text_detector.py:69-94)."""
-        mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32) * 255.0
-        inv = 1.0 / (torch.tensor(IMAGENET_STD, dtype=torch.float32) * 255.0)
-        return (images_u8.to(self.device).float() - mean.to(self.device)) * inv.to(self.device)
+        mean, inv = _statistics(self.device)
+        return (images_u8.to(self.device).float() - mean) * inv
 
     @staticmethod
     def _wire(prob):

@@ -150,6 +150,18 @@ def staged_page_mat(page_hw, out_hw, device):
     return _staged_page_mat(tuple(page_hw), tuple(out_hw), torch.device(device))
 
 
+@functools.lru_cache(maxsize=512)
+def _staged_wh(w, h, device):
+    return torch.tensor([[w, h]], dtype=torch.float32).to(device)
+
+
+def staged_wh(w, h, device):
+    """The (1, 2) float32 [[w, h]] of a page, on ``device``, cached per (w,
+    h, device) as staged_page_mat is: the fused page program reads it on
+    the device, where a fresh upload per page would be a blocking copy."""
+    return _staged_wh(int(w), int(h), torch.device(device))
+
+
 def device_crops_enabled(device) -> bool:
     """Crops and resizes on the device: on for a CUDA device, off on the
     CPU, where the host cv2 route is the exact-parity reference.

@@ -11,25 +11,37 @@ two rows and two columns of hard adjacency parsed as grids
 assigned (``t{i}``, ``g{i}``, ``kv{i}``, ``c{i}``, ``p{i}``) and a
 template applied where one is given.
 
-``run_models`` takes the JAX package's unfused route on every device.
-Where device crops are on for the detector's device (CUDA, by default)
-the page is uploaded once, as one DevicePage that the detector, the
-layout parser, the cell detector and the recognizer crop on the device (a
-module on another device gets the image uploaded to its own).  The JAX
-package's fused page program and its page data parallelism are not
-ported, and ``num_devices`` above 1 raises, so ``batch`` runs pages on
-threads only.  Neither the page nor the image is kept on the parser, so
-``batch`` may run ``__call__`` on several threads.
+``run_models`` takes the JAX package's routes.  Where device crops are
+on for the detector's device (CUDA, by default) the page is uploaded
+once, as one DevicePage.  Where the detector, the layout parser and the
+cell detector all lie on that page's device and
+YOMITOKU_TPU_NO_FUSED_PAGE is unset, the page takes the fused page
+program (ops/fused_page.py, with the cell detector in the region slot;
+the CUDA default, as the JAX package's is on an accelerator): one
+readback for the detector, the layout and the cell detector on up to
+four tables the device selects, then on the host the layout filter, the
+slots' matching, the chunked region route for the tables the slots
+missed (overlapped with the contours), and the cell postprocess while
+the recognizer runs on a side pool of eight threads kept for the
+parser's life.  Everywhere else the unfused route runs, each module on
+another device than the page uploading its own.  The JAX package's page
+data parallelism is not ported, and ``num_devices`` above 1 raises, so
+``batch`` runs pages on threads only.  Neither the page nor the image is
+kept on the parser, so ``batch`` may run ``__call__`` on several
+threads; the fused program is built once, under a lock.
 
-One deliberate difference: the detector and the layout parser run on two
-worker threads that the parser keeps for its lifetime, where the JAX
-package makes a pool of two for each page.  PyTorch keeps cuDNN's
+One deliberate difference: the detector and the layout parser (on the
+fused route: the program's two legs) run on two worker threads that the
+parser keeps for its lifetime, where the JAX package makes a pool of two
+for each page.  PyTorch keeps cuDNN's
 convolution plans per thread, so on a new thread every convolution of
 DBNet and RT-DETRv2 is planned again (DocumentAnalyzer keeps its two
 workers for the same reason).
 """
 
 import asyncio
+import os
+import threading
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 
@@ -37,19 +49,30 @@ import cv2
 import networkx as nx
 import numpy as np
 
+from .data.functions import shortest_edge_size
 from .grid_parser import parse_grid_from_bottom_up
 from .kv_parser import parse_kv_items
 from .layout_parser import LayoutParser
 from .ocr import ocr_aggregate
 from .ops.device_crop import DevicePage, device_crops_enabled, lies_on
+from .ops.fused_page import FusedPageAnalysis
 from .reading_order import prediction_reading_order
-from .schemas import Element, OCRSchema, ParagraphSchema, TableCellSchema
+from .schemas import (
+    Element,
+    LayoutParserSchema,
+    OCRSchema,
+    ParagraphSchema,
+    TableCellSchema,
+    TextDetectorSchema,
+)
 from .schemas.table_semantic_parser import (
     CellSchema,
+    TableDetectorSchema,
     TableSemanticContentsSchema,
     TableSemanticParserSchema,
 )
 from .table_cell_detector import CellDetector
+from .table_structure_recognizer import collect_filtered_regions, dispatch_regions_from_page
 from .text_detector import TextDetector
 from .text_recognizer import TextRecognizer
 from .utils.adjacency import bottom_adjacency_matrix, right_adjacency_matrix
@@ -329,6 +352,22 @@ class TableSemanticParser:
         #: and end when the parser is collected
         self._workers = ThreadPoolExecutor(
             max_workers=2, thread_name_prefix="TableSemanticParser")
+        #: the fused page program, built at the first fused page, and the
+        #: fused route's recognizer pool
+        self._fused_page_program = None
+        self._fused_page_lock = threading.Lock()
+        self._rec_pool = None
+
+    def _rec_executor(self):
+        """The fused route's pool for the recognizer's leg, kept for the
+        parser's life: eight threads, so that ``batch``'s pages (four by
+        default) never wait for one another there."""
+        if self._rec_pool is None:
+            with self._fused_page_lock:
+                if self._rec_pool is None:
+                    self._rec_pool = ThreadPoolExecutor(
+                        max_workers=8, thread_name_prefix="tsp-rec")
+        return self._rec_pool
 
     def aggregate(self, ocr_res, cells, overlap_th=0.2):
         """Assign each word to its best-overlap cell (reference :471),
@@ -387,14 +426,111 @@ class TableSemanticParser:
                 new_table_list.append(table)
         return new_table_list
 
+    @staticmethod
+    def _fused_page_enabled():
+        return not os.environ.get("YOMITOKU_TPU_NO_FUSED_PAGE")
+
+    def _ensure_fused_program(self):
+        """The fused page program with the cell detector in the region
+        slot, built once (see DocumentAnalyzer._ensure_fused_program)."""
+        if self._fused_page_program is None:
+            with self._fused_page_lock:
+                if self._fused_page_program is None:
+                    lp, cell = self.layout_parser, self.cell_detector
+                    table_label = next(
+                        i for i, c in lp.label_mapper.items() if c == "tables")
+                    self._fused_page_program = FusedPageAnalysis(
+                        self.text_detector.model, lp.model, cell.model,
+                        lay_top_k=lp.postprocessor.num_top_queries,
+                        tsr_top_k=cell.postprocessor.num_top_queries,
+                        table_label=table_label,
+                        lay_thresh=lp.thresh_score,
+                        trace_label="det+layout+cell",
+                    )
+        return self._fused_page_program
+
+    def _fused_sizes(self, img):
+        """(the detector's /32 size, the layout's size, the cell crops'
+        size) for one page."""
+        det = self.text_detector
+        ori_h, ori_w = img.shape[:2]
+        det_hw = shortest_edge_size(
+            ori_h, ori_w, det._cfg.data.shortest_size, det._cfg.data.limit_size)
+        return (det_hw, tuple(self.layout_parser._cfg.data.img_size),
+                tuple(self.cell_detector._cfg.data.img_size))
+
+    def _run_fused_models(self, img, page):
+        """The fused page route: the program's two legs on the parser's
+        worker threads, one readback, then its host side."""
+        det_hw, lay_hw, cell_hw = self._fused_sizes(img)
+        wire = self._ensure_fused_program()(
+            page, page.hw, det_hw, lay_hw, cell_hw, executor=self._workers)
+        return self._fused_host_postwire(img, page, *wire)
+
+    def _fused_host_postwire(self, img, page, prob, packed, packed_c, sel, sel_valid):
+        """The host side of one page's wire: the layout filter, each kept
+        table matched to its slot (the misses take the chunked region
+        route, enqueued before the contours and read back after them), the
+        contours, the recognizer on the side pool while the cell
+        postprocess and hole mining run -> (OCRSchema, tables,
+        paragraphs)."""
+        det, lp, cell = self.text_detector, self.layout_parser, self.cell_detector
+        ori_h, ori_w = img.shape[:2]
+        cell_hw = tuple(cell._cfg.data.img_size)
+        outputs = lp.postprocessor.filter_packed(packed, [[ori_w, ori_h]], lp.thresh_score)
+        results_layout = LayoutParserSchema(**lp.filtering_elements(outputs[0]))
+
+        tables = list(results_layout.tables)
+        cell_data = cell._preprocess_meta(img, tables)
+        filtered, missing_idx, missing_data = self._ensure_fused_program().consume_region_slots(
+            cell_data, packed_c, sel, sel_valid, cell.postprocessor, cell.thresh_score)
+        chunks = (dispatch_regions_from_page(cell.model, page, missing_data, cell_hw)
+                  if missing_data else [])
+
+        with segment("det", "contours"):
+            quads, scores = det.postprocess({"binary": prob}, (ori_h, ori_w))
+        results_det = TextDetectorSchema(points=quads, scores=scores)
+
+        rec_page = page if lies_on(page, self.text_recognizer.device) else None
+        rec_future = self._rec_executor().submit(
+            self.text_recognizer, img, results_det.points, page=rec_page)
+        try:
+            for i, one in zip(missing_idx, collect_filtered_regions(
+                    chunks, cell.postprocessor, cell.thresh_score)):
+                filtered[i] = one
+            results_table = []
+            for one, d, table in zip(filtered, cell_data, tables):
+                cells = cell.postprocess(one, d, table.box)
+                if len(cells) == 0:
+                    continue
+                results_table.append(TableDetectorSchema(
+                    id=None, box=table.box, role=table.role, cells=cells))
+            results_table = self.replace_table_to_paragraphs(
+                results_table, results_layout.paragraphs)
+        finally:
+            results_rec, _ = rec_future.result()
+        results_ocr = OCRSchema(words=ocr_aggregate(results_det, results_rec))
+        return results_ocr, results_table, results_layout.paragraphs
+
+    def _takes_fused_route(self, page):
+        """The fused route: a DevicePage, the switch unset, and the
+        detector, the layout parser and the cell detector on the page's
+        device."""
+        return (page is not None and self._fused_page_enabled() and all(
+            lies_on(page, m.device)
+            for m in (self.text_detector, self.layout_parser, self.cell_detector)))
+
     async def run_models(self, img):
         """The models on one BGR page -> (OCRSchema, [TableDetectorSchema],
-        paragraphs): the detector and the layout parser on the parser's two
-        worker threads over one DevicePage (where device crops are on),
-        then the cell detector on the layout's tables, then the recognizer
-        on the same page."""
+        paragraphs): the fused page route where it applies (see the module
+        docstring); else the detector and the layout parser on the
+        parser's two worker threads over one DevicePage (where device crops
+        are on), then the cell detector on the layout's tables, then the
+        recognizer on the same page."""
         device = self.text_detector.device
         page = DevicePage(img, device) if device_crops_enabled(device) else None
+        if self._takes_fused_route(page):
+            return self._run_fused_models(img, page)
 
         def page_for(module):
             if page is None or lies_on(page, module.device):
@@ -456,7 +592,8 @@ class TableSemanticParser:
         parsing) overlap another page's device work -> [(semantic_info,
         vis_layout, vis_ocr)] in input order.  The models are shared: their
         kernels queue on the device's stream, the pages' detector and
-        layout calls share the parser's two worker threads, and the
+        layout calls (on the fused route, the program's two legs) share
+        the parser's two worker threads, which keep cuDNN's plans, and the
         recognizer's AR loop takes one page at a time."""
         if not imgs:
             return []

@@ -36,24 +36,42 @@ class TableStructureRecognizerModelCatalog(BaseModelCatalog):
         self.register("rtdetrv2", TableStructureRecognizerRTDETRv2Config, RTDETRv2)
 
 
-def filtered_regions_from_page(model, page, data, out_hw, postprocessor, threshold):
-    """The page route's forward of a region detector (the table recognizer
-    and the cell detector): the regions of ``data`` (each one's "size"
-    (h, w) and "offset" (x, y) on the page) cropped and resized to
-    ``out_hw`` on ``model``'s device, at most REGION_CHUNK at a time, and
-    each chunk's top-k filtered at ``threshold`` -> one {labels, boxes,
-    scores} dict per region, in region coordinates."""
+def dispatch_regions_from_page(model, page, data, out_hw):
+    """Enqueue the page route's crops and forwards of a region detector
+    (the table recognizer and the cell detector): the regions of ``data``
+    (each one's "size" (h, w) and "offset" (x, y) on the page) cropped and
+    resized to ``out_hw`` on ``model``'s device, at most REGION_CHUNK at a
+    time -> [(device preds, sizes)] per chunk, without waiting for the
+    device, so that the caller's host work overlaps them
+    (``collect_filtered_regions`` reads them back)."""
     page_dev = page_on(page, model.device)
-    filtered = []
+    chunks = []
     for s in range(0, len(data), REGION_CHUNK):
         chunk = data[s:s + REGION_CHUNK]
         mats, _ = region_mats([(d["offset"][0], d["offset"][1],
                                 d["offset"][0] + d["size"][1],
                                 d["offset"][1] + d["size"][0]) for d in chunk], out_hw)
         preds = model.forward_from_page(page_dev, mats, out_hw)
-        sizes = [[d["size"][1], d["size"][0]] for d in chunk]
+        chunks.append((preds, [[d["size"][1], d["size"][0]] for d in chunk]))
+    return chunks
+
+
+def collect_filtered_regions(chunks, postprocessor, threshold):
+    """Each chunk of ``dispatch_regions_from_page`` through the
+    postprocessor (its top-k, one readback a chunk) and the filter at
+    ``threshold`` -> one {labels, boxes, scores} dict per region, in
+    region coordinates."""
+    filtered = []
+    for preds, sizes in chunks:
         filtered.extend(postprocessor(preds, sizes, threshold))
     return filtered
+
+
+def filtered_regions_from_page(model, page, data, out_hw, postprocessor, threshold):
+    """The page route's forward of a region detector, read back and
+    filtered: ``collect_filtered_regions`` of ``dispatch_regions_from_page``."""
+    return collect_filtered_regions(
+        dispatch_regions_from_page(model, page, data, out_hw), postprocessor, threshold)
 
 
 def extract_cells(row_boxes, col_boxes):

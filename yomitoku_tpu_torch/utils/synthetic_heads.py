@@ -51,7 +51,7 @@ def balance_final_score_head(model, calibration_batch):
 
 def pinned_cells(w, h, index, label_of):
     """Deterministic cell detections for a table crop of ``w`` x ``h``
-    pixels, the ``index``-th of its call: at an even index a 4x4 grid
+    pixels, keyed by ``index``: at an even index a 4x4 grid
     (row 0 headers, rows 1-3 cells), which the semantic parser reads as a
     grid; at an odd index 4 stacked (header | value) pairs with gaps
     between the rows, one hard-adjacency line per role, which it reads as
@@ -89,8 +89,10 @@ def pinned_filter_packed(detector):
     filters would time a load no checkpoint makes; the pinned sets keep
     the forward, the readback and the real filter in the path and give
     the semantic parser both a grid and key-value items.  The choice
-    depends only on the crop's place in its call, so every route and
-    thread sees the same detections."""
+    depends only on the crop's size, keyed by the parity of w + h, so
+    every route sees the same detections for a table: the unfused route
+    filters a page's tables in one call, the fused route each slot in a
+    call of its own."""
     import numpy as np
 
     real = detector.postprocessor.filter_packed
@@ -99,6 +101,6 @@ def pinned_filter_packed(detector):
     def filter_packed(packed, orig_sizes, threshold):
         real(packed, orig_sizes, threshold)
         sizes = np.asarray(orig_sizes, np.float32).reshape(-1, 2)
-        return [pinned_cells(w, h, i, label_of) for i, (w, h) in enumerate(sizes)]
+        return [pinned_cells(w, h, int(w) + int(h), label_of) for w, h in sizes]
 
     return filter_packed
