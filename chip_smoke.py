@@ -8,11 +8,13 @@
     python3 chip_smoke.py --document
     python3 chip_smoke.py --cli
     python3 chip_smoke.py --semantic
+    python3 chip_smoke.py --dp
 
 With no arguments it runs the phases below, each printed as it runs; any
 failure exits non-zero.  ``--page`` runs phase 8 alone, ``--document``
 phase 9, ``--cli`` phase 9's analyzer setup and then phase 10,
-``--semantic`` phase 9's analyzer setup and then phase 11.  ``--fused-kernels [ROOT]`` runs only phase 7's
+``--semantic`` phase 9's analyzer setup and then phase 11, ``--dp``
+phase 9's analyzer setup and then phase 12.  ``--fused-kernels [ROOT]`` runs only phase 7's
 bottleneck kernels at their eleven shapes and the fused DBNet forward's
 device busy, and ``--deform-kernels [ROOT]`` only phase 2's
 ms_deformable_attention lines at its four shapes, on the package of this checkout or of another
@@ -248,7 +250,9 @@ each ends with a JSON line of its times.
    every word of the JSON pages), ``-f json`` on demo/sample_scan.pdf and
    ``-f html`` where lxml imports; every output file present and not
    empty, under build/chip_smoke/cli/, the numbers in
-   build/chip_smoke/cli.json.
+   build/chip_smoke/cli.json.  ``-f json --num_devices 2`` once: on one
+   card the analyzer's ``batch`` takes the page axis one page a chunk
+   (``batch_call`` counted) and every file equals the default run's.
 11. Table semantics (``TableSemanticParser``), the CUDA defaults (the
    fused page route, with the cell detector in its region slot): the
    full-width parser (rtdetrv2v2 layout, the
@@ -281,6 +285,36 @@ each ends with a JSON line of its times.
    on the fused and unfused routes ``batch`` pages/s at 1 and 4 in flight
    and one page's device busy, idle share, device ops and device-to-host
    copies, in build/chip_smoke/semantic.json.
+12. The page axis (``parallel/``, ``FusedPageAnalysis.batch_call``, the
+   analyzers' ``_batch_dp_fused``): ``DocumentAnalyzer`` on phase 9's 8
+   pages and ``TableSemanticParser`` on 4 of phase 11's, each with
+   ``num_devices=2`` on the one card (``dp_mesh(2)`` is None: chunks of
+   ``YOMITOKU_TPU_DP_CHUNK`` pages, at 1 and 4).  Paths ``document_dp``
+   and ``semantic_dp`` (both chunks, counted; routes as in phase 9); the
+   ``batch_call`` page counts; one page a chunk equal to ``batch()``, bit
+   for bit; four pages a chunk unpinned (the table crops the layout's
+   bf16 boxes moved, counted) and with the layout pinned to four tables
+   on both sides: the same words and table crops, every lane fed the
+   region model ``batch()``'s crops bit for bit, the region model's
+   scores on the host's rows within its own batch rounding on the same
+   crops (+ 1e-6); pages/s beside ``batch()`` at max_in_flight 1 and 4,
+   one run of each chunk profiled (device ops and device-to-host copies
+   per page); a chunk of 4 enqueued under sync debug mode "error" and one
+   copy per ``batch_call``; replicas on ``[cuda:0, cuda:0]`` (DBNet, the
+   layout and table RT-DETRv2s and PARSeq split over two copies equal to
+   the model on each half, and the page axis over them equal to one page
+   a chunk, bit for bit); the f32 analyzer and the f32 table semantic
+   parser (the layout pinned; the cell detector's scores within 1e-4) at
+   four pages a chunk against ``__call__`` within phase 9's card-vs-CPU
+   limits; ``DocumentAnalyzer`` under YOMITOKU_TPU_HOST_CROPS=1 on the
+   stage-batched host route (``_batch_dp_host``, path
+   ``document_dp_host``) against phase 9's host-route ``batch()``, the
+   layout pinned: the same quads, strings apart only where the recognizer
+   read a bit-equal crop otherwise in its batch, the table recognizer's
+   crops and scores under the gate above; numbers in
+   build/chip_smoke/dp.json.
+   Phase 2 holds kernel 3 at the 16 slots' (16, 300, 256) and (16, 2500,
+   256) and kernel 5 at (16, 300) and (16, 2500) for this phase.
 
 Phase 3 pins YOMITOKU_TPU_INT8_KV=0 (the full cache, which its f32
 card-vs-CPU check compares with the CPU's), phase 6 leaves it at its
@@ -357,17 +391,21 @@ HBM_BYTES_S, BF16_FLOP_S, INT8_OP_S, F32_FLOP_S = 3.35e12, 989e12, 1979e12, 67e1
 # 32, points (4, 4, 4); queries of the layout decoder and the cell detector
 LEVELS, D_DETR, POINTS = ((80, 80), (40, 40), (20, 20)), 256, (4, 4, 4)
 #: (batch, Lq): the layout parser's page, the table recognizer's batch of
-#: TABLE_BOXES crops, and the cell detector's queries on one and four tables
+#: TABLE_BOXES crops, the cell detector's queries on one and four tables,
+#: and the 16 slots of the page axis at four pages a chunk (phase 12)
 DEFORM_QUERIES = {"lq300": (1, 300), "b4_lq300": (4, 300), "lq2500": (1, 2500),
-                  "b4_lq2500": (4, 2500)}
+                  "b4_lq2500": (4, 2500), "b16_lq300": (16, 300), "b16_lq2500": (16, 2500)}
 #: fused_attention_heads at RT-DETR's self-attention: (batch, L of q, k and
 #: v), the page and the table recognizer's batch, and the cell detector's
-#: decoder over 2,500 queries on one and four tables
+#: decoder over 2,500 queries on one and four tables; the page axis at
+#: four pages a chunk (phase 12): the table recognizer's and the cell
+#: detector's 16 slots
 RTDETR_ATTENTION = {"aifi": (1, 400), "decoder": (1, 300),
                     "aifi_b4": (4, 400), "decoder_b4": (4, 300),
-                    "cell_decoder": (1, 2500), "cell_decoder_b4": (4, 2500)}
+                    "cell_decoder": (1, 2500), "cell_decoder_b4": (4, 2500),
+                    "decoder_b16": (16, 300), "cell_decoder_b16": (16, 2500)}
 #: the attention shapes whose 128-row blocks fill the card: route "wgmma"
-WGMMA_ATTENTION = ("cell_decoder", "cell_decoder_b4")
+WGMMA_ATTENTION = ("cell_decoder", "cell_decoder_b4", "cell_decoder_b16")
 #: the fused-backbone path's kernels
 FUSED_KERNELS = ("fused_bottleneck", "fused_identity_stage")
 #: fused_bottleneck at each distinct stride-1 block of DBNet (1600x1184 ->
@@ -756,16 +794,18 @@ def median_ms(fn, runs=10, warmup=3):
     return statistics.median(times)
 
 
-def profiled(fn, runs=10):
-    """torch.profiler over ``runs`` calls of ``fn`` after one warm-up ->
-    (wall ms per call, {kernel name: device ms per call}, device kernels
-    per call, {kernel name: launches in the window}).  Device times are the
-    CUDA kernels' own (CUPTI); the wall time ends in a sync."""
+def profiled(fn, runs=10, warmup=True):
+    """torch.profiler over ``runs`` calls of ``fn`` after one warm-up (none
+    where ``warmup`` is false: ``fn`` ran warm just before) -> (wall ms per
+    call, {kernel name: device ms per call}, device kernels per call,
+    {kernel name: launches in the window}).  Device times are the CUDA
+    kernels' own (CUPTI); the wall time ends in a sync."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3225,7 +3265,7 @@ def _remember_page_images():
     a painted detector finds its page's ink without reading the page back
     from the card: on the fused route the detector's leg must not wait for
     the card before the wire's readback."""
-    from yomitoku_tpu_torch.ops.device_crop import DevicePage
+    from yomitoku_tpu_torch.ops.device_crop import DevicePage, DevicePages
 
     if getattr(DevicePage, "_remembers_images", False):
         return
@@ -3233,13 +3273,24 @@ def _remember_page_images():
 
     def remembering(self, img_bgr, device, align=512):
         init(self, img_bgr, device, align)
-        with _PAGE_IMAGES_LOCK:
-            _PAGE_IMAGES[(self.dev.device, self.dev.data_ptr())] = img_bgr
-            while len(_PAGE_IMAGES) > 64:
-                _PAGE_IMAGES.pop(next(iter(_PAGE_IMAGES)))
+        _remember(self.dev, img_bgr)
 
+    def remembering_stack(self, imgs_bgr, device, align=512):
+        init_stack(self, imgs_bgr, device, align)
+        for page, img in zip(self.dev, imgs_bgr):
+            _remember(page, img)
+
+    init_stack = DevicePages.__init__
     DevicePage.__init__ = remembering
+    DevicePages.__init__ = remembering_stack
     DevicePage._remembers_images = True
+
+
+def _remember(page, img):
+    with _PAGE_IMAGES_LOCK:
+        _PAGE_IMAGES[(page.device, page.data_ptr())] = img
+        while len(_PAGE_IMAGES) > 64:
+            _PAGE_IMAGES.pop(next(iter(_PAGE_IMAGES)))
 
 
 def paint_detector(det):
@@ -3250,45 +3301,62 @@ def paint_detector(det):
     (fused_mlp_ln takes 3 lines or more, fused_mlp 11).  The contours, the
     crops and everything after them run on the painted lines.  On the page
     routes (``forward_from_page``, which the unfused route reads back and
-    the fused program ships in its wire) the ink comes from the page's host
-    image (_remember_page_images) and goes up from pinned memory without a
+    the fused program ships in its wire; ``forward_from_pages``, the page
+    axis's stack) the ink comes from the page's host image
+    (_remember_page_images) and goes up from pinned memory without a
     wait."""
+    import numpy as np
     import torch
 
     _remember_page_images()
     model = det.model
     from_page, from_u8 = model.forward_from_page, model.forward_binary_u8
+    from_pages = model.forward_from_pages
 
-    def painted_from_page(page, src_hw, out_hw):
-        real = from_page(page, src_hw, out_hw)
+    def ink(page, src_hw, out_hw):
         h, w = src_hw
         with _PAGE_IMAGES_LOCK:
             img = _PAGE_IMAGES.get((page.device, page.data_ptr()))
         if img is None:  # a page made before the first paint_detector
             img = page[:h, :w].cpu().numpy()
-        lines = torch.from_numpy(_ink_lines(img[:h, :w], real.shape[1:]))
+        return _ink_lines(img[:h, :w], out_hw)
+
+    def up(lines, real):
+        lines = torch.from_numpy(lines)
         if real.is_cuda:
             lines = lines.pin_memory()
         return lines.to(real.device, non_blocking=True)
 
+    def painted_from_page(page, src_hw, out_hw):
+        real = from_page(page, src_hw, out_hw)
+        return up(ink(page, src_hw, real.shape[1:]), real)
+
+    def painted_from_pages(pages, src_hws, out_hw):
+        real = from_pages(pages, src_hws, out_hw)
+        return up(np.concatenate([ink(p, hw, real.shape[1:]) for p, hw in zip(pages, src_hws)]),
+                  real)
+
     def painted_u8(images_u8):
         real = from_u8(images_u8)
-        return _ink_lines(images_u8[0], real.shape[1:])
+        return np.concatenate([_ink_lines(img, real.shape[1:]) for img in images_u8])
 
     model.forward_from_page = painted_from_page
+    model.forward_from_pages = painted_from_pages
     model.forward_binary_u8 = painted_u8
 
 
 @contextlib.contextmanager
 def unpainted(det):
-    """The detector's real page forward for the block."""
+    """The detector's real page forwards for the block."""
     model = det.model
-    painted = model.__dict__.pop("forward_from_page", None)
+    painted = {name: model.__dict__.pop(name, None)
+               for name in ("forward_from_page", "forward_from_pages")}
     try:
         yield
     finally:
-        if painted is not None:
-            model.forward_from_page = painted
+        for name, fn in painted.items():
+            if fn is not None:
+                setattr(model, name, fn)
 
 
 #: the two routes of phases 9-11: the fused page program (the CUDA
@@ -3601,9 +3669,10 @@ def region_rows(module):
 
 
 @contextlib.contextmanager
-def pinned_tables(module, tables=FOUR_TABLES):
+def pinned_tables(module, tables=FOUR_TABLES, model=None):
     """A layout parser's output pinned after its real forward: ``tables``
-    [(cxcywh, table logit)] in its first queries, no other query a table."""
+    [(cxcywh, table logit)] in its first queries, no other query a table
+    (on ``model``, a replica of the parser's model, where given)."""
     import torch
 
     label = next(i for i, c in module.label_mapper.items() if c == "tables")
@@ -3617,7 +3686,7 @@ def pinned_tables(module, tables=FOUR_TABLES):
             boxes[:, q] = torch.tensor(box, dtype=boxes.dtype, device=boxes.device)
         return {**out, "pred_logits": logits, "pred_boxes": boxes}
 
-    handle = module.model.decoder.register_forward_hook(hook)
+    handle = (model or module.model).decoder.register_forward_hook(hook)
     try:
         yield
     finally:
@@ -4322,6 +4391,26 @@ def _phase_cli(card, ctx):
             lambda k: da.batch(rendered["sample"], max_in_flight=k), n)
         numbers["chunk_pages_s"] = numbers["routes"]["fused"]["batch_pages_s"]
 
+        # --num_devices 2: one card, so no replica; the analyzer's batch
+        # takes the page axis (a chunk of one page, YOMITOKU_TPU_DP_CHUNK's
+        # default), whose batches are __call__'s: the JSON of the default run
+        with batch_call_pages() as calls, _env(YOMITOKU_TPU_DP_CHUNK=None):
+            took, spent, dp_files = run_cli(cli, clock, "json_num_devices_2", sample,
+                                            ["-f", "json", "--num_devices", "2"])
+        kwargs, _ = clock["built"][-1]
+        check(kwargs["num_devices"] == 2, f"cli: --num_devices 2 built {kwargs}")
+        check(calls == [1] * n, f"cli --num_devices 2: batch_call pages {calls}, the page "
+              f"axis at one page a chunk expected ({[1] * n})")
+        check([p.name for p in dp_files] == [p.name for p in files],
+              f"cli --num_devices 2: files {[p.name for p in dp_files]}")
+        for a, b in zip(files, dp_files):
+            check(a.read_bytes() == b.read_bytes(),
+                  f"cli --num_devices 2: {b.name} differs from the default run's")
+        runs["json_num_devices_2"] = dict(s=took, **spent)
+        log(f"cli: -f json --num_devices 2 on {torch.cuda.device_count()} card(s): the page "
+            f"axis (batch_call pages {calls}), {took:.2f} s; every JSON file equals the default "
+            f"run's, byte for byte")
+
         # timed: a second -f json run, and one under torch.profiler
         took, spent, _ = run_cli(cli, clock, "json_warm", sample, ["-f", "json"])
         runs["json_warm"] = dict(s=took, **spent)
@@ -4742,10 +4831,728 @@ def _phase_semantic(card, ctx):
         "semantic (sample_table.png)", card, lambda: tsp(table),
         lambda k: tsp.batch(batch, max_in_flight=k), len(batch))
     (OUT / "semantic.json").write_text(json.dumps(numbers, indent=1))
-    del tsp
+    ctx["semantic_parser"] = tsp  # phase 12's
     torch.cuda.empty_cache()
     return paths, numbers
 
+
+
+#: phase 12's page-axis chunks (YOMITOKU_TPU_DP_CHUNK): one page, the
+#: default and __call__'s batches, and four, the table slots 16 a chunk
+DP_CHUNKS = (1, 4)
+
+
+@contextlib.contextmanager
+def batch_call_pages():
+    """The page count of every FusedPageAnalysis.batch_call in the block."""
+    from yomitoku_tpu_torch.ops import fused_page
+
+    seen = []
+    real = fused_page.FusedPageAnalysis.batch_call
+
+    def spy(self, pages_dev, page_hws, *args, **kwargs):
+        seen.append(int(pages_dev.shape[0]))
+        return real(self, pages_dev, page_hws, *args, **kwargs)
+
+    fused_page.FusedPageAnalysis.batch_call = spy
+    try:
+        yield seen
+    finally:
+        fused_page.FusedPageAnalysis.batch_call = real
+
+
+def chunk_calls(imgs, det_hw, chunk):
+    """The batch_call page counts the page axis sends for ``imgs``: one
+    call of ``chunk`` pages per chunk of each (padded shape, detector size)
+    group, a short chunk padded."""
+    groups = {}
+    for img in imgs:
+        h, w = img.shape[:2]
+        key = (-(-h // 512), -(-w // 512), det_hw(img))
+        groups[key] = groups.get(key, 0) + 1
+    return [chunk] * sum(-(-n // chunk) for n in groups.values())
+
+
+def dp_batch(obj, imgs, chunk, **kwargs):
+    """``obj.batch(imgs)`` with ``num_devices`` 2 at YOMITOKU_TPU_DP_CHUNK
+    ``chunk``: on one card dp_mesh(2) is None, so the page axis runs
+    without a mesh, as the JAX package's does on one chip (the analyzer's
+    attribute is what ``batch`` reads; its modules would make no replica on
+    one card)."""
+    saved, obj.num_devices = obj.num_devices, 2
+    try:
+        with _env(YOMITOKU_TPU_DP_CHUNK=str(chunk)):
+            return [r[0] for r in obj.batch(imgs, **kwargs)]
+    finally:
+        obj.num_devices = saved
+
+
+@contextlib.contextmanager
+def region_calls(model):
+    """Every forward of a region model in the block: [(input crops, its
+    outputs' sigmoid scores (B, Q*C))], clones where the crops lay (the
+    host's crops as CPU tensors)."""
+    import numpy as np
+    import torch
+
+    real, seen = model.forward, []
+
+    def spy(images):
+        out = real(images)
+        x = (images.detach().clone() if isinstance(images, torch.Tensor)
+             else torch.from_numpy(np.array(images)))
+        seen.append((x, torch.sigmoid(out["pred_logits"].float()).flatten(1)))
+        return out
+
+    model.forward = spy
+    try:
+        yield seen
+    finally:
+        del model.forward
+
+
+def _paired_score_gap(rows):
+    """The region model's sorted scores on each table crop of two runs
+    (``rows``: {"dp" | "batch": region_rows}), paired greedily by crop
+    size, closest first -> (max |d|, the worst crop's size); fails where
+    other crops reached the model."""
+    import numpy as np
+
+    by_size = {}
+    for key, seen in rows.items():
+        by_size[key] = {}
+        for size, row in seen:
+            by_size[key].setdefault(size, []).append(np.sort(row[:, 1])[::-1])
+    a, b = by_size["dp"], by_size["batch"]
+    check({k: len(v) for k, v in a.items()} == {k: len(v) for k, v in b.items()},
+          f"other table crops reached the region model: {sorted(a)} against {sorted(b)}")
+    d, worst = 0.0, None
+    for k in a:
+        dist = np.array([[float(np.abs(x - y).max()) for y in b[k]] for x in a[k]])
+        for _ in range(len(a[k])):
+            i, j = np.unravel_index(np.argmin(dist), dist.shape)
+            if dist[i, j] > d:
+                d, worst = float(dist[i, j]), k
+            dist[i, :], dist[:, j] = np.inf, np.inf
+    return d, worst, sum(len(v) for v in a.values())
+
+
+def check_page_axis_agrees(got, want, rows, calls, what, words=True):
+    """The page axis at a chunk of several pages (or the stage-batched host
+    route) against ``batch()``, the layout pinned on both: the same words
+    (quads and strings) on every page (``words``; the caller checks them
+    where it is False); the same table crops reaching the region model
+    (``rows``: {"dp" | "batch": region_rows}); each chunk's input to the
+    region model, K crops a page, bit-equal to the K crops ``batch()`` fed
+    it for that page (``calls``: {"dp" | "batch": region_calls}), so that
+    the slots, the crop maps and the lanes are the same; and the region
+    model's sorted scores on the host's rows (paired greedily by crop size,
+    closest first) within the model's own batch rounding: the largest
+    difference between its outputs on the same crops at the chunk's batch
+    and at ``batch()``'s, + 1e-6.  bf16 rounds apart by batch, and random
+    weights can flip a query of a table (seen: one crop of 35 by 0.35), so
+    a fixed limit fails on rounding; a row that reached another page or
+    slot, or a lane fed another crop, fails this gate.  ROUTE_SCORE_LIMIT,
+    the page routes' fixed limit, is reported beside it -> numbers."""
+    import torch
+
+    if words:
+        for i, (g, w) in enumerate(zip(got, want)):
+            check([(x.points, x.content) for x in g.words]
+                  == [(x.points, x.content) for x in w.words],
+                  f"{what}: page {i}: the words differ ({len(g.words)} against {len(w.words)})")
+    try:
+        d, worst, crops = _paired_score_gap(rows)
+    except SmokeFailure as e:
+        raise SmokeFailure(f"{what}: {e}") from e
+    k = len(calls["batch"][0][0]) if calls["batch"] else 0
+    model_d, lanes = 0.0, 0
+    for x, scores in calls["dp"]:
+        for s in range(0, len(x), k):
+            match = [sc for xb, sc in calls["batch"] if len(xb) == k and torch.equal(xb, x[s:s + k])]
+            check(match, f"{what}: lane {s // k} of a chunk fed the region model crops that "
+                  "batch() fed it for no page")
+            d_lane = (scores[s:s + k].sort(-1).values - match[0].sort(-1).values).abs().max()
+            model_d = max(model_d, float(d_lane))
+            lanes += 1
+    check(d <= model_d + 1e-6,
+          f"{what}: the region scores on the host's rows part from batch()'s by {d:.6f} (crop "
+          f"{worst}), more than the model's own batch rounding on the same crops, "
+          f"{model_d:.6f}: a row reached another page or slot")
+    return dict(crops=crops, lanes=lanes, max_d_score=d, worst_crop=worst,
+                within_limit=d <= ROUTE_SCORE_LIMIT, model_batch_max_d_score=model_d,
+                gate=model_d + 1e-6)
+
+
+def log_agrees(what, route, agree, words="the same words on every page"):
+    log(f"{what}: {route} against batch(), the layout pinned to four tables a page on both: "
+        f"{words}, the same {agree['crops']} table crops, each of {agree['lanes']} lanes fed "
+        f"the region model batch()'s crops bit for bit; the region model's sorted scores part "
+        f"by {agree['max_d_score']:.4f} on the host's rows (worst crop {agree['worst_crop']}), "
+        f"within its own bf16 batch rounding on the same crops, "
+        f"{agree['model_batch_max_d_score']:.4f} (gate: that + 1e-6; the page routes' fixed "
+        f"limit {ROUTE_SCORE_LIMIT} {'held' if agree['within_limit'] else 'not held'})")
+
+
+def check_batch_program(prog, imgs, sizes, executor, det, what):
+    """One chunk of pages uploaded and enqueued under
+    torch.cuda.set_sync_debug_mode("error") (the detector's real forward):
+    nothing may wait for the card before the chunk's readback; then one
+    batch_call profiled: one device-to-host copy for the chunk -> numbers."""
+    import torch
+
+    from yomitoku_tpu_torch.ops.device_crop import DevicePages
+
+    with unpainted(det):
+        pages = DevicePages(imgs, "cuda")
+        prog.batch_call(pages.dev, pages.hws, *sizes, executor=executor)  # stages the maps
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pages = DevicePages(imgs, "cuda")
+            wire = prog.enqueue_batch(pages.dev, pages.hws, *sizes, executor=executor)
+        except RuntimeError as e:
+            raise SmokeFailure(f"{what}: the page axis waited for the card before its "
+                               f"readback: {e}") from e
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        nbytes = wire.numel()
+        wire.cpu()
+        # a profiler window can lose a thread's last events (a ragged
+        # window reads under 1), never make a copy: up to three windows,
+        # one of them must read exactly 1 and none more
+        windows = []
+        while len(windows) < 3 and 1.0 not in windows:
+            _, _, n_ops, launched = profiled(
+                lambda: prog.batch_call(pages.dev, pages.hws, *sizes, executor=executor),
+                runs=3)
+            windows.append(d2h_per_call(launched, 3))
+    d2h = windows[-1]
+    check(d2h == 1 and max(windows) <= 1, f"{what}: device-to-host copies per batch_call "
+          f"{windows} in successive profiler windows, 1 expected")
+    log(f"{what}: a chunk of {len(imgs)} pages uploaded and enqueued with "
+        f"torch.cuda.set_sync_debug_mode('error'): no wait for the card before the readback of "
+        f"its {nbytes:,}-byte wire; profiled: {d2h:.0f} device-to-host copy and {n_ops:.0f} "
+        f"device ops per batch_call")
+    return dict(wire_bytes=nbytes, d2h_per_call=d2h, device_ops_per_call=n_ops,
+                pages=len(imgs))
+
+
+def check_replicas(da, imgs, lines, what):
+    """Replicas on the device list [cuda:0, cuda:0] (one card named twice):
+    each of the four models split over two copies equals, bit for bit, the
+    model itself on each half (the same batches, the same kernels); then
+    the page axis with the detector, the layout and the table recognizer
+    split over their replicas (chunks of two pages; the layout pinned to
+    four tables on both of its copies, which fill the four slots, so that
+    no table takes the chunked route) equals one page a chunk -> numbers."""
+    import numpy as np
+    import torch
+
+    from yomitoku_tpu_torch import document_analyzer as port_da
+    from yomitoku_tpu_torch.parallel import make_mesh, runner
+
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+    det, rec = da.text_detector, da.text_recognizer
+    lp, tsr = da.layout.layout_parser, da.layout.table_structure_recognizer
+    cases = {
+        "dbnet": (det.model, np.concatenate([det.preprocess_u8(p) for p in imgs[:2]]),
+                  lambda m, x: m.forward_u8(x)),
+        "layout": (lp.model, np.concatenate([lp.preprocess(p) for p in imgs[:2]]),
+                   lambda m, x: m(x)),
+        "tsr": (tsr.model, np.stack([d["array"] for d in tsr.preprocess(imgs[0], TABLE_BOXES)]),
+                lambda m, x: m(x)),
+        "parseq": (rec.model, lines, lambda m, x: m.forward_tokens_device(x)),
+    }
+    runs = []
+    real_run = runner.Replicas.run
+
+    def spy(self, fn, chunks, *static):
+        runs.append([len(c) if not isinstance(c, tuple) else len(c[0]) for c in chunks])
+        return real_run(self, fn, chunks, *static)
+
+    def flat(out):
+        if isinstance(out, dict):
+            return [out[k] for k in sorted(out)]
+        return list(out) if isinstance(out, tuple) else [out]
+
+    numbers = {}
+    runner.Replicas.run = spy
+    try:
+        for name, (model, x, fn) in cases.items():
+            h = len(x) // 2
+            with torch.no_grad():
+                want = [torch.cat(parts) for parts in zip(*(flat(fn(model, x[s:s + h]))
+                                                            for s in (0, h)))]
+                model.use_mesh(mesh)
+                try:
+                    reps = model.replicas()
+                    got = flat(fn(model, x))
+                    torch.cuda.synchronize()
+                finally:
+                    model.use_mesh(None)
+            check(reps.models[0] is model and reps.models[1] is not model
+                  and all(p.device == torch.device("cuda", 0) for p in reps.models[1].parameters()),
+                  f"{what}: {name}: the replicas are not two copies on cuda:0")
+            check(runs and runs[-1] == [h, h], f"{what}: {name}: replica runs {runs[-1:]}")
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"{what}: {name}: two replicas differ from the model on each half")
+            numbers[name] = dict(batch=len(x), per_replica=h)
+        # the page axis over replicas, two pages a chunk
+        models = [det.model, lp.model, tsr.model]
+        pair = imgs[:2]
+        real_mesh = port_da.dp_mesh
+        with pinned_tables(lp), slot_stats() as slots:
+            want = dp_batch(da, pair, 1)
+            port_da.dp_mesh = lambda *a, **k: mesh
+            runs.clear()
+            try:
+                for m in models:
+                    m.use_mesh(mesh)
+                with pinned_tables(lp, model=lp.model.replicas().models[1]), \
+                        batch_call_pages() as calls:
+                    got = [r[0] for r in da._batch_dp_fused(pair)]
+                torch.cuda.synchronize()
+            finally:
+                port_da.dp_mesh = real_mesh
+                for m in models:
+                    m.use_mesh(None)
+    finally:
+        runner.Replicas.run = real_run
+    check([(p["tables"], p["hits"]) for p in slots] == [(4, 4)] * 4,
+          f"{what}: the four pinned tables did not fill the four slots: {slots}")
+    check(calls == [2], f"{what}: batch_call pages {calls} over the replicas, [2] expected")
+    check(sorted(runs) == [[1, 1], [1, 1], [4, 4]],
+          f"{what}: replica runs {runs}: the detector and the layout one page each, the "
+          "table recognizer four slots each expected")
+    for i, (g, w) in enumerate(zip(got, want)):
+        check_same(g, w, f"{what}: page axis over replicas, page {i} against one page a chunk")
+    numbers["page_axis"] = dict(batch_call_pages=calls, replica_runs=runs)
+    batches = ", ".join(f"{k} {v['batch']}" for k, v in numbers.items() if k != "page_axis")
+    log(f"{what}: replicas on [cuda:0, cuda:0]: DBNet, the layout RT-DETRv2, the table "
+        f"recognizer and PARSeq each split over two copies equal the model on each half, bit "
+        f"for bit (batches: {batches}); the page axis with the detector, the layout and the "
+        f"table recognizer on two replicas (batch_call pages {calls}, replica runs {runs}; "
+        f"four pinned tables a page) equals one page a chunk")
+    return numbers
+
+
+def phase_dp(card, ctx):
+    """The page axis: DocumentAnalyzer and TableSemanticParser with
+    ``num_devices`` 2, the CUDA defaults -> (launches by path, numbers)."""
+    with _env(YOMITOKU_TPU_INT8_KV=None, YOMITOKU_TPU_INT8_ENCODER=None,
+              YOMITOKU_TPU_HOST_CROPS=None, YOMITOKU_TPU_DEVICE_CROPS=None,
+              YOMITOKU_TPU_REC_WIDTH_BUCKETS=None, YOMITOKU_TPU_DP_CHUNK=None,
+              YOMITOKU_TPU_DP_DEVICE_DEPTH=None, YOMITOKU_TPU_DP_TAIL_WORKERS=None):
+        return _phase_dp(card, ctx)
+
+
+def _moved_crops(a, b):
+    """How many table crops (by size) one run of region_rows holds that the
+    other lacks, both ways."""
+    from collections import Counter
+
+    ca, cb = Counter(size for size, _ in a), Counter(size for size, _ in b)
+    return sum((ca - cb).values()) + sum((cb - ca).values())
+
+
+def _dp_part(what, obj, imgs, names, det_hw, layout, region, kernels, card):
+    """One analyzer on the page axis: ``batch()`` on threads, then the page
+    axis at each of DP_CHUNKS (counted together as one path), each route
+    gated, timed beside ``batch()`` and profiled -> (launches, numbers).
+    Four pages a chunk run the layout model on four pages at once, whose
+    bf16 boxes round apart from one page's (random weights: table crops a
+    few to tens of pixels apart), so that chunk is gated with the layout
+    pinned to four tables a page (``pinned_tables`` on ``layout``), on
+    both sides; unpinned, the crops that moved are counted, not gated."""
+    import torch
+
+    from yomitoku_tpu_torch import ops
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    numbers, rows, secs = {}, {}, {}
+    with region_rows(region) as seen:
+        want, secs[f"batch_in_flight_{IN_FLIGHT}"] = timed(
+            lambda: [r[0] for r in obj.batch(imgs, max_in_flight=IN_FLIGHT)])
+        rows["batch"] = list(seen)
+        seen.clear()
+        got = {}
+        ops.reset_launches()
+        for chunk in DP_CHUNKS:
+            with batch_call_pages() as calls:
+                got[chunk], secs[f"page_axis_chunk_{chunk}"] = timed(
+                    lambda: dp_batch(obj, imgs, chunk))
+            rows[chunk] = list(seen)
+            seen.clear()
+            expect = chunk_calls(imgs, det_hw, chunk)
+            check(sorted(calls) == sorted(expect),
+                  f"{what}: chunk {chunk}: batch_call pages {calls}, {expect} expected")
+            numbers[f"batch_call_pages_chunk{chunk}"] = calls
+        torch.cuda.synchronize()
+        launched = dict(ops.launches)
+    log(f"{what}: path {what} launches {launched} (the page axis at chunks of "
+        f"{' and '.join(map(str, DP_CHUNKS))} pages; batch_call pages "
+        + "; ".join(f"chunk {c}: {numbers[f'batch_call_pages_chunk{c}']}" for c in DP_CHUNKS)
+        + ")")
+    check(all(launched[k] > 0 for k in kernels),
+          f"a kernel of the {what} path was never launched: {launched}")
+    check_attention_routes(what)
+    check_gemm_routes(what)
+    check_deform_routes(what, launched["ms_deformable_attention"])
+    for name, g, w in zip(names, got[1], want):
+        check_same(g, w, f"{what}: chunk 1, page {name} against batch()")
+    log(f"{what}: one page a chunk: every page's schema equals batch()'s, bit for bit "
+        f"({len(imgs)} pages)")
+    moved = numbers["chunk4_unpinned_crops_moved"] = _moved_crops(rows[4], rows["batch"])
+    log(f"{what}: four pages a chunk, unpinned: {moved} of {len(rows[4])} + "
+        f"{len(rows['batch'])} table crops differ from batch()'s (the layout's bf16 boxes "
+        "at batch 4 against 1; not gated)")
+    with pinned_tables(layout), region_rows(region) as seen, region_calls(region.model) as fed:
+        want4 = [r[0] for r in obj.batch(imgs, max_in_flight=IN_FLIGHT)]
+        pinned, calls = {"batch": list(seen)}, {"batch": list(fed)}
+        seen.clear()
+        fed.clear()
+        got4 = dp_batch(obj, imgs, 4)
+        pinned["dp"], calls["dp"] = list(seen), list(fed)
+    agree = numbers["chunk4_agrees"] = check_page_axis_agrees(
+        got4, want4, pinned, calls, f"{what}: chunk 4, pinned layout")
+    log_agrees(what, "four pages a chunk", agree)
+
+    # pages/s beside batch(): the gates' own runs above (the pages ran
+    # warm in phases 9 and 11 before, in the full run) and one at
+    # max_in_flight 1; one run of each page-axis chunk profiled on the two
+    # 1280x960 demo pages twice (one chunk of four same-size pages at four
+    # a chunk; the profiler's tables over all the pages' ~200,000 device
+    # ops take a minute to build)
+    t0 = time.perf_counter()
+    _, secs["batch_in_flight_1"] = timed(lambda: obj.batch(imgs, max_in_flight=1))
+    numbers["pages_s"] = {k: len(imgs) / v for k, v in sorted(secs.items())}
+    prof, four = {}, imgs[:2] * 2
+    for c in DP_CHUNKS:
+        wall, device, n_ops, launched_p = profiled(lambda c=c: dp_batch(obj, four, c),
+                                                   runs=1, warmup=False)
+        busy = sum(device.values())
+        prof[f"page_axis_chunk_{c}"] = dict(
+            wall_ms_per_page=wall / len(four), device_busy_ms_per_page=busy / len(four),
+            idle_share=1 - busy / wall, device_ops_per_page=n_ops / len(four),
+            d2h_per_page=d2h_per_call(launched_p, 1) / len(four))
+    numbers["profiled"] = prof
+    numbers["timing_s"] = time.perf_counter() - t0
+    log(f"{what}: {len(imgs)} pages, pages/s (one run each: the gates' and one at "
+        "max_in_flight 1): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in numbers["pages_s"].items()) + "; one run on the two "
+        "1280x960 pages twice profiled, per page: "
+        + "; ".join(f"{k} {p['wall_ms_per_page']:.1f} ms wall, device busy "
+                    f"{p['device_busy_ms_per_page']:.1f} ms (idle share {p['idle_share']:.2f}), "
+                    f"{p['device_ops_per_page']:.0f} device ops, {p['d2h_per_page']:.1f} "
+                    f"device-to-host copies" for k, p in prof.items()) + f"; card {card}")
+    return launched, numbers
+
+
+def check_f32_chunk(da, imgs, what):
+    """The analyzer in f32 on the card (the full memory-K/V cache), the page
+    axis at four pages a chunk against one ``__call__`` per page, within
+    phase 9's card-vs-CPU limits: equal counts, quads and boxes within 1 px,
+    strings equal where the quads are -> numbers."""
+    import numpy as np
+    import torch
+
+    from yomitoku_tpu_torch.document_analyzer import DocumentAnalyzer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = {"dtype": torch.float32}
+    configs = {"ocr": {"text_detector": f32, "text_recognizer": f32},
+               "layout_analyzer": {"layout_parser": f32, "table_structure_recognizer": f32}}
+    with _env(YOMITOKU_TPU_INT8_KV="0"):
+        card32 = DocumentAnalyzer(configs=configs, device="cuda")
+    same_weights(card32, da)
+    paint_detector(card32.text_detector)
+    want = [card32(img)[0] for img in imgs]
+    with batch_call_pages() as calls:
+        got = dp_batch(card32, imgs, 4)
+    check(calls == [4], f"{what}: batch_call pages {calls}, one chunk of 4 expected")
+    counts = lambda d: (len(d.words), len(d.paragraphs), len(d.figures),  # noqa: E731
+                        [len(t.cells) for t in d.tables])
+    d_quad = d_box = 0
+    differ = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(counts(g) == counts(w), f"{what}: page {i}: counts {counts(g)} against {counts(w)}")
+        d_quad = max([d_quad] + [int(np.abs(np.subtract(a.points, b.points)).max())
+                                 for a, b in zip(g.words, w.words)])
+        d_box = max([d_box] + [int(np.abs(np.subtract(a, b)).max())
+                               for a, b in zip(_boxes(g), _boxes(w))])
+        differ += sum(a.content != b.content for a, b in zip(g.words, w.words)
+                      if a.points == b.points)
+    check(d_quad <= 1 and d_box <= 1,
+          f"{what}: quads part by {d_quad} px, boxes by {d_box} px (limit 1)")
+    check(differ == 0, f"{what}: {differ} words on equal quads read differently")
+    log(f"{what}: f32 page axis, four pages in one chunk, against __call__ per page: counts "
+        f"equal, quads within {d_quad} px, boxes within {d_box} px (limit 1), strings equal "
+        f"on equal quads ({sum(len(g.words) for g in got)} words)")
+    del card32
+    torch.cuda.empty_cache()
+    return dict(max_quad_px=d_quad, max_box_px=d_box, words=sum(len(g.words) for g in got))
+
+
+@contextlib.contextmanager
+def recognizer_reads(rec):
+    """Every host-route read of a text recognizer in the block (its
+    ``_infer_padded``, the padding stripped): [(crop bytes, ids)], one per
+    line, in call order."""
+    import numpy as np
+
+    real, seen = rec._infer_padded, []
+
+    def spy(chunk):
+        ids, probs = real(chunk)
+        for crop, row in zip(np.asarray(chunk), np.asarray(ids)):
+            seen.append((crop.tobytes(), tuple(row.tolist())))
+        return ids, probs
+
+    rec._infer_padded = spy
+    try:
+        yield seen
+    finally:
+        del rec._infer_padded
+
+
+def _dp_host_part(da, imgs, what, card):
+    """``DocumentAnalyzer.batch`` with ``num_devices`` 2 under
+    YOMITOKU_TPU_HOST_CROPS=1 takes the stage-batched host route
+    (``_batch_dp_host``: one detector forward a page size, one layout
+    forward over every page, one table-recognizer forward over every
+    table, one recognizer stream over every line), its launches counted as
+    a path of its own, against phase 9's host-route ``batch()`` on threads
+    under the gate of four pages a chunk (the layout pinned to four tables
+    a page on both): the same quads; the same strings, but for lines whose
+    crop the recognizer, fed it bit-equal in both runs, read otherwise in
+    its bf16 batch of other lines (counted); the same table crops, each
+    page's fed the table recognizer bit-equal to ``batch()``'s, and its
+    scores within its own batch rounding -> (launches, numbers)."""
+    import torch
+
+    from yomitoku_tpu_torch import ops
+
+    routes = []
+    real_host, real_fused = da._batch_dp_host, da._batch_dp_fused
+    da._batch_dp_host = lambda pages: routes.append("host") or real_host(pages)
+    da._batch_dp_fused = lambda pages: routes.append("fused") or real_fused(pages)
+    rec, tsr = da.text_recognizer, da.layout.table_structure_recognizer
+    secs = {}
+    try:
+        with _env(YOMITOKU_TPU_HOST_CROPS="1"), pinned_tables(da.layout.layout_parser), \
+                region_rows(tsr) as seen, region_calls(tsr.model) as fed, \
+                recognizer_reads(rec) as read:
+            t0 = time.perf_counter()
+            want = [r[0] for r in da.batch(imgs, max_in_flight=IN_FLIGHT)]
+            secs[f"batch_in_flight_{IN_FLIGHT}"] = time.perf_counter() - t0
+            rows, calls, lines = {"batch": list(seen)}, {"batch": list(fed)}, {"batch": list(read)}
+            seen.clear()
+            fed.clear()
+            read.clear()
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            got = dp_batch(da, imgs, 1)
+            torch.cuda.synchronize()
+            secs["page_axis_host"] = time.perf_counter() - t0
+            launched = dict(ops.launches)
+            rows["dp"], calls["dp"], lines["dp"] = list(seen), list(fed), list(read)
+    finally:
+        del da._batch_dp_host, da._batch_dp_fused
+    check(routes == ["host"], f"{what}: the page axis took {routes}, _batch_dp_host expected")
+    log(f"{what}: path {what} launches {launched} (the stage-batched host route, "
+        f"{len(imgs)} pages)")
+    check(all(launched[k] > 0 for k in DOCUMENT_KERNELS),
+          f"a kernel of the {what} path was never launched: {launched}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        check([x.points for x in g.words] == [x.points for x in w.words],
+              f"{what}: page {i}: the quads differ ({len(g.words)} against {len(w.words)})")
+    read_as = {}
+    for crop, ids in lines["batch"]:
+        read_as.setdefault(crop, set()).add(ids)
+    check(all(crop in read_as for crop, _ in lines["dp"]),
+          f"{what}: the recognizer read a crop that batch() never fed it")
+    rounded = sum(ids not in read_as[crop] for crop, ids in lines["dp"])
+    differ = sum(a.content != b.content for g, w in zip(got, want)
+                 for a, b in zip(g.words, w.words))
+    check(differ <= rounded,
+          f"{what}: {differ} words read differently from batch()'s, where the recognizer "
+          f"read {rounded} of its bit-equal crops otherwise: a string reached another line")
+    agree = check_page_axis_agrees(got, want, rows, calls, what, words=False)
+    log_agrees(what, "the stage-batched host route", agree,
+               words=f"the same quads on every page, {differ} strings apart, where the "
+               f"recognizer read {rounded} of {len(lines['dp'])} bit-equal line crops otherwise "
+               "in its bf16 batch of other lines")
+    pages_s = {k: len(imgs) / v for k, v in secs.items()}
+    log(f"{what}: {len(imgs)} pages under YOMITOKU_TPU_HOST_CROPS=1, the layout pinned, one "
+        "run each: pages/s " + ", ".join(f"{k} {v:.2f}" for k, v in pages_s.items())
+        + f"; card {card}")
+    return launched, dict(agrees=agree, lines=len(lines["dp"]), lines_read_otherwise=rounded,
+                          strings_apart=differ, pages_s=pages_s)
+
+
+def check_f32_semantic_chunk(tsp, imgs, what):
+    """The table semantic parser in f32 on the card (the full memory-K/V
+    cache; ``tsp``'s weights, the detector painted and the cell
+    detections pinned as phase 11's), the page axis at four pages a chunk
+    against one ``__call__`` per page, the layout pinned to four tables a
+    page on both, within phase 9's card-vs-CPU limits: equal counts (tables,
+    grids, key-value items, cells, paragraphs, words), quads and boxes
+    within 1 px, strings equal where the quads are; and the cell
+    detector's sorted scores on every table crop (its rows before the
+    pinned filter) within 1e-4 of ``__call__``'s -> numbers."""
+    import numpy as np
+    import torch
+
+    from yomitoku_tpu_torch.table_semantic_parser import TableSemanticParser
+    from yomitoku_tpu_torch.utils.synthetic_heads import pinned_filter_packed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = {"dtype": torch.float32}
+    configs = {k: f32 for k in ("table_detector", "table_cell_parser", "text_detector",
+                                "text_recognizer")}
+    with _env(YOMITOKU_TPU_INT8_KV="0"):
+        tsp32 = TableSemanticParser(configs=configs, device="cuda", visualize=False)
+    for name in ("layout_parser", "cell_detector", "text_detector", "text_recognizer"):
+        getattr(tsp32, name).model.load_state_dict(getattr(tsp, name).model.state_dict())
+    paint_detector(tsp32.text_detector)
+    cd = tsp32.cell_detector
+    cd.postprocessor.filter_packed = pinned_filter_packed(cd)
+    rows = {}
+    with pinned_tables(tsp32.layout_parser), region_rows(cd) as seen:
+        want = [tsp32(img)[0] for img in imgs]
+        rows["batch"] = list(seen)
+        seen.clear()
+        with batch_call_pages() as calls:
+            got = dp_batch(tsp32, imgs, 4)
+        rows["dp"] = list(seen)
+    check(calls == [4], f"{what}: batch_call pages {calls}, one chunk of 4 expected")
+    try:
+        d_score, worst, crops = _paired_score_gap(rows)
+    except SmokeFailure as e:
+        raise SmokeFailure(f"{what}: {e}") from e
+    check(d_score <= 1e-4, f"{what}: the cell detector's f32 scores part by {d_score:.2e} on "
+          f"crop {worst} (limit 1e-4)")
+
+    def boxes(doc):
+        return ([t.box for t in doc.tables] + [c.box for t in doc.tables for c in t.cells.values()]
+                + [p.box for p in doc.paragraphs])
+
+    d_quad = d_box = differ = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(_semantic_counts(g) == _semantic_counts(w),
+              f"{what}: page {i}: counts {_semantic_counts(g)} against {_semantic_counts(w)}")
+        d_quad = max([d_quad] + [int(np.abs(np.subtract(a.points, b.points)).max())
+                                 for a, b in zip(g.words, w.words)])
+        d_box = max([d_box] + [int(np.abs(np.subtract(a, b)).max())
+                               for a, b in zip(boxes(g), boxes(w))])
+        differ += sum(a.content != b.content for a, b in zip(g.words, w.words)
+                      if a.points == b.points)
+    check(d_quad <= 1 and d_box <= 1,
+          f"{what}: quads part by {d_quad} px, boxes by {d_box} px (limit 1)")
+    check(differ == 0, f"{what}: {differ} words on equal quads read differently")
+    counts = [_semantic_counts(g) for g in got]
+    log(f"{what}: f32 table semantic parser, four pages in one chunk, against __call__ per "
+        f"page, the layout pinned: counts equal ({sum(c['tables'] for c in counts)} tables, "
+        f"{sum(c['cells'] for c in counts)} cells, {sum(c['words'] for c in counts)} words), "
+        f"quads within {d_quad} px, boxes within {d_box} px (limit 1), strings equal on equal "
+        f"quads; the cell detector's sorted scores on {crops} crops within {d_score:.2e} "
+        "(limit 1e-4)")
+    del tsp32
+    torch.cuda.empty_cache()
+    return dict(max_quad_px=d_quad, max_box_px=d_box, max_d_cell_score=d_score,
+                crops=crops, counts=counts)
+
+
+def _phase_dp(card, ctx):
+    import cv2
+    import torch
+
+    from yomitoku_tpu_torch.data.dataset import ParseqDataset
+    from yomitoku_tpu_torch.data.functions import shortest_edge_size
+    from yomitoku_tpu_torch.parallel import dp_mesh
+
+    t_phase = time.perf_counter()
+    numbers, paths = {}, {}
+    sample = cv2.imread(str(ROOT / "demo" / "sample_text.png"))
+    table = cv2.imread(str(ROOT / "demo" / "sample_table.png"))
+    da = ctx.get("document_analyzer")
+    if da is None:
+        da = ctx["document_analyzer"] = prepared_analyzer(table)
+    if "page" not in ctx:
+        ctx["page"], ctx["quads"] = synthetic_lines_page()
+    n_cards = torch.cuda.device_count()
+    mesh = dp_mesh(2)
+    check((mesh is None) == (n_cards < 2), f"dp: dp_mesh(2) on {n_cards} card(s): {mesh}")
+    log(f"dp: dp_mesh(2) on {n_cards} card(s): {mesh} ("
+        + ("num_devices=2 takes the page axis without a mesh: chunks of YOMITOKU_TPU_DP_CHUNK "
+           "pages on the one card" if mesh is None else "one replica per card") + ")")
+    det_cfg = da.text_detector._cfg.data
+
+    def det_hw(img):
+        return shortest_edge_size(*img.shape[:2], det_cfg.shortest_size, det_cfg.limit_size)
+
+    pages = document_pages(ctx, sample, table)
+    names, imgs = list(pages), list(pages.values())
+    tsr = da.layout.table_structure_recognizer
+    paths["document_dp"], numbers["document"] = _dp_part(
+        "document_dp", da, imgs, names, det_hw, da.layout.layout_parser, tsr,
+        DOCUMENT_KERNELS, card)
+    paths["document_dp_host"], numbers["document_host"] = _dp_host_part(
+        da, imgs, "document_dp_host", card)
+    prog = da._ensure_fused_program()
+    sizes = (det_hw(table), tuple(da.layout.layout_parser._cfg.data.img_size),
+             tuple(tsr._cfg.data.img_size))
+    numbers["document"]["batch_program"] = check_batch_program(
+        prog, [table, sample, table, sample], sizes, da._workers, da.text_detector, "document_dp")
+
+    lines = ParseqDataset(da.text_recognizer._cfg, ctx["page"], ctx["quads"][:128]).as_u8_array()
+    numbers["replicas"] = check_replicas(da, [table, sample], lines, "dp")
+    numbers["f32"] = check_f32_chunk(
+        da, [table[:400], table[400:800], table[800:1200], sample[:400]], "dp")
+
+    tsp = ctx.get("semantic_parser")
+    if tsp is None:
+        tsp = ctx["semantic_parser"] = prepared_semantic_parser(da)
+    spages = {"sample_table": table, "sample_text": sample,
+              "sample_table_top": table[: table.shape[0] // 2],
+              "sample_text_top": sample[: sample.shape[0] // 2]}
+    paths["semantic_dp"], numbers["semantic"] = _dp_part(
+        "semantic_dp", tsp, list(spages.values()), list(spages), det_hw, tsp.layout_parser,
+        tsp.cell_detector, SEMANTIC_KERNELS, card)
+    numbers["semantic_f32"] = check_f32_semantic_chunk(
+        tsp, [table[:400], table[400:800], table[800:1200], sample[:400]], "semantic_dp")
+    took = numbers["phase_s"] = time.perf_counter() - t_phase
+    log(f"dp: phase 12 took {took:.1f} s")
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "dp.json").write_text(json.dumps(numbers, indent=1))
+    return paths, numbers
+
+
+def dp_only(root):
+    """``--dp``: phase 12 (the page axis) alone, with phase 9's analyzer
+    setup, on this checkout's package."""
+    from yomitoku_tpu_torch.ops import _build
+
+    if root != ROOT:
+        raise SmokeFailure("--dp runs on this checkout only")
+    card = card_line()
+    log(f"card: {card}")
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    paths, numbers = phase_dp(card, {})
+    log(card)
+    print(json.dumps({"launches_by_path": paths, "dp": numbers}), flush=True)
+    return 0
 
 def fused_kernels_only(root):
     """``--fused-kernels [ROOT]``: kernels 10 and 11 at their eleven shapes
@@ -4894,7 +5701,7 @@ def document_only(root):
 #: the modes that run one part on the package at ROOT
 MODES = {"--fused-kernels": fused_kernels_only, "--deform-kernels": deform_kernels_only,
          "--page": page_only, "--document": document_only, "--cli": cli_only,
-         "--semantic": semantic_only}
+         "--semantic": semantic_only, "--dp": dp_only}
 
 
 def main():
@@ -4921,7 +5728,7 @@ def main():
             return 1
     if args:
         log(f"FAIL: unknown arguments {args} (none, or --fused-kernels [ROOT], "
-            "--deform-kernels [ROOT], --page, --document, --cli or --semantic)")
+            "--deform-kernels [ROOT], --page, --document, --cli, --semantic or --dp)")
         return 1
     try:
         card = phase_card()
@@ -4943,6 +5750,8 @@ def main():
         paths.update(cli_paths)
         semantic_paths, semantic_numbers = phase_semantic(card, ctx)
         paths.update(semantic_paths)
+        dp_paths, dp_numbers = phase_dp(card, ctx)
+        paths.update(dp_paths)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1
@@ -4954,6 +5763,7 @@ def main():
     (OUT / "document.json").write_text(json.dumps(document_numbers, indent=1))
     (OUT / "cli.json").write_text(json.dumps(cli_numbers, indent=1))
     (OUT / "semantic.json").write_text(json.dumps(semantic_numbers, indent=1))
+    (OUT / "dp.json").write_text(json.dumps(dp_numbers, indent=1))
     log(card)  # as nvidia-smi prints it: name, power limit
     for name, at in layout_kernels.items():
         shaped.setdefault(name, {}).update(at)

@@ -102,6 +102,8 @@ def _inject(monkeypatch, module, analyzer):
             m.visualize = kwargs["visualize"]
         for name in ("ignore_meta", "reading_order", "ignore_ruby", "ruby_threshold"):
             setattr(analyzer, name, kwargs[name])
+        if analyzer is not None:
+            monkeypatch.setattr(analyzer, "num_devices", kwargs["num_devices"])
         return analyzer
 
     monkeypatch.setattr(module, "DocumentAnalyzer", make)
@@ -250,13 +252,30 @@ def test_cli_argument_errors_match_jax(tmp_path, monkeypatch, case):
 
 @pytest.mark.parametrize("flags,error", [
     (["-d", "tpu"], (RuntimeError, ValueError)),
-    (["-d", "cpu", "--num_devices", "2"], NotImplementedError),
-    (["-d", "cpu", "--num_devices", "-1"], NotImplementedError),
+    (["-d", "cpu", "--num_devices", "2"], None),
+    (["-d", "cpu", "--num_devices", "-1"], None),
     ([], RuntimeError),  # the default, "cuda", where there is no card
 ])
-def test_port_cli_device_errors(tmp_path, monkeypatch, flags, error):
-    """Only cuda and cpu, one card; CUDA asked for without a card raises,
-    never running on the CPU instead."""
+def test_port_cli_device_errors(tmp_path, monkeypatch, request, flags, error):
+    """Only cuda and cpu; CUDA asked for without a card raises, never
+    running on the CPU instead.  ``--num_devices`` reaches the analyzer as
+    in the JAX CLI (above 1 its ``batch`` takes the page axis) and the
+    files equal the default run's."""
+    if error is None:
+        _, port, _ = request.getfixturevalue("pair")
+        seen = _inject(monkeypatch, port_main, port)
+        routed = []
+        real = port._batch_dp
+        monkeypatch.setattr(port, "_batch_dp", lambda imgs: routed.append(len(imgs))
+                            or real(imgs))
+        _run(monkeypatch, port_main, [SAMPLE, "-f", "json", "-o", tmp_path / "dp",
+                                      *flags, "--dpi", DPI])
+        _run(monkeypatch, port_main, [SAMPLE, "-f", "json", "-o", tmp_path / "one",
+                                      "-d", "cpu", "--dpi", DPI])
+        assert [s["num_devices"] for s in seen] == [int(flags[-1]), None]
+        assert routed == ([2] if flags[-1] == "2" else [])
+        assert len(_same_outputs(tmp_path / "one", tmp_path / "dp")) == 2
+        return
     if not flags:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     seen = _inject(monkeypatch, port_main, None)

@@ -176,8 +176,10 @@ DEFORM_CASES = [
     (1, 1, 2, 32, SMALL, (4, 4, 4), "contiguous"),
     # the table recognizer's page-route batches (region buckets)
     *[(b, 300, 8, 32, DETR, (4, 4, 4), "contiguous") for b in (2, 8, 16, 64)],
-    # the cell detector's 2,500 queries over four tables
+    # the cell detector's 2,500 queries over four tables, and over the
+    # page axis's 16 slots (four pages a chunk)
     (4, 2500, 8, 32, DETR, (4, 4, 4), "contiguous"),
+    (16, 2500, 8, 32, DETR, (4, 4, 4), "contiguous"),
 ]
 
 
@@ -288,6 +290,8 @@ ATTENTION_CASES = [
     (1, 8, 2500, 2500, 32, "heads", "bfloat16", "bfloat16", "wgmma"),
     (4, 8, 2500, 2500, 32, "heads", "bfloat16", "bfloat16", "wgmma"),
     (1, 8, 2500, 2500, 32, "heads", "float32", "float32", "fma"),
+    # the page axis at four pages a chunk: the cell detector's 16 slots
+    (16, 8, 2500, 2500, 32, "heads", "bfloat16", "bfloat16", "wgmma"),
     # the recognizer's 400-wide width bucket: the ViT at 200 tokens and the
     # refine's 101 queries over 200 keys (three 80-key tiles, ragged)
     (128, 8, 200, 200, 96, "packed", "bfloat16", "bfloat16", "wgmma"),
@@ -1288,3 +1292,128 @@ def test_small_fused_program_f32_matches_cpu():
     slot_of = {tuple(b): j for j, b in enumerate(want[3].tolist()) if want[4][j]}
     for j in np.nonzero(got[4])[0]:
         same_rows(got[2][j, 0], want[2][slot_of[tuple(got[3][j].tolist())], 0])
+
+
+def _small_configs():
+    from pathlib import Path
+
+    yaml = Path(__file__).parent / "yaml"
+    small = lambda name: {"path_cfg": str(yaml / name), "from_pretrained": False}  # noqa: E731
+    return {"ocr": {"text_detector": small("det_small.yaml"),
+                    "text_recognizer": small("rec_small.yaml")},
+            "layout_analyzer": {"layout_parser": small("layout_small.yaml"),
+                                "table_structure_recognizer": small("layout_small.yaml")}}
+
+
+@pytest.mark.cuda
+def test_replicas_on_one_card_equal_the_model_on_each_half():
+    """Two replicas on the device list [cuda:0, cuda:0] (one card named
+    twice, the one way a single card holds two): DBNet, RT-DETRv2 and PARSeq
+    (small configs, bf16) on a batch split over them equal, bit for bit,
+    the model itself on each half; the copy lies on cuda:0 and a batch that
+    does not divide runs on the model alone."""
+    _require_cuda()
+    from yomitoku_tpu_torch.document_analyzer import DocumentAnalyzer
+    from yomitoku_tpu_torch.parallel import make_mesh
+
+    da = DocumentAnalyzer(configs=_small_configs(), device="cuda")
+    rng = np.random.default_rng(5)
+    lp = da.layout.layout_parser
+    h, w = lp._cfg.data.img_size
+    rh, rw = da.text_recognizer.model.img_size
+    cases = [
+        (da.text_detector.model, rng.integers(0, 255, (4, 64, 96, 3), np.uint8),
+         lambda m, x: [m.forward_u8(x)]),
+        (lp.model, rng.integers(0, 255, (4, h, w, 3), np.uint8),
+         lambda m, x: [m(x)[k] for k in ("pred_boxes", "pred_logits")]),
+        (da.text_recognizer.model, rng.integers(0, 255, (8, rh, rw, 3), np.uint8),
+         lambda m, x: list(m.forward_tokens_device(x))),
+    ]
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+    for model, x, fn in cases:
+        half = len(x) // 2
+        want = [torch.cat(p) for p in zip(fn(model, x[:half]), fn(model, x[half:]))]
+        model.use_mesh(mesh)
+        try:
+            reps = model.replicas()
+            got = fn(model, x)
+            uneven = fn(model, x[:3])
+        finally:
+            model.use_mesh(None)
+        assert reps.models[0] is model and reps.models[1] is not model
+        assert all(p.device == torch.device("cuda", 0) for p in reps.models[1].parameters())
+        assert all(torch.equal(g, t) for g, t in zip(got, want))
+        assert all(torch.equal(g, t) for g, t in zip(uneven, fn(model, x[:3])))
+
+
+@pytest.mark.cuda
+def test_data_parallel_on_one_card_reads_back_whole_outputs():
+    """``dp_pages`` and ``DataParallel`` over [cuda:0, cuda:0] gather each
+    replica's output on the host: DBNet's u8 maps (eight 640x640 pages, so
+    that the copies take a while) and PARSeq's ids and probs equal, bit for
+    bit, the model's own on each half read back on the host; the runner
+    uses the model's one set of replicas."""
+    _require_cuda()
+    from yomitoku_tpu_torch.document_analyzer import DocumentAnalyzer
+    from yomitoku_tpu_torch.parallel import DataParallel, dp_pages, make_mesh
+
+    da = DocumentAnalyzer(configs=_small_configs(), device="cuda")
+    rng = np.random.default_rng(6)
+    det, rec = da.text_detector.model, da.text_recognizer.model
+    devices = ["cuda:0", "cuda:0"]
+    pages = rng.integers(0, 255, (8, 640, 640, 3), np.uint8)
+    for _ in range(2):
+        got = dp_pages(det, pages, forward="forward_u8", devices=devices)
+        want = np.concatenate([det.forward_u8(torch.from_numpy(pages[s:s + 4])).cpu().numpy()
+                               for s in (0, 4)])
+        assert got.dtype == np.uint8 and np.array_equal(got, want)
+    rh, rw = rec.img_size
+    crops = rng.integers(0, 255, (16, rh, rw, 3), np.uint8)
+    run = DataParallel(make_mesh(devices=devices), lambda m, x: m.forward_tokens_device(x), rec)
+    ids, probs = run(crops)
+    halves = [rec.forward_tokens_device(torch.from_numpy(crops[s:s + 8])) for s in (0, 8)]
+    assert np.array_equal(ids, np.concatenate([h[0].cpu().numpy() for h in halves]))
+    assert np.array_equal(probs, np.concatenate([h[1].cpu().numpy() for h in halves]))
+    assert run.replicas is rec.replicas(devices) and run.replicas.models[0] is rec
+
+
+@pytest.mark.cuda
+def test_document_page_axis_on_one_card():
+    """DocumentAnalyzer(num_devices=2) on one card (small configs, the
+    card's defaults: the fused page route): dp_mesh(2) is None, so
+    ``batch`` takes the page axis one page a chunk, whose schemas equal
+    ``batch()``'s on threads bit for bit; at YOMITOKU_TPU_DP_CHUNK=4 the
+    pages go four to a ``batch_call``."""
+    _require_cuda()
+    import os
+
+    from yomitoku_tpu_torch.document_analyzer import DocumentAnalyzer
+    from yomitoku_tpu_torch.ops import fused_page
+    from yomitoku_tpu_torch.parallel import dp_mesh
+
+    if torch.cuda.device_count() > 1:
+        pytest.skip("one card: the mesh-less page axis")
+    assert dp_mesh(2) is None
+    da = DocumentAnalyzer(configs=_small_configs(), device="cuda", num_devices=2)
+    pages = _document_pages()
+    want = [da(p)[0].model_dump() for p in pages]  # batch() on threads: each __call__
+    calls = []
+    real = fused_page.FusedPageAnalysis.batch_call
+
+    def spy(self, pages_dev, *args, **kwargs):
+        calls.append(int(pages_dev.shape[0]))
+        return real(self, pages_dev, *args, **kwargs)
+
+    fused_page.FusedPageAnalysis.batch_call = spy
+    try:
+        got = da.batch(pages)
+        assert calls == [1] * len(pages)
+        assert [g[0].model_dump() for g in got] == want
+        calls.clear()
+        os.environ["YOMITOKU_TPU_DP_CHUNK"] = "4"
+        got = da.batch(pages)
+        assert calls and set(calls) == {4}
+        assert len(got) == len(pages)
+    finally:
+        fused_page.FusedPageAnalysis.batch_call = real
+        os.environ.pop("YOMITOKU_TPU_DP_CHUNK", None)

@@ -243,15 +243,22 @@ def test_call_api_matches_jax():
     assert inspect.iscoroutinefunction(port_da.DocumentAnalyzer.run)
     tree = ast.parse(inspect.getsource(port_da))
     defined = {n.name for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)}
-    # the fused page route is ported; the page-batched data-parallel one is not
+    # the fused page route and the page-batched data-parallel routes
     assert {"_run_fused", "_fused_host_postwire", "_ensure_fused_program",
-            "_fused_page_enabled"} <= defined
-    assert not {"_batch_dp", "_batch_dp_fused"} & defined
+            "_fused_page_enabled", "_batch_dp", "_batch_dp_fused",
+            "_batch_dp_host"} <= defined
 
 
 def test_num_devices_above_one_raises():
-    with pytest.raises(NotImplementedError, match="num_devices"):
-        port_da.DocumentAnalyzer(configs=CONFIGS, device="cpu", num_devices=2)
+    """``num_devices`` 2 builds, as in the JAX package, and a page gives
+    the result of ``num_devices=None`` (one CPU: no replica)."""
+    page = text_page()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("YOMITOKU_TPU_INT8_KV", "0")
+        two = port_da.DocumentAnalyzer(configs=CONFIGS, device="cpu", num_devices=2)
+        one = port_da.DocumentAnalyzer(configs=CONFIGS, device="cpu")
+    assert two.num_devices == 2
+    assert two(page)[0].model_dump() == one(page)[0].model_dump()
 
 
 def test_cuda_device_raises_without_cuda():

@@ -322,7 +322,7 @@ def test_dispatch_and_collect_equal_filtered_regions(models, monkeypatch):
             {"offset": (150, 60), "size": (80, 70)}]
     want = port_tsr.filtered_regions_from_page(models["region"], page, data, REGION_HW,
                                                post, 0.3)
-    monkeypatch.setattr(port_tsr, "REGION_CHUNK", 2)
+    monkeypatch.setattr(dc, "REGION_CHUNK", 2)
     chunks = port_tsr.dispatch_regions_from_page(models["region"], page, data, REGION_HW)
     assert [len(sizes) for _, sizes in chunks] == [2, 1]
     assert all(isinstance(p["pred_logits"], torch.Tensor) for p, _ in chunks)

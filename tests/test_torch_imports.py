@@ -71,6 +71,22 @@ def test_importing_the_port_loads_no_jax(probe):
     assert not bad, bad
 
 
+def test_parallel_stands_alone(probe):
+    """The data-parallel modules are the port's own: imported, and none of
+    them names JAX (the JAX package's parallel/ is built on jax.sharding)."""
+    names = {"yomitoku_tpu_torch.parallel", "yomitoku_tpu_torch.parallel.mesh",
+             "yomitoku_tpu_torch.parallel.runner"}
+    assert names <= set(probe["modules"]) | {"yomitoku_tpu_torch.parallel"}
+    assert names <= set(probe["loaded"])
+    for path in (PORT / "parallel").glob("*.py"):
+        tree = ast.parse(path.read_text(encoding="utf-8"))
+        imported = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                    for a in n.names}
+        imported |= {n.module for n in ast.walk(tree)
+                     if isinstance(n, ast.ImportFrom) and n.module and n.level == 0}
+        assert not {_top(m) for m in imported} & set(FORBIDDEN), path
+
+
 def test_every_submodule_was_imported(probe):
     files = {p.relative_to(ROOT).with_suffix("").as_posix().replace("/", ".")
              .removesuffix(".__init__") for p in PORT.rglob("*.py")}

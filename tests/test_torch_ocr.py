@@ -293,16 +293,53 @@ def test_orientation_fallback_matches_jax(pipelines, monkeypatch):
     assert replaced > 0
 
 
+LAYOUT_SMALL = {"path_cfg": str(ROOT / "tests/yaml/layout_small.yaml"),
+                "from_pretrained": False}
+
+
+def _small_module(cls, num_devices):
+    """``cls`` at the small configs on the CPU, and a call of it on the
+    synthetic page -> its schema as a dict."""
+    page = synthetic_page()
+    if cls is TextDetector:
+        m = cls(**CONFIGS["text_detector"], device="cpu", num_devices=num_devices)
+        return m(page)[0].model_dump()
+    if cls is TextRecognizer:
+        m = cls(**CONFIGS["text_recognizer"], device="cpu", num_devices=num_devices)
+        return m(page, QUADS)[0].model_dump()
+    if cls is OCR:
+        return cls(configs=CONFIGS, device="cpu", num_devices=num_devices)(page)[0].model_dump()
+    if cls in (LayoutParser, TableStructureRecognizer):
+        m = cls(**LAYOUT_SMALL, device="cpu", num_devices=num_devices)
+        out = m(page) if cls is LayoutParser else m(page, [[10, 10, 150, 100]])
+        return [x.model_dump() for x in out[0]] if isinstance(out[0], list) else \
+            out[0].model_dump()
+    layout = {"layout_parser": LAYOUT_SMALL, "table_structure_recognizer": LAYOUT_SMALL}
+    if cls is LayoutAnalyzer:
+        return cls(configs=layout, device="cpu", num_devices=num_devices)(page)[0].model_dump()
+    return cls(configs={"ocr": CONFIGS, "layout_analyzer": layout}, device="cpu",
+               num_devices=num_devices)(page)[0].model_dump()
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the small models built here: more gain
+    nothing, and the test workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("cls", [TextDetector, TextRecognizer, OCR, LayoutParser,
                                  TableStructureRecognizer, LayoutAnalyzer,
                                  DocumentAnalyzer])
-def test_num_devices_beyond_one_raises(cls):
-    with pytest.raises(NotImplementedError, match="num_devices"):
-        cls(device="cpu", num_devices=2)
-
-
-LAYOUT_SMALL = {"path_cfg": str(ROOT / "tests/yaml/layout_small.yaml"),
-                "from_pretrained": False}
+def test_num_devices_beyond_one_raises(cls, monkeypatch, one_thread):
+    """``num_devices=2`` builds, as in the JAX package, and gives the
+    result of ``num_devices=None`` (one CPU: no replica)."""
+    monkeypatch.setenv("YOMITOKU_TPU_INT8_KV", "0")
+    monkeypatch.setenv("YOMITOKU_TPU_NO_FUSED_PAGE", "1")
+    assert _small_module(cls, 2) == _small_module(cls, None)
 
 
 def test_one_device_accepted():
@@ -314,18 +351,31 @@ def test_one_device_accepted():
         assert module.visualize is False
 
 
-def test_layout_analyzer_passes_num_devices_to_both_modules():
+def test_layout_analyzer_passes_num_devices_to_both_modules(monkeypatch, one_thread):
     """LayoutAnalyzer merges ``num_devices`` into both entries, under each
-    entry's own ``configs`` (the JAX analyzer's merge)."""
+    entry's own ``configs`` (the JAX analyzer's merge): each module counts
+    its devices with what reached it, and every case builds and gives the
+    result of one device."""
+    import yomitoku_tpu_torch.parallel as par
+
+    seen = []
+    real = par.dp_mesh
+    monkeypatch.setattr(par, "dp_mesh", lambda n, **k: seen.append(n) or real(n, **k))
     small = {"layout_parser": LAYOUT_SMALL, "table_structure_recognizer": LAYOUT_SMALL}
-    LayoutAnalyzer(configs=small, device="cpu", num_devices=1)
+    page = synthetic_page()
+    want = LayoutAnalyzer(configs=small, device="cpu", num_devices=1)(page)[0]
+    assert seen == [1, 1]
     for name in small:
-        with pytest.raises(NotImplementedError, match="num_devices"):
-            LayoutAnalyzer(configs={**small, name: {**LAYOUT_SMALL, "num_devices": 2}},
-                           device="cpu", num_devices=1)
-        with pytest.raises(NotImplementedError, match="num_devices"):
-            LayoutAnalyzer(configs={**small, name: {**LAYOUT_SMALL, "num_devices": 1}},
-                           device="cpu", num_devices=2)
+        seen.clear()
+        got = LayoutAnalyzer(configs={**small, name: {**LAYOUT_SMALL, "num_devices": 2}},
+                             device="cpu", num_devices=1)(page)[0]
+        assert seen == ([2, 1] if name == "layout_parser" else [1, 2])
+        assert got.model_dump() == want.model_dump()
+        seen.clear()
+        got = LayoutAnalyzer(configs={**small, name: {**LAYOUT_SMALL, "num_devices": 1}},
+                             device="cpu", num_devices=2)(page)[0]
+        assert seen == ([1, 2] if name == "layout_parser" else [2, 1])
+        assert got.model_dump() == want.model_dump()
 
 
 def test_ocr_configs_override_device():

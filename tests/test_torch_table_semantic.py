@@ -532,13 +532,27 @@ def test_detector_and_layout_keep_their_threads(parsers, monkeypatch):
 
 
 def test_devices_raise():
-    """``num_devices`` above 1, and CUDA without a card, raise: the port
-    neither spreads pages over cards nor falls back to the CPU."""
-    with pytest.raises(NotImplementedError):
-        port_tsp.TableSemanticParser(configs=CONFIGS, device="cpu", num_devices=2)
-    with pytest.raises(NotImplementedError):
-        port_cd.CellDetector(path_cfg=CONFIGS["table_cell_parser"]["path_cfg"],
-                             from_pretrained=False, device="cpu", num_devices=2)
+    """``num_devices`` above 1 builds, as in the JAX package, and gives the
+    result of ``num_devices=None`` (one CPU: no replica); CUDA without a
+    card raises: the port never falls back to the CPU."""
+    page = semantic_page()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("YOMITOKU_TPU_INT8_KV", "0")
+        two, one = (port_tsp.TableSemanticParser(configs=CONFIGS, device="cpu",
+                                                 visualize=False, num_devices=n)
+                    for n in (2, None))
+    assert two.num_devices == 2
+    assert two(page)[0].model_dump() == one(page)[0].model_dump()
+    cd2, cd1 = (port_cd.CellDetector(path_cfg=CONFIGS["table_cell_parser"]["path_cfg"],
+                                     from_pretrained=False, device="cpu", num_devices=n)
+                for n in (2, None))
+    h, w = page.shape[:2]
+    tables = [port_schemas.Element(id=None, box=[0, 0, w // 2, h // 2], score=0.9,
+                                   role=None, contents=None),
+              port_schemas.Element(id=None, box=[w // 3, h // 3, w, h], score=0.8,
+                                   role=None, contents=None)]
+    assert [t.model_dump() for t in cd2(page, tables)] == \
+        [t.model_dump() for t in cd1(page, tables)]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="is_available"):
             port_cd.CellDetector(path_cfg=CONFIGS["table_cell_parser"]["path_cfg"],

@@ -2,7 +2,8 @@
 the model catalog, the timing observer, the schema base class (every
 schema writes itself as JSON, ``to_json``), and
 ``BaseModule.load_model``, which builds one of the port's models on an
-explicit device."""
+explicit device; ``BaseModule.use_num_devices`` spreads the model over
+the devices ``num_devices`` names (``parallel.dp_mesh``)."""
 
 import os
 import time
@@ -11,7 +12,7 @@ from pathlib import Path
 import torch
 from pydantic import BaseModel, ConfigDict
 
-from .config import load_config
+from .config import load_config, save_config
 from .utils.logger import set_logger
 from .weights import load_pretrained
 
@@ -133,12 +134,41 @@ class BaseModule:
         if from_pretrained:
             load_pretrained(self.model, self._cfg)
 
+    def use_num_devices(self, num_devices):
+        """``num_devices`` as the JAX modules read it (``parallel.dp_mesh``
+        on this module's device type): None, 0 and 1 keep one device, -1
+        takes every card, N the first min(N, available); where two or more
+        take part the model gets one replica per device
+        (``TorchModel.use_mesh``)."""
+        if num_devices is None:
+            return
+        from .parallel import dp_mesh
 
-def check_num_devices(num_devices):
-    """The port runs on one card: ``num_devices`` None or 1, as the JAX
-    package's single-device default; more raises."""
-    if num_devices is not None and num_devices != 1:
-        raise NotImplementedError(
-            f"num_devices={num_devices}: page data parallelism is not ported "
-            "yet; the port runs on one device")
+        mesh = dp_mesh(num_devices, device_type=self.device.type)
+        if mesh is not None:
+            self.model.use_mesh(mesh)
+
+    def save_config(self, path_cfg):
+        save_config(self._cfg, path_cfg)
+
+    def log_config(self):
+        logger.info(self._cfg.to_yaml())
+
+    @classmethod
+    def catalog(cls):
+        display = ""
+        for model in cls.model_catalog.list_model():
+            display += f"{model} "
+        logger.info(f"{cls.__name__} Implemented Models")
+        logger.info(display)
+
+    @property
+    def device(self) -> torch.device:
+        """The module's ``torch.device`` (``load_model`` resolves the one
+        asked for)."""
+        return self._device
+
+    @device.setter
+    def device(self, device):
+        self._device = torch.device(device)
 

@@ -5,13 +5,15 @@ A PDF is rendered by the port's own PDF engine (``data.pdf``, host C++
 built at first use), each page goes through the port's
 ``DocumentAnalyzer`` (``analyzer.batch`` in chunks of 4 pages), and the
 result is written as JSON, CSV, HTML, Markdown or a searchable PDF.
+``--num_devices`` reaches the analyzer as in the JAX CLI: above 1 its
+``batch`` takes the page axis, over one replica per card where two or
+more take part.
 
 Differences from the JAX CLI:
 
 * ``-d/--device`` defaults to ``"cuda"`` (``cuda|cpu``); any other value
   raises (``base.resolve_device``), and asking for CUDA where there is no
-  card raises rather than running on the CPU.  ``--num_devices`` above 1
-  raises (``base.check_num_devices``): the port runs on one card.
+  card raises rather than running on the CPU.
 * ``--lite`` takes ``parseq-tiny`` and ``dbnetv2_1-lite``, as there.
 * The directory loop.  The JAX CLI passes over any exception of a file
   (``except Exception: continue``), which would hide a kernel or device
@@ -32,7 +34,7 @@ import torch
 
 from ..constants import SUPPORT_OUTPUT_FORMAT
 from ..data.functions import load_image, load_pdf
-from ..base import check_num_devices, resolve_device
+from ..base import resolve_device
 from ..document_analyzer import DocumentAnalyzer
 from ..export import (
     convert_csv,
@@ -339,7 +341,6 @@ def main():
         raise FileNotFoundError(f"Font file not found: {args.font_path}")
     validate_encoding(args.encoding)
     resolve_device(args.device)
-    check_num_devices(args.num_devices)
     if format == "markdown":
         format = "md"
     args.format = format

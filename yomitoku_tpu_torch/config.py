@@ -1,7 +1,8 @@
 """Structured configuration (the port's copy of yomitoku_tpu/config.py):
 a model variant's dataclass defaults, recursively merged with an
 optional user YAML file.  Unknown keys in the YAML raise.  The result is a
-``Config``: a dict with attribute access, nested dicts included."""
+``Config``: a dict with attribute access, nested dicts included, which
+writes itself back as YAML (``to_yaml``, ``save_config``)."""
 
 import dataclasses
 from pathlib import Path
@@ -37,6 +38,20 @@ class Config(dict):
 
     def __setattr__(self, name: str, value: Any):
         self[name] = self._wrap(value)
+
+    def to_dict(self) -> dict:
+        out = {}
+        for k, v in self.items():
+            if isinstance(v, Config):
+                out[k] = v.to_dict()
+            elif isinstance(v, list):
+                out[k] = [x.to_dict() if isinstance(x, Config) else x for x in v]
+            else:
+                out[k] = v
+        return out
+
+    def to_yaml(self) -> str:
+        return yaml.safe_dump(self.to_dict(), allow_unicode=True, sort_keys=False)
 
 
 def _dataclass_to_dict(obj) -> Any:
@@ -93,3 +108,7 @@ def load_config(default_config, path_config: Union[str, Path, None] = None) -> C
     if path_config is not None:
         merge_into(cfg, load_yaml_config(path_config))
     return cfg
+
+
+def save_config(cfg: Config, path: Union[str, Path]):
+    Path(path).write_text(cfg.to_yaml(), encoding="utf-8")

@@ -2,7 +2,8 @@
 calls of yomitoku_tpu/data/dataset.py): thread-pool perspective crop,
 rotate and pad of the word quads at construction, keeping the unpadded
 ROI crops for the 180-degree orientation fallback; the crops come out as
-one NHWC uint8 batch."""
+one NHWC uint8 batch (normalised on the device), or as float32 in
+[-1, 1] on the host (``__getitem__``, ``as_array``)."""
 
 from concurrent.futures import ThreadPoolExecutor
 
@@ -14,6 +15,11 @@ from .functions import (
     rotate_text_image,
     validate_quads,
 )
+
+
+def normalize_crop(img_bgr_or_rgb: np.ndarray) -> np.ndarray:
+    """uint8 HWC -> float32 HWC in [-1, 1]."""
+    return img_bgr_or_rgb.astype(np.float32) / 127.5 - 1.0
 
 
 class ParseqDataset:
@@ -40,6 +46,16 @@ class ParseqDataset:
 
     def __len__(self):
         return len(self.data)
+
+    def __getitem__(self, index):
+        return normalize_crop(self.data[index])
+
+    def as_array(self) -> np.ndarray:
+        """All crops as one (N, H, W, 3) float32 batch in [-1, 1]."""
+        if not self.data:
+            h, w = self.cfg.data.img_size
+            return np.zeros((0, h, w, 3), np.float32)
+        return normalize_crop(np.stack(self.data))
 
     def as_u8_array(self) -> np.ndarray:
         """All crops as one (N, H, W, 3) uint8 batch (normalised on the

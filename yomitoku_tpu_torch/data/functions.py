@@ -44,6 +44,27 @@ def resize_shortest_edge(
     return cv2.resize(img, (neww, newh), interpolation=cv2.INTER_AREA)
 
 
+def standardization_image(
+    img: np.ndarray, rgb=IMAGENET_MEAN, std=IMAGENET_STD
+) -> np.ndarray:
+    """BGR -> RGB, scale to [0, 1], subtract the ImageNet mean and divide by
+    the std -> float32 (the detector's float parity path)."""
+    img = img[:, :, ::-1]
+    img = img / 255.0
+    img = (img - np.array(rgb)) / np.array(std)
+    return img.astype(np.float32)
+
+
+def array_to_nhwc(img: np.ndarray) -> np.ndarray:
+    """(H, W, C) float array -> (1, H, W, C) float32 batch, the layout the
+    port's models take (they permute to NCHW on the device)."""
+    return np.ascontiguousarray(img, dtype=np.float32)[None, ...]
+
+
+#: the reference's name for the batching step
+array_to_tensor = array_to_nhwc
+
+
 def validate_quads(img: np.ndarray, quad) -> bool:
     """Quad must have 4 two-value points and lie inside the image; returns
     None (falsy) on invalid input, as the JAX package does."""

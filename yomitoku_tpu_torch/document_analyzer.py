@@ -20,12 +20,18 @@ the slots' matching, the chunked region route for the tables the slots
 missed (overlapped with the contours), the recognizer and the
 aggregation.  Everywhere else the unfused route runs: the detector and
 the layout analyzer on the page, each module on another device uploading
-its own.  ``num_devices`` above 1 raises, so ``batch`` runs pages on
-threads only (the JAX package's page-batched fused program is not
-ported).  Neither the page nor the image is kept on the analyzer, so
+its own.  Neither the page nor the image is kept on the analyzer, so
 ``batch`` may run ``__call__`` on several threads; the models' shared
 state is guarded where they keep it (PARSeq's AR loop,
 models/parseq.py), and the fused program, built once, under its lock.
+
+``num_devices`` goes to every module, which counts devices as the JAX
+package's ``dp_mesh`` does and, where two or more take part, keeps one
+replica of its model per device (``parallel/``).  With ``num_devices``
+above 1, ``batch`` takes the page axis (``_batch_dp``): on the fused route
+chunks of pages through ``FusedPageAnalysis.batch_call`` (the mesh's dp
+size a chunk, else YOMITOKU_TPU_DP_CHUNK, default 1), with the pages'
+host tails behind them; elsewhere one forward per stage over every page.
 
 The detector and the layout analyzer (on the fused route: the program's
 two legs) run on two worker threads that the analyzer keeps for its
@@ -42,15 +48,25 @@ import math
 import os
 import re
 import threading
+from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from .data.dataset import ParseqDataset
 from .data.functions import shortest_edge_size
 from .layout_analyzer import LayoutAnalyzer
 from .ocr import ocr_aggregate
-from .ops.device_crop import DevicePage, device_crops_enabled, lies_on
-from .ops.fused_page import FusedPageAnalysis
+from .ops.device_crop import (
+    DevicePage,
+    collect_filtered_regions,
+    device_crops_enabled,
+    dispatch_regions_from_page,
+    lies_on,
+)
+from .ops.fused_page import FusedPageAnalysis, dp_chunk_pages, run_page_chunks
+from .parallel import dp_mesh
+from .parallel.runner import KeptPools, same_device
 from .reading_order import prediction_reading_order
 from .schemas import (
     DocumentAnalyzerSchema,
@@ -60,8 +76,8 @@ from .schemas import (
     OCRSchema,
     ParagraphSchema,
     TextDetectorSchema,
+    TextRecognizerSchema,
 )
-from .table_structure_recognizer import collect_filtered_regions, dispatch_regions_from_page
 from .text_detector import TextDetector
 from .text_recognizer import TextRecognizer
 from .utils.misc import containment_matrix, overlap_ratio_matrix, quad_to_xyxy
@@ -421,6 +437,7 @@ class DocumentAnalyzer:
             **default_configs["ocr"]["text_recognizer"]
         )
         self.layout = LayoutAnalyzer(configs=default_configs["layout_analyzer"])
+        self.num_devices = num_devices
         self.visualize = visualize
         self.ignore_meta = ignore_meta
         self.split_text_across_cells = split_text_across_cells
@@ -434,6 +451,9 @@ class DocumentAnalyzer:
         #: the fused page program, built at the first fused page
         self._fused_page_program = None
         self._fused_page_lock = threading.Lock()
+        #: the page-axis route's device-leg and tail pools, kept as the two
+        #: workers are
+        self._dp_pools = KeptPools("DocumentAnalyzer")
 
     def aggregate(self, ocr_res, layout_res):
         """Assign words to table cells and layout paragraphs, then order
@@ -701,8 +721,142 @@ class DocumentAnalyzer:
         program's two legs) share the analyzer's two worker threads, so
         four pages in flight queue their legs on two threads, as intended:
         those threads keep cuDNN's plans.  The recognizer's AR loop takes
-        one page at a time."""
+        one page at a time.
+
+        With ``num_devices`` above 1, two or more pages and no
+        ``visualize``, the page axis itself batches (``_batch_dp``), as in
+        the JAX package, whether or not two devices take part."""
         if not imgs:
             return []
+        if (self.num_devices and self.num_devices > 1 and len(imgs) > 1
+                and not self.visualize):
+            return self._batch_dp(imgs)
         with ThreadPoolExecutor(max_workers=max_in_flight) as executor:
             return list(executor.map(self, imgs))
+
+    def _batch_dp(self, imgs):
+        """The page-axis route: the fused program over chunks of pages
+        (``_batch_dp_fused``) where device crops and the fused page are on
+        and the detector, the layout parser and the table recognizer share
+        one device; else the stage-batched host route
+        (``_batch_dp_host``).  Neither falls back to the other, nor to the
+        threads of ``batch``, once taken."""
+        device = self.text_detector.device
+        if (device_crops_enabled(device) and self._fused_page_enabled()
+                and all(same_device(m.device, device)
+                        for m in (self.layout.layout_parser,
+                                  self.layout.table_structure_recognizer))):
+            return self._batch_dp_fused(imgs)
+        return self._batch_dp_host(imgs)
+
+    def _batch_dp_fused(self, imgs):
+        """Page-axis batching over the fused page program
+        (``ops.fused_page.run_page_chunks``): chunks of pages of one padded
+        shape and detector size, each one ``batch_call`` (the detector and
+        the layout as one batch each, the region model on every page's
+        slots at once, one readback), the dp size of the mesh at a time
+        (each batch split over the replicas), else
+        YOMITOKU_TPU_DP_CHUNK pages (default 1); then per page, on the
+        kept tail workers, the host side of its wire, the recognizer on
+        its page in the stack, and the aggregation."""
+        prog = self._ensure_fused_program()
+        det, rec = self.text_detector, self.text_recognizer
+        lp = self.layout.layout_parser
+        tsr = self.layout.table_structure_recognizer
+        mesh = dp_mesh(self.num_devices, device_type=det.device.type)
+        det_hws = [shortest_edge_size(*img.shape[:2], det._cfg.data.shortest_size,
+                                      det._cfg.data.limit_size) for img in imgs]
+
+        def post_one(i, page, wire):
+            results_det, _, layout_schema = self._fused_host_postwire(imgs[i], page, *wire)
+            rec_page = page if lies_on(page, rec.device) else None
+            results_rec, _ = rec(imgs[i], results_det.points, None, page=rec_page)
+            with segment("aggregate", "host"):
+                results_ocr = OCRSchema(words=ocr_aggregate(results_det, results_rec))
+                outputs = self.aggregate(results_ocr, layout_schema)
+            return DocumentAnalyzerSchema(**outputs), None, None
+
+        return run_page_chunks(
+            prog, imgs, det_hws, tuple(lp._cfg.data.img_size), tuple(tsr._cfg.data.img_size),
+            det.device, dp_chunk_pages(mesh, len(imgs)), post_one, self._dp_pools,
+            self._workers)
+
+    def _batch_dp_host(self, imgs):
+        """Stage-batched analysis with the host's crops (the JAX package's
+        route where device crops are off): each stage runs one forward over
+        every page's inputs (same-size detector pages, layout tiles, table
+        crops, then every page's lines in one bucketed recognizer stream),
+        split over the replicas where a mesh is attached and the batch
+        divides (``place_batch``); the host steps stay per page."""
+        det, rec = self.text_detector, self.text_recognizer
+        lp = self.layout.layout_parser
+        tsr = self.layout.table_structure_recognizer
+        n = len(imgs)
+
+        # the detector: same-size pages in one forward
+        buckets = defaultdict(list)
+        for i, img in enumerate(imgs):
+            tensor = det.preprocess_u8(img)
+            buckets[tensor.shape[1:3]].append((i, tensor[0]))
+        det_results = [None] * n
+        for members in buckets.values():
+            maps = det.model.forward_binary_u8(np.stack([t for _, t in members]))
+            for (i, _), prob in zip(members, maps):
+                with segment("det", "contours"):
+                    quads, scores = det.postprocess({"binary": prob[None]}, imgs[i].shape[:2])
+                det_results[i] = TextDetectorSchema(points=quads, scores=scores)
+
+        # the layout: every page's tile in one forward
+        preds = lp.model(np.concatenate([lp.preprocess(img) for img in imgs]))
+        sizes = [[img.shape[1], img.shape[0]] for img in imgs]
+        layout_results = [LayoutParserSchema(**lp.filtering_elements(one))
+                          for one in lp.postprocessor(preds, sizes, lp.thresh_score)]
+
+        # the table recognizer: every table of every page in one forward
+        tsr_data, owners = [], []
+        for i, lres in enumerate(layout_results):
+            data = tsr.preprocess(imgs[i], [t.box for t in lres.tables])
+            tsr_data.extend(data)
+            owners.extend([i] * len(data))
+        page_tables = [[] for _ in range(n)]
+        if tsr_data:
+            preds = tsr.model(np.stack([d["array"] for d in tsr_data]))
+            sizes = [[d["size"][1], d["size"][0]] for d in tsr_data]
+            filtered = tsr.postprocessor(preds, sizes, tsr.thresh_score)
+            for owner, d, one in zip(owners, tsr_data, filtered):
+                page_tables[owner].extend(tsr.tables_from_filtered([d], [one]))
+        layouts = [
+            LayoutAnalyzerSchema(paragraphs=lres.paragraphs, tables=page_tables[i],
+                                 figures=lres.figures)
+            for i, lres in enumerate(layout_results)]
+        if self.split_text_across_cells:
+            det_results = [_split_text_across_cells(d, lay)
+                           for d, lay in zip(det_results, layouts)]
+
+        # the recognizer: every page's lines in one bucketed stream
+        datasets = [ParseqDataset(rec._cfg, imgs[i], det_results[i].points)
+                    for i in range(n)]
+        crops = [ds.as_u8_array() for ds in datasets]
+        all_points = [q for ds in datasets for q in ds.valid_quads]
+        nonempty = [c for c in crops if len(c)]
+        preds = scores = directions = []
+        if nonempty:
+            preds, scores, directions = rec._run_batch_inference(
+                np.concatenate(nonempty), all_points)
+
+        results, offset = [], 0
+        for i, ds in enumerate(datasets):
+            c = len(crops[i])
+            p = list(preds[offset:offset + c])
+            s = list(scores[offset:offset + c])
+            d = list(directions[offset:offset + c])
+            offset += c
+            if rec.rec_orientation_fallback and c:
+                rec._apply_orientation_fallback(ds, ds.valid_quads, p, s, d)
+            rec_res = TextRecognizerSchema(contents=p, scores=s, points=ds.valid_quads,
+                                           directions=d)
+            with segment("aggregate", "host"):
+                ocr = OCRSchema(words=ocr_aggregate(det_results[i], rec_res))
+                outputs = self.aggregate(ocr, layouts[i])
+            results.append((DocumentAnalyzerSchema(**outputs), None, None))
+        return results

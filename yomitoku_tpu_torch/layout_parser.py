@@ -13,7 +13,7 @@ repeated here.
 import cv2
 import numpy as np
 
-from .base import BaseModelCatalog, BaseModule, check_num_devices
+from .base import BaseModelCatalog, BaseModule
 from .configs import LayoutParserRTDETRv2Config, LayoutParserRTDETRv2V2Config
 from .models.rtdetr import RTDETRv2
 from .ops.device_crop import page_on, staged_page_mat
@@ -89,9 +89,9 @@ class LayoutParser(BaseModule):
         dtype=None,
     ):
         super().__init__()
-        check_num_devices(num_devices)
         self.load_model(model_name, path_cfg, device=device,
                         from_pretrained=from_pretrained, dtype=dtype)
+        self.use_num_devices(num_devices)
         self.visualize = visualize
         self.postprocessor = RTDETRPostProcessor(
             num_classes=self._cfg.RTDETRTransformerv2.num_classes,

@@ -7,24 +7,36 @@ as it is.  It lives on one explicit device in one compute dtype: bf16 on
 CUDA (as the JAX package computes in bf16 on its accelerator), f32 on the
 CPU.  Random initialisation draws from an explicit ``torch.Generator`` on
 the CPU, so a seed gives the same weights on every device.
+
+``use_mesh`` attaches a dp mesh (``parallel.mesh``): the model then keeps
+one replica per dp device (``replicas``), rebuilt when its weights
+change, and its batch entries split their leading axis over them where it
+divides evenly (``place_batch``, ``run_placed``), as the JAX package's
+``place_batch`` shards it.
 """
 
 import math
+import threading
 
+import numpy as np
 import torch
 from torch import nn
+
+from ..parallel.mesh import batch_sharding
+from ..parallel.runner import Replicas, gather, in_replica_worker
 
 
 def default_dtype(device) -> torch.dtype:
     return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
 
 
-def cached(owner, slot, tensors, build):
+def cached(owner, slot, tensors, build, extra=()):
     """``build()``, kept in ``owner.<slot>`` until one of ``tensors``
     changes: new storage or dtype, or an in-place write (a state_dict load
-    copies into the parameters and so bumps their versions).  For values
-    derived from weights once, such as quantized or BN-folded copies."""
-    key = tuple((t.data_ptr(), t._version, t.dtype) for t in tensors)
+    copies into the parameters and so bumps their versions), or ``extra``
+    (more of the key) does.  For values derived from weights once, such
+    as quantized or BN-folded copies."""
+    key = (tuple(extra), tuple((t.data_ptr(), t._version, t.dtype) for t in tensors))
     hit = owner.__dict__.get(slot)
     if hit is None or hit[0] != key:
         hit = (key, build())
@@ -96,6 +108,8 @@ class TorchModel(nn.Module):
         #: "torch" when a reference checkpoint was loaded, None for the
         #: seeded random init (weights.py sets it)
         self.pretrained_source = None
+        self._mesh = None
+        self._replica_lock = threading.Lock()
 
     def finish_init(self):
         self.init_weights()
@@ -110,6 +124,60 @@ class TorchModel(nn.Module):
 
     def init_extra(self, gen):
         """Seeded init of the parameters no standard layer owns."""
+
+    # -- several devices ----------------------------------------------
+
+    #: attributes a replica copies from its model before every call
+    replica_attrs = ("pretrained_source",)
+
+    def use_mesh(self, mesh):
+        """Attach a (dp, tp) mesh (None detaches it and drops the
+        replicas): batch entries split their leading axis over one replica
+        per dp device."""
+        with self._replica_lock:
+            self._mesh = mesh
+            if mesh is None:
+                self.__dict__.pop("_replica_set", None)
+
+    def replicas(self, devices=None) -> Replicas:
+        """The model's one set of replicas, one per device in ``devices``
+        (default: the attached mesh's dp devices; ``DataParallel`` names
+        its mesh's), built at the first call and again when the devices or
+        the weights change (a state_dict load writes into the parameters in
+        place and so bumps their versions), as the JAX package drops its
+        device copies when its parameters are set."""
+        with self._replica_lock:
+            devices = [torch.device(d) for d in
+                       (self._mesh.dp_devices if devices is None else devices)]
+            return cached(self, "_replica_set", [*self.parameters(), *self.buffers()],
+                          lambda: Replicas(self, devices), extra=map(str, devices))
+
+    def place_batch(self, x):
+        """A batch (a tensor or ndarray, or a tuple of them sharing the
+        leading axis) -> one slice per dp device of the mesh when the
+        leading axis divides evenly; otherwise the whole batch on this
+        model's device, as one slice.  On a replica's worker the batch is
+        never split again."""
+        xs = x if isinstance(x, tuple) else (x,)
+        xs = tuple(torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray)
+                   else a for a in xs)
+        n = xs[0].shape[0]
+        mesh = self._mesh
+        if mesh is None or n == 0 or n % mesh.shape["dp"] or in_replica_worker():
+            slices = [tuple(a.to(self.device) for a in xs)]
+        else:
+            slices = list(zip(*(batch_sharding(mesh, a.ndim).place(a) for a in xs)))
+        return slices if isinstance(x, tuple) else [s[0] for s in slices]
+
+    def run_placed(self, fn, x, *static):
+        """``fn(model, batch, *static)`` over ``place_batch(x)``: inline on
+        this model for one slice; else one slice per replica, each on its
+        replica's worker, the outputs gathered on this model's device along
+        the leading axis."""
+        slices = self.place_batch(x)
+        if len(slices) == 1:
+            return fn(self, slices[0], *static)
+        return gather(self.replicas().run(fn, slices, *static), self.device)
 
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())

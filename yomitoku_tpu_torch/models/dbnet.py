@@ -143,6 +143,8 @@ class DBNet(TorchModel):
     #: the adaptive-threshold head is in the reference checkpoints but
     #: never evaluated at inference
     ignored_checkpoint_keys = ("num_batches_tracked", "decoder.thresh.")
+    #: stage label for utils.stagetrace accounting
+    trace_stage = "det"
 
     def __init__(self, cfg, device="cpu", dtype=None):
         super().__init__(cfg, device, dtype)
@@ -172,10 +174,16 @@ class DBNet(TorchModel):
         """prob -> uint8 wire map (prob * 255, rounded half to even)."""
         return torch.clamp(torch.round(prob * 255.0), 0, 255).to(torch.uint8)
 
+    @staticmethod
+    def _forward_u8(model, images):
+        return model._wire(model.forward(model.standardize_u8(images)))
+
     @torch.no_grad()
     def forward_u8(self, images_u8):
-        """(B, H, W, 3) uint8 resized page -> (B, H, W) uint8 wire map."""
-        return self._wire(self.forward(self.standardize_u8(images_u8)))
+        """(B, H, W, 3) uint8 resized page (or its float resample in
+        [0, 255]) -> (B, H, W) uint8 wire map; under a mesh the batch
+        splits over the replicas (``place_batch``)."""
+        return self.run_placed(self._forward_u8, images_u8)
 
     @torch.no_grad()
     def forward_from_page(self, page, src_hw, out_hw):
@@ -189,7 +197,23 @@ class DBNet(TorchModel):
 
         mat = staged_page_mat(src_hw, out_hw, page.device)
         x = sample_regions_separable(page, mat, tuple(out_hw), flip_bgr=False)
-        return self._wire(self.forward(self.standardize_u8(x)))
+        return self.forward_u8(x)
+
+    @torch.no_grad()
+    def forward_from_pages(self, pages, src_hws, out_hw):
+        """The page route over a stack of pages: (N, H, W, 3) padded uint8
+        pages on one device, page i's image the top-left ``src_hws[i]``,
+        each resized to ``out_hw`` there, then DBNet on the N resamples as
+        one batch (split over the replicas under a mesh) -> (N, oh, ow)
+        uint8 wire maps on the device."""
+        from ..ops.device_crop import staged_page_mat
+        from ..ops.separable_resize import sample_regions_separable
+
+        x = torch.cat([
+            sample_regions_separable(page, staged_page_mat(hw, out_hw, page.device),
+                                     tuple(out_hw), flip_bgr=False)
+            for page, hw in zip(pages, src_hws)])
+        return self.forward_u8(x)
 
     def forward_binary_from_page(self, page, src_hw, out_hw) -> np.ndarray:
         """Host entry of ``forward_from_page`` -> (1, oh, ow) uint8 map."""
@@ -201,4 +225,4 @@ class DBNet(TorchModel):
 
     def forward_binary(self, images: np.ndarray) -> np.ndarray:
         """Host entry: (B, H, W, 3) standardized float32 -> (B, H, W) map."""
-        return self.forward(torch.from_numpy(np.ascontiguousarray(images))).float().cpu().numpy()
+        return self.run_placed(lambda m, x: m.forward(x), images).float().cpu().numpy()

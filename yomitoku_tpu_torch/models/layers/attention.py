@@ -100,16 +100,20 @@ def _int8_weights(owner, *weights):
                   lambda: [quantize_weight_int8(w.t()) for w in weights])
 
 
-def quantize_kv_int8(k, v):
+def quantize_kv_int8(k, v, per_row=False):
     """Symmetric int8 quantization of a K/V pair ((B, H, L, Dh) each) with
     one float32 scale per (batch, head), shape (B, H, 1, 1):
     s = max(max|x| / 127, 1e-8), q = clip(round(x / s), -127, 127) ->
-    (kq, sk, vq, sv), as the JAX package's default (per-head) form."""
+    (kq, sk, vq, sv), as the JAX package's default (per-head) form.  With
+    ``per_row`` one scale per row, shape (B, H, L), as the JAX package's
+    form for a cache built a row at a time."""
 
     def q8(x):
         xf = x.float()
-        s = torch.clamp_min(xf.abs().amax(dim=(2, 3), keepdim=True) / 127.0, 1e-8)
-        return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
+        dims = (-1,) if per_row else (2, 3)
+        s = torch.clamp_min(xf.abs().amax(dim=dims, keepdim=True) / 127.0, 1e-8)
+        q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
+        return q, (s[..., 0] if per_row else s)
 
     kq, sk = q8(k)
     vq, sv = q8(v)

@@ -86,6 +86,10 @@ class TokenEmbedding(nn.Module):
         return self.embedding(tokens) * scale
 
 
+#: held while an AR loop's CUDA graph is captured, by one model at a time
+_CAPTURE_LOCK = threading.Lock()
+
+
 class _CachedARLoop:
     """The depth-1 AR loop for one batch size and memory length (the
     recognizer's width buckets give one canvas, and so one memory length,
@@ -110,7 +114,10 @@ class _CachedARLoop:
     take turns instead of writing into each other's buffers.  The capture
     runs under that lock in the "thread_local" capture mode, so the other
     threads' allocations and synchronisations (the detector's, the layout
-    models') neither fail it nor are refused while it runs."""
+    models') neither fail it nor are refused while it runs.  Captures take
+    turns across models too (``_CAPTURE_LOCK``): a capture's entry
+    synchronizes the device, which another thread's capture on it refuses
+    (two replicas of the model on one card, each capturing its loop)."""
 
     def __init__(self, model, B, L, causal, int8_kv):
         self.model = model
@@ -204,7 +211,7 @@ class _CachedARLoop:
             self.step()
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+        with _CAPTURE_LOCK, torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.step()
 
     def __call__(self, memory):
@@ -227,6 +234,9 @@ class _CachedARLoop:
 class PARSeq(TorchModel):
     #: stage label for utils.stagetrace accounting
     trace_stage = "rec"
+    #: what a replica copies before every call: the int8 cache's switch
+    #: (the audit may turn it off after the copy was made) and the decode
+    replica_attrs = ("pretrained_source", "int8_kv", "decode_ar", "refine_iters")
 
     def __init__(self, cfg, device="cpu", dtype=None):
         super().__init__(cfg, device, dtype)
@@ -386,8 +396,14 @@ class PARSeq(TorchModel):
     @torch.no_grad()
     def forward_tokens_device(self, images):
         """Greedy reduction on the device: ids (B, L) int32 and their
-        probabilities (B, L) float32, via logsumexp (no full softmax)."""
-        logits = self.forward_logits(images)
+        probabilities (B, L) float32, via logsumexp (no full softmax).
+        Under a mesh the lines split over the replicas, each decoding in
+        its own AR loops under its own lock (``place_batch``)."""
+        return self.run_placed(PARSeq._tokens, images)
+
+    @staticmethod
+    def _tokens(model, images):
+        logits = model.forward_logits(images)
         ids = logits.argmax(-1)
         lse = torch.logsumexp(logits, dim=-1)
         top = logits.gather(-1, ids[..., None])[..., 0]
@@ -413,17 +429,21 @@ class PARSeq(TorchModel):
         through the projective gather.  ``out_w`` narrows the canvas (a
         width bucket): the crop of a line that fits is the left slice of
         its full-width crop, and the ViT takes the left columns of its
-        position embedding."""
-        from ..ops.device_crop import sample_lines
+        position embedding.  Under a mesh the lines split over the
+        replicas, and the page is copied once to each replica's device."""
+        maps = (np.asarray(mats, np.float32), np.asarray(valid_wh, np.int32))
+        return self.run_placed(PARSeq._tokens_from_page, maps, page, out_w)
 
-        out_hw = (self.img_size[0], int(out_w or self.img_size[1]))
-        crops = sample_lines(
-            page,
-            torch.from_numpy(np.asarray(mats, np.float32)).to(page.device),
-            torch.from_numpy(np.asarray(valid_wh, np.int32)).to(page.device),
-            out_hw=out_hw,
-        )
-        return self.forward_tokens_device(crops * (1.0 / 127.5) - 1.0)
+    @staticmethod
+    def _tokens_from_page(model, maps, page, out_w):
+        from ..ops.device_crop import sample_lines
+        from ..parallel.mesh import to_device
+
+        mats, valid_wh = maps
+        page = to_device(page, model.device)
+        out_hw = (model.img_size[0], int(out_w or model.img_size[1]))
+        crops = sample_lines(page, mats, valid_wh, out_hw=out_hw)
+        return PARSeq._tokens(model, crops * (1.0 / 127.5) - 1.0)
 
     def forward_tokens_from_page(self, page, mats, valid_wh, out_w=None):
         """Host entry of ``forward_tokens_from_page_device`` -> (ids, probs)

@@ -7,7 +7,6 @@ scaled to [0, 1] on the device, so the host uploads a quarter of the bytes.
 Outputs stay on the device for the postprocessor's top-k.
 """
 
-import numpy as np
 import torch
 
 from .base import TorchModel
@@ -23,6 +22,8 @@ class RTDETRv2(TorchModel):
         "num_batches_tracked", "denoising_class_embed", "anchors",
         "valid_mask", "num_points_scale",
     )
+    #: stage label for utils.stagetrace accounting
+    trace_stage = "rtdetr"
 
     def __init__(self, cfg, device="cpu", dtype=None):
         super().__init__(cfg, device, dtype)
@@ -50,14 +51,17 @@ class RTDETRv2(TorchModel):
     def forward(self, images):
         """(B, H, W, 3) uint8 RGB, or float already in [0, 1] -> {"pred_logits"
         (B, Q, C), "pred_boxes" (B, Q, 4) cxcywh in [0, 1]}, float32 on the
-        device."""
-        if isinstance(images, np.ndarray):
-            images = torch.from_numpy(np.ascontiguousarray(images))
-        x = images.to(self.device)
+        device.  Under a mesh the batch splits over the replicas
+        (``place_batch``) and the outputs are gathered on this device."""
+        return self.run_placed(RTDETRv2._forward, images)
+
+    @staticmethod
+    def _forward(model, images):
+        x = images.to(model.device)
         if x.dtype == torch.uint8:
-            x = x.to(self.dtype) * (1.0 / 255.0)
-        x = x.to(self.dtype).permute(0, 3, 1, 2)
-        return self.decoder(self.encoder(self.backbone(x)))
+            x = x.to(model.dtype) * (1.0 / 255.0)
+        x = x.to(model.dtype).permute(0, 3, 1, 2)
+        return model.decoder(model.encoder(model.backbone(x)))
 
     @torch.no_grad()
     def forward_from_page(self, page, mats, out_hw):
@@ -70,4 +74,17 @@ class RTDETRv2(TorchModel):
 
         mats = torch.as_tensor(mats, dtype=torch.float32, device=page.device)
         x = sample_regions_separable(page, mats, tuple(out_hw), flip_bgr=True)
+        return self.forward(x.to(self.dtype) * (1.0 / 255.0))
+
+    @torch.no_grad()
+    def forward_from_pages(self, pages, mats, out_hw):
+        """The page route over a stack of pages: (N, H, W, 3) padded uint8
+        pages on one device and (N, K, 3, 3) maps, K regions of each page
+        -> the outputs of ``forward`` on the N * K crops, page-major."""
+        from ..ops.separable_resize import sample_regions_separable
+
+        x = torch.cat([
+            sample_regions_separable(page, m.to(page.device, torch.float32), tuple(out_hw),
+                                     flip_bgr=True)
+            for page, m in zip(pages, mats)])
         return self.forward(x.to(self.dtype) * (1.0 / 255.0))

@@ -136,6 +136,48 @@ def region_mats(regions, out_hw):
     return mats, valid
 
 
+#: the most regions (tables) the page route crops and runs in one batch
+REGION_CHUNK = 64
+
+
+def dispatch_regions_from_page(model, page, data, out_hw):
+    """Enqueue the page route's crops and forwards of a region detector
+    (the table recognizer and the cell detector): the regions of ``data``
+    (each one's "size" (h, w) and "offset" (x, y) on the page) cropped and
+    resized to ``out_hw`` on ``model``'s device, at most REGION_CHUNK at a
+    time -> [(device preds, sizes)] per chunk, without waiting for the
+    device, so that the caller's host work overlaps them
+    (``collect_filtered_regions`` reads them back)."""
+    page_dev = page_on(page, model.device)
+    chunks = []
+    for s in range(0, len(data), REGION_CHUNK):
+        chunk = data[s:s + REGION_CHUNK]
+        mats, _ = region_mats([(d["offset"][0], d["offset"][1],
+                                d["offset"][0] + d["size"][1],
+                                d["offset"][1] + d["size"][0]) for d in chunk], out_hw)
+        preds = model.forward_from_page(page_dev, mats, out_hw)
+        chunks.append((preds, [[d["size"][1], d["size"][0]] for d in chunk]))
+    return chunks
+
+
+def collect_filtered_regions(chunks, postprocessor, thresh):
+    """Each chunk of ``dispatch_regions_from_page`` through the
+    postprocessor (its top-k, one readback a chunk) and the filter at
+    ``thresh`` -> one {labels, boxes, scores} dict per region, in
+    region coordinates."""
+    filtered = []
+    for preds, sizes in chunks:
+        filtered.extend(postprocessor(preds, sizes, thresh))
+    return filtered
+
+
+def filtered_regions_from_page(model, page, data, out_hw, postprocessor, thresh):
+    """The page route's forward of a region detector, read back and
+    filtered: ``collect_filtered_regions`` of ``dispatch_regions_from_page``."""
+    return collect_filtered_regions(
+        dispatch_regions_from_page(model, page, data, out_hw), postprocessor, thresh)
+
+
 @functools.lru_cache(maxsize=512)
 def _staged_page_mat(page_hw, out_hw, device):
     (h, w) = page_hw
@@ -193,6 +235,38 @@ class DevicePage:
                 dev[:h, :w] = src
                 src = dev
         self.dev = src
+
+
+class PageView:
+    """One page of a ``DevicePages`` stack, taken where a DevicePage is:
+    ``dev`` the padded (H, W, 3) uint8 page (a view into the stack),
+    ``hw`` the image's size, ``device``."""
+
+    def __init__(self, dev, hw):
+        self.dev = dev
+        self.hw = tuple(hw)
+        self.device = dev.device
+
+
+class DevicePages:
+    """N uint8 BGR pages of one padded shape uploaded as one (N, H, W, 3)
+    stack (the page axis of ``FusedPageAnalysis.batch_call``): each padded
+    on the host to multiples of ``align`` (``pad_page``), stacked, and sent
+    up in one copy, from pinned memory on CUDA so that the caller does not
+    wait for it.  ``page(i)`` is page i as a ``PageView``."""
+
+    def __init__(self, imgs_bgr, device, align: int = 512):
+        self.hws = [tuple(img.shape[:2]) for img in imgs_bgr]
+        self.device = torch.device(device)
+        stack = np.stack([pad_page(img, align) for img in imgs_bgr])
+        with segment("page", "upload", nbytes=stack.nbytes):
+            src = torch.from_numpy(stack)
+            if self.device.type == "cuda":
+                src = src.pin_memory()
+            self.dev = src.to(self.device, non_blocking=True)
+
+    def page(self, i) -> PageView:
+        return PageView(self.dev[i], self.hws[i])
 
 
 def lies_on(page, device) -> bool:

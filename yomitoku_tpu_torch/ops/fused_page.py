@@ -28,16 +28,25 @@ of the detector's and the layout's host dispatch, and kept threads keep
 cuDNN's convolution plans, which PyTorch holds per thread (a model's
 first call on a new thread plans every convolution again,
 chip_smoke.py phase 9).  The same code runs on the CPU.
+
+``FusedPageAnalysis.batch_call`` is the page axis (the JAX package's
+``batch_call``, a vmap of its program): N same-shape padded pages stacked
+on the device, the detector as one batch of N, the layout as one batch of
+N, each page's slots cropped from its own page and the region model once
+on the 4N slots, one wire for the chunk read back once.  Under a mesh each
+of those batches splits over the models' replicas (``models/base.py``
+``place_batch``).
 """
 
 import os
+from collections import defaultdict, deque
 
 import numpy as np
 import torch
 
 from ..postprocessor.rtdetr_postprocessor import topk_packed
 from ..utils.stagetrace import segment
-from .device_crop import staged_page_mat, staged_wh
+from .device_crop import DevicePages, staged_page_mat, staged_wh
 
 
 def _det_leg(det, page, page_hw, det_hw):
@@ -109,6 +118,11 @@ def select_slots(packed, orig_wh, table_label, lay_thresh, max_tables, region_hw
 def _u8(t):
     """A device tensor's float32 bytes, flat."""
     return t.to(torch.float32).contiguous().view(torch.uint8).reshape(-1)
+
+
+def _u8_rows(t, rows):
+    """A device tensor's float32 bytes as ``rows`` rows (one per page)."""
+    return _u8(t).reshape(rows, -1)
 
 
 def _legs(executor, *legs):
@@ -194,7 +208,7 @@ class FusedPageAnalysis:
         return packed, packed_t, sel, valid
 
     @torch.no_grad()
-    def enqueue(self, page, page_hw, det_out_hw, lay_out_hw, region_out_hw,
+    def enqueue(self, page, page_hw, det_out_hw, lay_out_hw, tsr_out_hw,
                 executor=None):
         """Both legs enqueued (on ``executor``'s threads where given) and
         joined -> the wire, a uint8 tensor on the page's device that
@@ -204,24 +218,75 @@ class FusedPageAnalysis:
         prob, (packed, packed_t, sel, valid) = _legs(
             executor,
             lambda: _det_leg(self.det, page.dev, page_hw, det_out_hw),
-            lambda: self._region_leg(page.dev, page_hw, lay_out_hw, region_out_hw,
+            lambda: self._region_leg(page.dev, page_hw, lay_out_hw, tsr_out_hw,
                                      orig_wh),
         )
         return torch.cat([prob.reshape(-1), _u8(packed), _u8(packed_t), _u8(sel),
                           _u8(valid)])
 
-    def __call__(self, page, page_hw, det_out_hw, lay_out_hw, region_out_hw,
+    def __call__(self, page, page_hw, det_out_hw, lay_out_hw, tsr_out_hw,
                  executor=None):
         """One page (a DevicePage) -> (prob, packed, packed_t, sel, valid)
         host arrays: the detector's (1, oh, ow) uint8 map, the layout's
         (1, k, 6) rows, the slots' (K, 1, q, 6) region rows, their (K, 4)
         int64 boxes and (K,) validity."""
         with segment(self.trace_label, "dispatch"):
-            wire = self.enqueue(page, page_hw, det_out_hw, lay_out_hw, region_out_hw,
+            wire = self.enqueue(page, page_hw, det_out_hw, lay_out_hw, tsr_out_hw,
                                 executor)
         with segment(self.trace_label, "sync", nbytes=wire.numel()):
             arr = wire.cpu().numpy()
         return self._split_wire(arr, det_out_hw)
+
+    def _region_leg_batch(self, pages, page_hws, lay_hw, region_hw, orig_wh):
+        """``_region_leg`` over a stack of N pages: the layout on the N
+        resized pages as one batch, each page's slots selected from its
+        own rows and cropped from its own page, the region model once on
+        the N * max_tables slots -> (packed (N, k, 6), packed_t (N * K, q,
+        6), sel (N, K, 4), valid (N, K)) device tensors."""
+        dev = pages.device
+        lay_mats = torch.stack([staged_page_mat(tuple(hw), tuple(lay_hw), dev)
+                                for hw in page_hws])
+        preds = self.lay.forward_from_pages(pages, lay_mats, tuple(lay_hw))
+        packed = topk_packed(preds["pred_logits"], preds["pred_boxes"], orig_wh, self.lay_k)
+        slots = [select_slots(packed[i:i + 1], orig_wh[i:i + 1], self.table_label,
+                              self.lay_thresh, self.max_tables, tuple(region_hw))
+                 for i in range(len(page_hws))]
+        sel, valid, mats, sizes = (torch.stack(t) for t in zip(*slots))
+        preds = self.tsr.forward_from_pages(pages, mats, tuple(region_hw))
+        packed_t = topk_packed(preds["pred_logits"], preds["pred_boxes"],
+                               sizes.reshape(-1, 2), self.tsr_k)
+        return packed, packed_t, sel, valid
+
+    @torch.no_grad()
+    def enqueue_batch(self, pages_dev, page_hws, det_out_hw, lay_out_hw, tsr_out_hw,
+                      executor=None):
+        """``enqueue`` over a stack of pages: both legs on ``executor``'s
+        threads -> the chunk's wire, (N, bytes) uint8 on the pages' device,
+        one row per page laid out as ``enqueue``'s."""
+        n = len(page_hws)
+        orig_wh = torch.cat([staged_wh(w, h, pages_dev.device) for h, w in page_hws])
+        prob, (packed, packed_t, sel, valid) = _legs(
+            executor,
+            lambda: self.det.forward_from_pages(pages_dev, page_hws, tuple(det_out_hw)),
+            lambda: self._region_leg_batch(pages_dev, page_hws, lay_out_hw, tsr_out_hw,
+                                           orig_wh),
+        )
+        return torch.cat([prob.reshape(n, -1), _u8_rows(packed, n), _u8_rows(packed_t, n),
+                          _u8_rows(sel, n), _u8_rows(valid, n)], dim=1)
+
+    def batch_call(self, pages_dev, page_hws, det_out_hw, lay_out_hw, tsr_out_hw,
+                   executor=None):
+        """(N, PH, PW, 3) uint8 stacked pages on the device, whose true (h,
+        w) ``page_hws`` may differ, sharing the padded shape and the
+        detector's, layout's and region's output sizes -> a list of N
+        per-page (prob, packed, packed_t, sel, valid), as ``__call__``
+        returns for one page: one enqueue, one readback for the chunk."""
+        with segment(self.trace_label, "dispatch"):
+            wire = self.enqueue_batch(pages_dev, page_hws, det_out_hw, lay_out_hw,
+                                      tsr_out_hw, executor)
+        with segment(self.trace_label, "sync", nbytes=wire.numel()):
+            arr = wire.cpu().numpy()
+        return [self._split_wire(row, det_out_hw) for row in arr]
 
     def _split_wire(self, arr, det_out_hw):
         """One page's wire bytes -> (prob, packed, packed_t, sel, valid)."""
@@ -277,3 +342,64 @@ class FusedPageAnalysis:
                 missing_data.append(d)
             filtered[i] = one
         return filtered, missing_idx, missing_data
+
+
+def dp_chunk_pages(mesh, n_pages):
+    """Pages per ``batch_call``: the mesh's dp size, else (one device)
+    YOMITOKU_TPU_DP_CHUNK (default 1), at most the pages there are."""
+    if mesh is not None:
+        return mesh.shape["dp"]
+    return max(1, min(n_pages, int(os.environ.get("YOMITOKU_TPU_DP_CHUNK", "1"))))
+
+
+def run_page_chunks(prog, imgs, det_hws, lay_hw, region_hw, device, chunk_pages,
+                    post_one, pools, executor):
+    """The page-axis schedule of both analyzers' ``_batch_dp_fused`` (the
+    JAX package's): pages grouped by (padded shape, detector size), cut
+    into chunks of ``chunk_pages`` (a short chunk padded by repeating its
+    first page, whose lanes are dropped), each chunk's device leg (one
+    ``DevicePages`` upload and one ``batch_call``, its two legs on
+    ``executor``) on a pool YOMITOKU_TPU_DP_DEVICE_DEPTH deep (default 4),
+    and each page's host tail ``post_one(i, page, wire)`` on a pool of
+    YOMITOKU_TPU_DP_TAIL_WORKERS threads (default max(4, chunk_pages))
+    behind them, at most 2 x chunk_pages tails open.  The pools are
+    ``pools``'s, kept.  -> the tails' results in input order."""
+    groups = defaultdict(list)
+    for i, img in enumerate(imgs):
+        h, w = img.shape[:2]
+        groups[(-(-h // 512), -(-w // 512), tuple(det_hws[i]))].append(i)
+    chunks = [(members[s:s + chunk_pages], key[2])
+              for key, members in groups.items()
+              for s in range(0, len(members), chunk_pages)]
+
+    def device_leg(ids, det_hw):
+        pad_ids = ids + [ids[0]] * (chunk_pages - len(ids))
+        pages = DevicePages([imgs[i] for i in pad_ids], device)
+        return pages, prog.batch_call(pages.dev, pages.hws, det_hw, lay_hw, region_hw,
+                                      executor=executor)
+
+    dev_depth = max(1, int(os.environ.get("YOMITOKU_TPU_DP_DEVICE_DEPTH", "4")))
+    tail_workers = (int(os.environ.get("YOMITOKU_TPU_DP_TAIL_WORKERS", "0"))
+                    or max(4, chunk_pages))
+    leg_pool = pools.get("leg", dev_depth)
+    tail_pool = pools.get("tail", tail_workers)
+    legs = deque((ids, leg_pool.submit(device_leg, ids, hw)) for ids, hw in chunks[:dev_depth])
+    next_chunk = dev_depth
+    results = [None] * len(imgs)
+    tails = deque()
+    while legs:
+        ids, fut = legs.popleft()
+        pages, per_page = fut.result()
+        if next_chunk < len(chunks):
+            c_ids, c_hw = chunks[next_chunk]
+            legs.append((c_ids, leg_pool.submit(device_leg, c_ids, c_hw)))
+            next_chunk += 1
+        for j, i in enumerate(ids):
+            tails.append((i, tail_pool.submit(post_one, i, pages.page(j), per_page[j])))
+        while len(tails) > 2 * chunk_pages:
+            i, tail = tails.popleft()
+            results[i] = tail.result()
+    while tails:
+        i, tail = tails.popleft()
+        results[i] = tail.result()
+    return results

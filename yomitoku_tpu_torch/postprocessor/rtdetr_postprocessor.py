@@ -33,9 +33,12 @@ class RTDETRPostProcessor:
     #: stage label for utils.stagetrace accounting (task modules override)
     trace_stage = "rtdetr"
 
-    def __init__(self, num_classes, num_top_queries=300):
+    def __init__(self, num_classes, num_top_queries=300, use_focal_loss=True):
         self.num_classes = int(num_classes)
         self.num_top_queries = int(num_top_queries)
+        #: kept as the JAX package keeps it; both score with the sigmoid
+        #: (the reference checkpoints are focal-loss trained)
+        self.use_focal_loss = use_focal_loss
 
     def topk_on_device(self, outputs, orig_sizes):
         """Device half: the (B, k, 6) packed [label, score, xyxy] tensor."""

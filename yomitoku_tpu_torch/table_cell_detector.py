@@ -20,12 +20,12 @@ repeated here.
 import cv2
 import numpy as np
 
-from .base import BaseModelCatalog, BaseModule, check_num_devices
+from .base import BaseModelCatalog, BaseModule
 from .configs import TableCellParserRTDETRv2BetaConfig
 from .models.rtdetr import RTDETRv2
+from .ops.device_crop import filtered_regions_from_page
 from .postprocessor.rtdetr_postprocessor import RTDETRPostProcessor
 from .schemas.table_semantic_parser import CellSchema, TableDetectorSchema
-from .table_structure_recognizer import filtered_regions_from_page
 from .utils.misc import (
     calc_iou,
     containment_matrix,
@@ -176,9 +176,9 @@ class CellDetector(BaseModule):
         dtype=None,
     ):
         super().__init__()
-        check_num_devices(num_devices)
         self.load_model(model_name, path_cfg, device=device,
                         from_pretrained=from_pretrained, dtype=dtype)
+        self.use_num_devices(num_devices)
         self.visualize = visualize
         self.postprocessor = RTDETRPostProcessor(
             num_classes=self._cfg.RTDETRTransformerv2.num_classes,

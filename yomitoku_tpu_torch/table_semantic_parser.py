@@ -24,11 +24,14 @@ slots' matching, the chunked region route for the tables the slots
 missed (overlapped with the contours), and the cell postprocess while
 the recognizer runs on a side pool of eight threads kept for the
 parser's life.  Everywhere else the unfused route runs, each module on
-another device than the page uploading its own.  The JAX package's page
-data parallelism is not ported, and ``num_devices`` above 1 raises, so
-``batch`` runs pages on threads only.  Neither the page nor the image is
-kept on the parser, so ``batch`` may run ``__call__`` on several
-threads; the fused program is built once, under a lock.
+another device than the page uploading its own.  ``num_devices`` goes to
+every module (one replica of each model per device where two or more
+take part, ``parallel/``); above 1, ``batch`` takes the page axis on the
+fused route (``_batch_dp_fused``: chunks of pages through
+``FusedPageAnalysis.batch_call``), as the JAX package's does.  Neither the
+page nor the image is kept on the parser, so ``batch`` may run
+``__call__`` on several threads; the fused program is built once, under a
+lock.
 
 One deliberate difference: the detector and the layout parser (on the
 fused route: the program's two legs) run on two worker threads that the
@@ -54,8 +57,16 @@ from .grid_parser import parse_grid_from_bottom_up
 from .kv_parser import parse_kv_items
 from .layout_parser import LayoutParser
 from .ocr import ocr_aggregate
-from .ops.device_crop import DevicePage, device_crops_enabled, lies_on
-from .ops.fused_page import FusedPageAnalysis
+from .ops.device_crop import (
+    DevicePage,
+    collect_filtered_regions,
+    device_crops_enabled,
+    dispatch_regions_from_page,
+    lies_on,
+)
+from .ops.fused_page import FusedPageAnalysis, dp_chunk_pages, run_page_chunks
+from .parallel import dp_mesh
+from .parallel.runner import KeptPools, same_device
 from .reading_order import prediction_reading_order
 from .schemas import (
     Element,
@@ -72,7 +83,6 @@ from .schemas.table_semantic_parser import (
     TableSemanticParserSchema,
 )
 from .table_cell_detector import CellDetector
-from .table_structure_recognizer import collect_filtered_regions, dispatch_regions_from_page
 from .text_detector import TextDetector
 from .text_recognizer import TextRecognizer
 from .utils.adjacency import bottom_adjacency_matrix, right_adjacency_matrix
@@ -345,6 +355,7 @@ class TableSemanticParser:
         self.cell_detector = CellDetector(**table_cell_parser_kwargs)
         self.text_detector = TextDetector(**text_detector_kwargs)
         self.text_recognizer = TextRecognizer(**text_recognizer_kwargs)
+        self.num_devices = num_devices
         self.visualize = visualize
         self.merge_same_column_values = False
         #: the detector's and the layout parser's threads, kept across
@@ -357,6 +368,8 @@ class TableSemanticParser:
         self._fused_page_program = None
         self._fused_page_lock = threading.Lock()
         self._rec_pool = None
+        #: the page-axis route's device-leg and tail pools, kept
+        self._dp_pools = KeptPools("TableSemanticParser")
 
     def _rec_executor(self):
         """The fused route's pool for the recognizer's leg, kept for the
@@ -594,9 +607,22 @@ class TableSemanticParser:
         kernels queue on the device's stream, the pages' detector and
         layout calls (on the fused route, the program's two legs) share
         the parser's two worker threads, which keep cuDNN's plans, and the
-        recognizer's AR loop takes one page at a time."""
+        recognizer's AR loop takes one page at a time.
+
+        With ``num_devices`` above 1, two or more pages and no
+        ``visualize``, pages on the fused route take the page axis
+        (``_batch_dp_fused``), as in the JAX package; elsewhere they run
+        on threads, as the JAX package's do."""
         if not imgs:
             return []
+        if (self.num_devices and self.num_devices > 1 and len(imgs) > 1
+                and not self.visualize):
+            device = self.text_detector.device
+            if (device_crops_enabled(device) and self._fused_page_enabled()
+                    and all(same_device(m.device, device)
+                            for m in (self.layout_parser, self.cell_detector))):
+                return self._batch_dp_fused(imgs, template=template,
+                                            grid_only=grid_only, kv_only=kv_only)
         with ThreadPoolExecutor(max_workers=max_in_flight) as executor:
             return list(
                 executor.map(
@@ -607,6 +633,27 @@ class TableSemanticParser:
                     imgs,
                 )
             )
+
+    def _batch_dp_fused(self, imgs, template=None, grid_only=False, kv_only=False):
+        """Page-axis batching over the fused page program with the cell
+        detector in the region slot: DocumentAnalyzer._batch_dp_fused's
+        schedule (``ops.fused_page.run_page_chunks``); each page's tail is
+        the host side of its wire (the recognizer on the side pool) and
+        ``_finalize``."""
+        prog = self._ensure_fused_program()
+        mesh = dp_mesh(self.num_devices, device_type=self.text_detector.device.type)
+        det_hws = [self._fused_sizes(img)[0] for img in imgs]
+        lay_hw, cell_hw = self._fused_sizes(imgs[0])[1:]
+
+        def post_one(i, page, wire):
+            results_ocr, results_table, paragraphs = self._fused_host_postwire(
+                imgs[i], page, *wire)
+            return self._finalize(imgs[i], results_ocr, results_table, paragraphs,
+                                  template=template, grid_only=grid_only, kv_only=kv_only)
+
+        return run_page_chunks(
+            prog, imgs, det_hws, lay_hw, cell_hw, self.text_detector.device,
+            dp_chunk_pages(mesh, len(imgs)), post_one, self._dp_pools, self._workers)
 
     def __call__(self, img, template=None, id=None, grid_only=False, kv_only=False):
         """Parse one BGR page -> (TableSemanticParserSchema, vis_layout,

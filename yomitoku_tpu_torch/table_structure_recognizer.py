@@ -16,62 +16,25 @@ repeated here.
 import cv2
 import numpy as np
 
-from .base import BaseModelCatalog, BaseModule, check_num_devices
+from .base import BaseModelCatalog, BaseModule
 from .configs import TableStructureRecognizerRTDETRv2Config
 from .layout_parser import filter_contained_rectangles_within_category
 from .models.rtdetr import RTDETRv2
-from .ops.device_crop import page_on, region_mats
+from .ops.device_crop import (  # noqa: F401  (the region helpers' old home)
+    collect_filtered_regions,
+    dispatch_regions_from_page,
+    filtered_regions_from_page,
+    region_mats,
+)
 from .postprocessor.rtdetr_postprocessor import RTDETRPostProcessor
 from .schemas import TableStructureRecognizerSchema
 from .utils.misc import calc_intersection, filter_by_flag, is_contained
-
-
-#: the most regions (tables) the page route crops and runs in one batch
-REGION_CHUNK = 64
 
 
 class TableStructureRecognizerModelCatalog(BaseModelCatalog):
     def __init__(self):
         super().__init__()
         self.register("rtdetrv2", TableStructureRecognizerRTDETRv2Config, RTDETRv2)
-
-
-def dispatch_regions_from_page(model, page, data, out_hw):
-    """Enqueue the page route's crops and forwards of a region detector
-    (the table recognizer and the cell detector): the regions of ``data``
-    (each one's "size" (h, w) and "offset" (x, y) on the page) cropped and
-    resized to ``out_hw`` on ``model``'s device, at most REGION_CHUNK at a
-    time -> [(device preds, sizes)] per chunk, without waiting for the
-    device, so that the caller's host work overlaps them
-    (``collect_filtered_regions`` reads them back)."""
-    page_dev = page_on(page, model.device)
-    chunks = []
-    for s in range(0, len(data), REGION_CHUNK):
-        chunk = data[s:s + REGION_CHUNK]
-        mats, _ = region_mats([(d["offset"][0], d["offset"][1],
-                                d["offset"][0] + d["size"][1],
-                                d["offset"][1] + d["size"][0]) for d in chunk], out_hw)
-        preds = model.forward_from_page(page_dev, mats, out_hw)
-        chunks.append((preds, [[d["size"][1], d["size"][0]] for d in chunk]))
-    return chunks
-
-
-def collect_filtered_regions(chunks, postprocessor, threshold):
-    """Each chunk of ``dispatch_regions_from_page`` through the
-    postprocessor (its top-k, one readback a chunk) and the filter at
-    ``threshold`` -> one {labels, boxes, scores} dict per region, in
-    region coordinates."""
-    filtered = []
-    for preds, sizes in chunks:
-        filtered.extend(postprocessor(preds, sizes, threshold))
-    return filtered
-
-
-def filtered_regions_from_page(model, page, data, out_hw, postprocessor, threshold):
-    """The page route's forward of a region detector, read back and
-    filtered: ``collect_filtered_regions`` of ``dispatch_regions_from_page``."""
-    return collect_filtered_regions(
-        dispatch_regions_from_page(model, page, data, out_hw), postprocessor, threshold)
 
 
 def extract_cells(row_boxes, col_boxes):
@@ -134,9 +97,9 @@ class TableStructureRecognizer(BaseModule):
         dtype=None,
     ):
         super().__init__()
-        check_num_devices(num_devices)
         self.load_model(model_name, path_cfg, device=device,
                         from_pretrained=from_pretrained, dtype=dtype)
+        self.use_num_devices(num_devices)
         self.visualize = visualize
         self.postprocessor = RTDETRPostProcessor(
             num_classes=self._cfg.RTDETRTransformerv2.num_classes,

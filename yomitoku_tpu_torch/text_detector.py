@@ -6,17 +6,25 @@ with the port's copy of the JAX package's postprocessor (native C++
 contours and unclip, csrc/dbnet_post.cpp).  Given ``page=`` (a shared
 ops.device_crop.DevicePage), the resize and the standardisation run on
 the device from the page uploaded once.  The constructor takes the JAX
-package's arguments; ``num_devices`` beyond 1 raises until the port has
-page data parallelism."""
+package's arguments; ``num_devices`` counts devices as the JAX package's
+``dp_mesh`` does, and where two or more take part a batch of pages splits
+over one replica of DBNet per device (``parallel/``)."""
 
-from .base import BaseModelCatalog, BaseModule, check_num_devices
+import numpy as np
+
+from .base import BaseModelCatalog, BaseModule
 from .configs import (
     TextDetectorDBNetConfig,
     TextDetectorDBNetV2_1Config,
     TextDetectorDBNetV2_1LiteConfig,
     TextDetectorDBNetV2Config,
 )
-from .data.functions import resize_shortest_edge, shortest_edge_size
+from .data.functions import (
+    array_to_nhwc,
+    resize_shortest_edge,
+    shortest_edge_size,
+    standardization_image,
+)
 from .models.dbnet import DBNet
 from .ops.device_crop import page_on
 from .postprocessor.dbnet_postprocessor import DBnetPostProcessor
@@ -48,11 +56,22 @@ class TextDetector(BaseModule):
         dtype=None,
     ):
         super().__init__()
-        check_num_devices(num_devices)
         self.load_model(model_name, path_cfg, device=device,
                         from_pretrained=from_pretrained, dtype=dtype)
+        self.use_num_devices(num_devices)
         self.visualize = visualize
         self.post_processor = DBnetPostProcessor(**self._cfg.post_process)
+
+    def preprocess(self, img):
+        """The float parity path: the reference flips BGR to RGB here and
+        the standardisation flips again, so the checkpoint meets BGR order
+        under RGB statistics -> (1, H, W, 3) float32 for
+        ``model.forward_binary``."""
+        img = img[:, :, ::-1].astype(np.float32)
+        resized = resize_shortest_edge(
+            img, self._cfg.data.shortest_size, self._cfg.data.limit_size
+        )
+        return array_to_nhwc(standardization_image(resized))
 
     def preprocess_u8(self, img):
         """Resize the uint8 BGR page on the host; the standardisation runs

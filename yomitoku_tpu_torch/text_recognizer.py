@@ -20,7 +20,9 @@ the model audits that cache once, as in the JAX package.
 ``rec_orientation_fallback`` re-reads the lines that score below its
 threshold rotated by 180 degrees and keeps the better reading: on the host
 route from the rotated ROI, on the device route through the flip composed
-into the map.  Not ported yet: ``num_devices`` beyond 1.
+into the map.  ``num_devices`` counts devices as the JAX package's
+``dp_mesh`` does; where two or more take part the lines of a batch split
+over one replica of PARSeq per device (``parallel/``).
 """
 
 import os
@@ -29,7 +31,7 @@ import unicodedata
 import cv2
 import numpy as np
 
-from .base import BaseModelCatalog, BaseModule, check_num_devices
+from .base import BaseModelCatalog, BaseModule
 from .configs import (
     TextRecognizerPARSeqConfig,
     TextRecognizerPARSeqLargeV41Config,
@@ -92,7 +94,6 @@ class TextRecognizer(BaseModule):
         dtype=None,
     ):
         super().__init__()
-        check_num_devices(num_devices)
         self.load_model(model_name, path_cfg, device=device,
                         from_pretrained=from_pretrained, dtype=dtype)
         # audit the int8 memory-K/V default on real weights, unless the
@@ -104,6 +105,7 @@ class TextRecognizer(BaseModule):
             and not os.environ.get("YOMITOKU_TPU_SKIP_INT8_AUDIT")
         ):
             self.model.audit_int8_kv()
+        self.use_num_devices(num_devices)
         self.charset = load_charset(self._cfg.charset)
         self.tokenizer = ParseqTokenizer(self.charset)
         self.visualize = visualize

@@ -1,4 +1,5 @@
-"""Logging (the port's copy of yomitoku_tpu/utils/logger.py:set_logger)."""
+"""Logging (the port's copy of yomitoku_tpu/utils/logger.py).  Warnings
+are not silenced globally; ``quiet_warnings()`` does it on request."""
 
 import logging
 import sys
@@ -15,3 +16,9 @@ def set_logger(name: str, level: str = "INFO") -> logging.Logger:
         logger.addHandler(handler)
         logger.propagate = False
     return logger
+
+
+def quiet_warnings():
+    import warnings
+
+    warnings.filterwarnings("ignore")

@@ -31,6 +31,20 @@ class StageStats:
             self.bytes[key] += nbytes
             self.counts[key] += 1
 
+    def table(self, pages=1):
+        """{stage: {kind: {ms, n[, mb]}}} averaged over ``pages``."""
+        out = {}
+        for (stage, kind), sec in sorted(self.seconds.items()):
+            row = out.setdefault(stage, {})
+            row[kind] = {
+                "ms": round(sec * 1e3 / pages, 1),
+                "n": round(self.counts[(stage, kind)] / pages, 1),
+            }
+            mb = self.bytes[(stage, kind)] / 1e6 / pages
+            if mb:
+                row[kind]["mb"] = round(mb, 3)
+        return out
+
 
 @contextmanager
 def collect():
@@ -57,3 +71,10 @@ def segment(stage, kind, nbytes=0):
         yield
     finally:
         stats.add(stage, kind, time.perf_counter() - t0, nbytes)
+
+
+def note(stage, kind, seconds=0.0, nbytes=0):
+    """Record an event measured elsewhere (CUDA events, a profiler)."""
+    stats = _active
+    if stats is not None:
+        stats.add(stage, kind, seconds, nbytes)
