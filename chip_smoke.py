@@ -9,12 +9,13 @@
     python3 chip_smoke.py --cli
     python3 chip_smoke.py --semantic
     python3 chip_smoke.py --dp
+    python3 chip_smoke.py --tp
 
 With no arguments it runs the phases below, each printed as it runs; any
 failure exits non-zero.  ``--page`` runs phase 8 alone, ``--document``
 phase 9, ``--cli`` phase 9's analyzer setup and then phase 10,
 ``--semantic`` phase 9's analyzer setup and then phase 11, ``--dp``
-phase 9's analyzer setup and then phase 12.  ``--fused-kernels [ROOT]`` runs only phase 7's
+phase 9's analyzer setup and then phase 12, ``--tp`` phase 13.  ``--fused-kernels [ROOT]`` runs only phase 7's
 bottleneck kernels at their eleven shapes and the fused DBNet forward's
 device busy, and ``--deform-kernels [ROOT]`` only phase 2's
 ms_deformable_attention lines at its four shapes, on the package of this checkout or of another
@@ -315,6 +316,27 @@ each ends with a JSON line of its times.
    build/chip_smoke/dp.json.
    Phase 2 holds kernel 3 at the 16 slots' (16, 300, 256) and (16, 2500,
    256) and kernel 5 at (16, 300) and (16, 2500) for this phase.
+13. Tensor parallelism (``parallel.parseq_param_shardings``,
+   ``shard_params``) on ``parseq`` (D 512, 8 heads of 64, 12 blocks,
+   7,310 classes; seed-0 weights, the full memory-K/V cache on every
+   side): kernels 1-4 at its width (x (128, 400, 512), hidden 2048; q
+   (128, 101, 512) against k/v (128, 400, 512); x (12,928, 512)) against
+   their plain versions and timed as in phase 2; ``TextRecognizer(
+   model_name="parseq", device="cuda")`` on phase 3's synthetic page, and
+   in f32 on the card against the CPU on 16 lines (phase 3's gate); then
+   the model split over the meshes [cuda:0] x 2 at tp 2 (1, 2), [cuda:0]
+   x 4 at tp 2 (2, 2) and [cuda:0] x 4 at tp 4 (1, 4: the head stays
+   whole, 7,310 % 4 = 2, and the embedding splits in four): the shards'
+   shapes and their own storage; path ``recognizer_tp``: each mesh's rows
+   decode 128 lines, counted (kernels 1-4 each launched, attention and
+   GEMMs on wgmma routes), one AR graph captured per row and shape and
+   replayed; in bf16 the ids equal the unsharded model's on the same
+   slices outside near-ties (top-2 gap < 1e-4), in f32 equal with the
+   probs within 1e-5; the first row's non-AR decode, one AR step and one
+   replay enqueued under torch.cuda.set_sync_debug_mode("error"); the
+   head's GEMM whole against split in two (CUDA events); lines/s of the
+   unsharded model beside (1, 2) and (2, 2), in turns; numbers in
+   build/chip_smoke/tp.json.
 
 Phase 3 pins YOMITOKU_TPU_INT8_KV=0 (the full cache, which its f32
 card-vs-CPU check compares with the CPU's), phase 6 leaves it at its
@@ -604,11 +626,13 @@ def stock_attn_heads(q, k, v, h):
     return o.transpose(1, 2).reshape(b, lq, d)
 
 
-def _kernel_cases(rng, L=L):
+def _kernel_cases(rng, L=L, D=D, hidden=HIDDEN):
     """name -> (plain version, stock bf16 torch ops, inputs): numpy args in
     the (in, out) layout, the indices of the weights among them, and the
     trailing non-tensor args.  ``L``: the ViT's tokens per line (400 on the
-    full canvas, 200 in the 400-wide width bucket), the refine's keys."""
+    full canvas, 200 in the 400-wide width bucket), the refine's keys;
+    ``D`` and ``hidden``: the model's width and MLP hidden size (768 and 3072
+    for parseq-large-v4_1, 512 and 2048 for parseq)."""
     import torch.nn.functional as F
 
     from yomitoku_tpu_torch import ops
@@ -628,8 +652,8 @@ def _kernel_cases(rng, L=L):
     )
     mlp_ln = dict(
         args=[nrm((B * L, D)), vec(D, 1.0, 0.1), vec(D),
-              nrm((D, HIDDEN), ws), vec(HIDDEN), nrm((HIDDEN, D),
-                                                    HIDDEN ** -0.5), vec(D)],
+              nrm((D, hidden), ws), vec(hidden), nrm((hidden, D),
+                                                    hidden ** -0.5), vec(D)],
         weights={3, 5}, tail=(),
     )
     heads = dict(
@@ -637,8 +661,8 @@ def _kernel_cases(rng, L=L):
         weights=set(), tail=(HEADS,),
     )
     mlp = dict(
-        args=[nrm((B * STEPS, D)), nrm((D, HIDDEN), ws), vec(HIDDEN),
-              nrm((HIDDEN, D), HIDDEN ** -0.5), vec(D)],
+        args=[nrm((B * STEPS, D)), nrm((D, hidden), ws), vec(hidden),
+              nrm((hidden, D), hidden ** -0.5), vec(D)],
         weights={1, 3}, tail=(),
     )
 
@@ -777,6 +801,27 @@ def host_us(fn, runs=1000):
     return us
 
 
+def loop_ms(fn, calls=50, runs=5):
+    """Time per call of ``fn`` on the card: CUDA events around ``calls``
+    back-to-back calls (the device's time once the host keeps ahead), the
+    median of ``runs`` such loops after a warm-up."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
 def median_ms(fn, runs=10, warmup=3):
     import torch
 
@@ -896,7 +941,11 @@ def consumer_warpgroups(name, label, q, k, v, heads):
     return res
 
 
-def phase_kernels():
+def phase_kernels(D=D, hidden=HIDDEN, tag="", layouts=LAYOUTS, seed=0):
+    """Kernels 1-4 at the recognizer's shapes of width ``D`` (MLP hidden
+    ``hidden``) against their plain versions in ``layouts``, then timed in
+    the models' layout -> {kernel: numbers}.  ``tag`` marks the lines of a
+    second width (phase 13: "_d512")."""
     import numpy as np
     import torch
 
@@ -904,12 +953,13 @@ def phase_kernels():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cases = _kernel_cases(np.random.default_rng(0))
+    cases = _kernel_cases(np.random.default_rng(seed), D=D, hidden=hidden)
     results = {}
+    all_layouts = layouts
     for name, (ref, stock, case) in cases.items():
         tail = case["tail"]
         res = {}
-        layouts = LAYOUTS if case["weights"] else LAYOUTS[:1]
+        layouts = all_layouts if case["weights"] else all_layouts[:1]
         for layout in layouts:
             f32 = _on_card(case, torch.float32, layout)
             bf = _on_card(case, torch.bfloat16, layout)
@@ -925,11 +975,11 @@ def phase_kernels():
                     ref(*[a.float() for a in bf], *tail), xb, 2e-2, 0.0,
                     2.0 ** -8)
             torch.cuda.synchronize()
-            log(f"kernel {name} [{layout}]: f32 {text32} "
+            log(f"kernel {name}{tag} [{layout}] {tuple(bf[0].shape)}: f32 {text32} "
                 f"{'ok' if ok32 else 'FAIL'}; bf16 {text16} "
                 f"{'ok' if ok16 else 'FAIL'}")
             check(ok32 and ok16,
-                  f"{name} [{layout}] disagrees with its plain version")
+                  f"{name}{tag} [{layout}] disagrees with its plain version")
             suffix = "" if layout == LAYOUTS[0] else "_" + layout
             res["max_abs_err" + suffix] = err16
             res["max_abs_err_f32" + suffix] = err32
@@ -951,9 +1001,10 @@ def phase_kernels():
                         res.update(attention_numbers(
                             lambda: kern(*args16, *tail), sdpa_call(*bf, *tail),
                             kernel_ops(name, bf, tail)["bf16"]))
-                        res.update(consumer_warpgroups(name, "refine", *args16[:3], *tail))
-                    log_attention(name, "refine", res)
-                log(f"kernel {name}: bf16 {res['ms']:.3f} ms per call (device "
+                        res.update(consumer_warpgroups(name, "refine" + tag, *args16[:3],
+                                                       *tail))
+                    log_attention(name, "refine" + tag, res)
+                log(f"kernel {name}{tag}: bf16 {res['ms']:.3f} ms per call (device "
                     f"{_ms(res['device_ms'])}), plain {res['plain_ms']:.3f} ms, stock "
                     f"bf16 torch {res['stock_ms']:.3f} ms (device "
                     f"{_ms(res['stock_device_ms'])}), one library call "
@@ -1517,6 +1568,31 @@ def _finite_schema(schema, what):
     check(all(math.isfinite(s) for s in schema.scores), f"{what}: scores not finite")
 
 
+def f32_card_vs_cpu_logits(got, want, what="f32"):
+    """The gate of the f32 recognizer on the card against the CPU (logits
+    on the host): greedy ids equal wherever the CPU's top-2 gap is at least
+    1e-4, and the probability of the CPU's greedy id within 1e-3 -> the
+    line to log."""
+    import torch
+
+    check(torch.isfinite(got).all().item(), f"{what} card logits not finite")
+    top2 = want.topk(2, dim=-1).values
+    tie = (top2[..., 0] - top2[..., 1]) < 1e-4
+    ids_g, ids_w = got.argmax(-1), want.argmax(-1)
+    differ = ids_g != ids_w
+    check(not (differ & ~tie).any().item(),
+          f"{what} greedy ids differ at {int((differ & ~tie).sum())} positions "
+          "with a top-2 gap >= 1e-4")
+    p_g = torch.exp(got.gather(-1, ids_w[..., None])[..., 0] - got.logsumexp(-1))
+    p_w = torch.exp(want.gather(-1, ids_w[..., None])[..., 0] - want.logsumexp(-1))
+    dp = (p_g - p_w).abs().max().item()
+    check(dp <= 1e-3, f"{what} probs differ by {dp:.3e} > 1e-3")
+    return (f"ids equal at {int((~differ).sum())}/{differ.numel()} positions, "
+            f"{int(tie.sum())} near-tie positions (top-2 gap < 1e-4) exempt, "
+            f"{int(differ.sum())} differ; max|d prob| {dp:.3e}; max|d logit| "
+            f"{(got - want).abs().max().item():.3e}")
+
+
 def phase_slice(card):
     """The OCR path with the full memory-K/V cache -> (launches, the
     synthetic page, its quads, 128 crops and their bf16 greedy ids)."""
@@ -1611,24 +1687,7 @@ def _phase_slice(card):
         check(all(ops.launches[k] > n0[k] for k in OCR_KERNELS),
               f"f32 run missed a kernel: {n0} -> {ops.launches}")
         want = cpu32.model.forward_logits(x)
-        check(torch.isfinite(got).all().item(), "f32 card logits not finite")
-        top2 = want.topk(2, dim=-1).values
-        tie = (top2[..., 0] - top2[..., 1]) < 1e-4
-        ids_g, ids_w = got.argmax(-1), want.argmax(-1)
-        differ = ids_g != ids_w
-        n_ties = int(tie.sum())
-        check(not (differ & ~tie).any().item(),
-              f"f32 greedy ids differ at {int((differ & ~tie).sum())} positions "
-              "with a top-2 gap >= 1e-4")
-        p_g = torch.exp(got.gather(-1, ids_w[..., None])[..., 0] - got.logsumexp(-1))
-        p_w = torch.exp(want.gather(-1, ids_w[..., None])[..., 0] - want.logsumexp(-1))
-        dp = (p_g - p_w).abs().max().item()
-        check(dp <= 1e-3, f"f32 probs differ by {dp:.3e} > 1e-3")
-        log(f"slice: f32 card vs CPU on 16 lines ({what}): ids equal at "
-            f"{int((~differ).sum())}/{differ.numel()} positions, {n_ties} "
-            f"near-tie positions (top-2 gap < 1e-4) exempt, "
-            f"{int(differ.sum())} differ; max|d prob| {dp:.3e}; max|d logit| "
-            f"{(got - want).abs().max().item():.3e}")
+        log(f"slice: f32 card vs CPU on 16 lines ({what}): {f32_card_vs_cpu_logits(got, want)}")
     return launches, dict(page=lines_page, quads=quads, crops=crops,
                           ids_bf16=ids_bf16)
 
@@ -5537,6 +5596,404 @@ def _phase_dp(card, ctx):
     return paths, numbers
 
 
+# ----------------------------------------------------------------- phase 13
+
+#: parseq: D 512, MLP hidden 2048, 8 heads of 64, 7,310 classes
+TP_D, TP_HIDDEN, TP_CLASSES, TP_TOKENS = 512, 2048, 7310, 7312
+#: the tensor-parallel meshes on the one card: label -> (device list, tp):
+#: (1, 2) and (2, 2) split the head and the embedding; at (1, 4) the head
+#: stays whole (7,310 % 4 = 2) and the embedding splits in four
+TP_MESHES = {"1x2": (["cuda:0"] * 2, 2), "2x2": (["cuda:0"] * 4, 2),
+             "1x4": (["cuda:0"] * 4, 4)}
+#: the meshes timed beside the unsharded model
+TP_TIMED = ("1x2", "2x2")
+
+
+def phase_tp(card, ctx):
+    """Phase 13 with the full memory-K/V cache on every side of every
+    comparison -> ({"recognizer_tp": launches}, numbers, {kernel: numbers
+    at D 512})."""
+    with _env(YOMITOKU_TPU_INT8_KV="0", YOMITOKU_TPU_INT8_ENCODER=None,
+              YOMITOKU_TPU_HOST_CROPS="1"):
+        return _phase_tp(card, ctx)
+
+
+def tp_rows_placed(sm, model, what):
+    """The rows of a sharded PARSeq as the rule places them: each split
+    matrix in tp shards of the rule's shapes on the row's devices (the
+    head whole on the lead where tp does not divide its 7,310 classes),
+    every shard with storage of its own -> {"head": shapes, "embedding":
+    shapes} of the first row."""
+    import torch
+
+    from yomitoku_tpu_torch.parallel.tensor_parallel import SplitEmbedding, SplitLinear
+
+    tp = sm.mesh.shape["tp"]
+    seen = {p.data_ptr() for p in model.parameters()}
+    for row, devices in zip(sm.rows, sm.mesh.devices):
+        emb = row.text_embed.embedding
+        check(isinstance(emb, SplitEmbedding)
+              and [tuple(w.shape) for w in emb.weights] == [(TP_TOKENS // tp, TP_D)] * tp
+              and [w.device for w in emb.weights] == list(devices),
+              f"{what}: the embedding is not in {tp} shards of {TP_TOKENS // tp} rows")
+        shards = list(emb.weights)
+        if TP_CLASSES % tp == 0:
+            check(isinstance(row.head, SplitLinear)
+                  and [tuple(w.shape) for w in row.head.weights] == [(TP_CLASSES // tp, TP_D)] * tp
+                  and [tuple(b.shape) for b in row.head.biases] == [(TP_CLASSES // tp,)] * tp,
+                  f"{what}: the head is not in {tp} shards of {TP_CLASSES // tp} classes")
+            shards += [*row.head.weights, *row.head.biases]
+        else:
+            check(isinstance(row.head, torch.nn.Linear)
+                  and tuple(row.head.weight.shape) == (TP_CLASSES, TP_D),
+                  f"{what}: the head should stay whole at tp = {tp}")
+        ptrs = [s.data_ptr() for s in shards]
+        check(len(set(ptrs)) == len(ptrs) and not seen & set(ptrs),
+              f"{what}: a shard shares storage with the model or another shard")
+        seen |= set(ptrs)
+    row = sm.rows[0]
+    head = (row.head.weights if isinstance(row.head, SplitLinear) else [row.head.weight])
+    return {"head": [list(w.shape) for w in head],
+            "embedding": [list(w.shape) for w in row.text_embed.embedding.weights]}
+
+
+def tp_captures():
+    """A spy on the AR loop's graph capture -> the list of models each
+    capture was made for (cleared by the caller)."""
+    from yomitoku_tpu_torch.models import parseq
+
+    made = []
+    real = parseq._CachedARLoop._capture
+
+    def counted(loop):
+        made.append(loop.model)
+        real(loop)
+
+    parseq._CachedARLoop._capture = counted
+    return made, lambda: setattr(parseq._CachedARLoop, "_capture", real)
+
+
+def tp_sync_check(sm, x, what):
+    """The first row's decode enqueued under
+    torch.cuda.set_sync_debug_mode("error"): the non-AR decode with its
+    refine pass (every use of the split head and embedding outside the AR
+    loop), then one AR step eagerly and one replay of its graph; nothing
+    may wait for the card before the readback.  The AR loop's read of its
+    exit flag after each step is the one wait of a decode, as in the
+    unsharded model, and stays outside the window."""
+    import torch
+
+    from yomitoku_tpu_torch.models.parseq import PARSeq
+
+    row = sm.rows[0]
+    x = x.to(row.device)
+    loop = next(iter(row._ar_loops.values()))
+    memory = row.encode(x[:loop.tgt_in.shape[0]])
+    torch.cuda.synchronize()
+    row.decode_ar = False
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ids, _ = PARSeq._tokens(row, x)
+        loop._reset(memory)
+        loop.step()
+        loop.graph.replay()
+    except RuntimeError as e:
+        raise SmokeFailure(f"{what}: the tensor-parallel row waited for the card before "
+                           f"its readback: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        row.decode_ar = sm.model.decode_ar
+    check(ids.shape[0] == x.shape[0] and bool((ids.cpu() >= 0).all()),
+          f"{what}: the non-AR decode's ids are off")
+
+
+def bf16_ulp(v):
+    """The spacing of bf16 values at |v| (8 significant bits)."""
+    import torch
+
+    tiny = torch.finfo(torch.bfloat16).tiny
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(tiny))) - 7)
+
+
+def tp_head_rounding(whole, split, what):
+    """The split head against the whole one on the same bf16 input, the
+    refine's 128 x 101 rows of decoder output.  cuBLAS picks its kernel by
+    N, so the two sum each logit's K + 1 f32 terms in other orders and
+    round the sums to bf16 apart: each logit within one bf16 ulp of the
+    larger of the two, plus twice the worst-case f32 error of a sum of
+    K + 1 terms in any order (K 2^-24 of the sum of their magnitudes) ->
+    numbers."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    xh = torch.randn(128, STEPS, TP_D, device="cuda", generator=g).to(whole.weight.dtype)
+    with torch.no_grad():
+        a, b = whole(xh).float(), split(xh).float()
+        mags = xh.float().abs() @ whole.weight.float().abs().t() + whole.bias.float().abs()
+    reorder = 2 * TP_D * 2.0 ** -24 * mags
+    d = (a - b).abs()
+    excess = (d - bf16_ulp(torch.maximum(a.abs(), b.abs())) - reorder).max().item()
+    ulps = (d / bf16_ulp(torch.maximum(a.abs(), b.abs()))).max().item()
+    moved = float((d > 0).float().mean())
+    check(excess <= 0, f"{what}: the split head's logits part from the whole head's by "
+          f"{excess:.3e} more than one bf16 ulp and the f32 reordering bound")
+    log(f"{what}: split head against whole on {tuple(xh.shape)} bf16: {moved:.2e} of logits "
+        f"apart, at most {ulps:.2f} bf16 ulps of their own value, none past one ulp plus "
+        f"the f32 reordering bound")
+    return dict(share_apart=moved, max_ulps=ulps)
+
+
+def tp_ar_prefix(model, sm, crops, logits, what):
+    """With the refine pass off on both sides, the sharded rows' AR ids
+    against the unsharded model's AR logits (``logits``, the same slices):
+    on every line the ids equal up to the first step whose top-2 gap is at
+    most two bf16 ulps of its top logit (one ulp each way closes it; from
+    there the steps may part) -> numbers."""
+    import numpy as np
+    import torch
+
+    model.refine_iters = 0
+    try:
+        ids, _ = sm.forward_tokens(crops)
+    finally:
+        model.refine_iters = 1
+    top2 = logits.topk(2, dim=-1).values
+    close = (top2[..., 0] - top2[..., 1]) <= 2 * bf16_ulp(top2[..., 0])
+    ref = logits.argmax(-1).numpy()
+    n_steps = ref.shape[1]
+    first = torch.where(close.any(-1), close.int().argmax(-1),
+                        torch.full((len(ref),), n_steps)).numpy()
+    bad = [i for i in range(len(ref)) if not np.array_equal(ids[i, :first[i]], ref[i, :first[i]])]
+    check(not bad, f"{what}: the AR ids part from the unsharded model's before a closable "
+          f"step on lines {bad[:8]}")
+    whole = int((ids == ref).all(-1).sum())
+    log(f"{what}: refine off, AR ids equal to the unsharded model's on every line up to its "
+        f"first step with a top-2 gap within two bf16 ulps (median step "
+        f"{int(np.median(first))} of {n_steps}); {whole} of {len(ref)} lines equal throughout")
+    return dict(lines_equal=whole, lines=len(ref), first_closable_median=int(np.median(first)))
+
+
+def _phase_tp(card, ctx):
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from yomitoku_tpu_torch import ops
+    from yomitoku_tpu_torch.data.dataset import ParseqDataset
+    from yomitoku_tpu_torch.models.parseq import PARSeq
+    from yomitoku_tpu_torch.parallel import make_mesh, parseq_param_shardings, shard_params
+    from yomitoku_tpu_torch.text_recognizer import TextRecognizer
+
+    t_phase = time.perf_counter()
+    numbers = {"card": card}
+    # 1. kernels 1-4 at parseq's width against their plain versions, timed
+    kernels = phase_kernels(D=TP_D, hidden=TP_HIDDEN, tag="_d512", layouts=LAYOUTS[:1],
+                            seed=13)
+
+    # 2. the unsharded recognizer on the synthetic page: parseq's first card run
+    if "page" not in ctx:
+        ctx["page"], ctx["quads"] = synthetic_lines_page()
+    page, quads = ctx["page"], ctx["quads"]
+    rec = TextRecognizer(model_name="parseq", device="cuda")
+    model = rec.model
+    check(model.head.out_features == TP_CLASSES and model.head.in_features == TP_D
+          and model.num_tokens == TP_TOKENS and not model.int8_kv,
+          f"tp: parseq is not D {TP_D}, {TP_CLASSES} classes with the full K/V cache")
+    lines, _ = rec(page, quads)
+    _finite_schema(lines, "tp: recognizer")
+    check(len(lines.contents) == len(quads),
+          f"tp: the recognizer returned {len(lines.contents)} of {len(quads)} lines")
+    log(f"tp: TextRecognizer(model_name='parseq', device='cuda'): PARSeq "
+        f"{model.param_count():,} params, {model.dtype}; {len(lines.contents)} lines of the "
+        f"synthetic page, first {lines.contents[0][:20]!r}")
+    crops = ParseqDataset(rec._cfg, page, quads[:128]).as_u8_array()
+    x = torch.from_numpy(crops)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec32 = TextRecognizer(model_name="parseq", device="cuda", dtype=torch.float32,
+                           from_pretrained=False)
+    cpu32 = TextRecognizer(model_name="parseq", device="cpu", from_pretrained=False)
+    got = rec32.model.forward_logits(x[:16]).cpu()
+    line = f32_card_vs_cpu_logits(got, cpu32.model.forward_logits(x[:16]), "tp: f32")
+    log(f"tp: f32 parseq card vs CPU on 16 lines: {line}")
+    del cpu32, got
+
+    # 3. the tp rows against the unsharded model on the same 128 lines, in
+    # the same slices (a row of a (2, 2) mesh decodes 64 of them, and the
+    # kernels' routes, and so their rounding, follow the batch size)
+    refs = {}
+
+    def reference(dp, refine_iters=1):
+        """The unsharded bf16 model on the lines in dp slices -> its (ids,
+        probs, near-ties: top-2 gap < 1e-4) and the f32 model's (ids,
+        probs); with ``refine_iters`` 0 the bf16 model's AR logits."""
+        key = (dp, refine_iters)
+        if key not in refs:
+            n = len(crops) // dp
+            cut = [slice(s, s + n) for s in range(0, len(crops), n)]
+            if refine_iters:
+                bf = []
+                with torch.no_grad():
+                    for c in cut:
+                        logits = model.forward_logits(x[c])
+                        top2 = logits.topk(2, dim=-1).values
+                        bf.append([t.cpu().numpy() for t in PARSeq._tokens_of(logits)]
+                                  + [((top2[..., 0] - top2[..., 1]) < 1e-4).cpu().numpy()])
+                f32 = [rec32.model.forward_tokens(crops[c]) for c in cut]
+                refs[key] = tuple(np.concatenate([o[i] for o in outs])
+                                  for outs, k in ((bf, 3), (f32, 2)) for i in range(k))
+            else:
+                model.refine_iters = 0
+                try:
+                    with torch.no_grad():
+                        refs[key] = torch.cat([model.forward_logits(x[c]).cpu() for c in cut])
+                finally:
+                    model.refine_iters = 1
+        return refs[key]
+
+    meshes = {lb: make_mesh(devices=devs, tp=tp) for lb, (devs, tp) in TP_MESHES.items()}
+    for m in meshes.values():
+        reference(m.shape["dp"])
+    sharded = {lb: shard_params(model, parseq_param_shardings(model, m))
+               for lb, m in meshes.items()}
+    for lb, sm in sharded.items():
+        numbers.setdefault("meshes", {})[lb] = dict(
+            shape=dict(sm.mesh.shape), shards=tp_rows_placed(sm, model, f"tp {lb}"))
+    made, restore = tp_captures()
+    try:
+        # the slice's main path, counted: each mesh's rows decode the 128
+        # lines (the first batch of a shape captures each row's AR graph)
+        ops.reset_launches()
+        outs = {lb: sm.forward_tokens(crops) for lb, sm in sharded.items()}
+        torch.cuda.synchronize()
+        launches = dict(ops.launches)
+        log(f"recognizer_tp: launches {launches}")
+        check(all(launches[k] > 0 for k in OCR_KERNELS),
+              f"recognizer_tp: a kernel of the path was never launched: {launches}")
+        check_attention_routes("recognizer_tp")
+        check_gemm_routes("recognizer_tp")
+        rows = [r for sm in sharded.values() for r in sm.rows]
+        check(sorted(map(id, made)) == sorted(map(id, rows)),
+              f"tp: {len(made)} AR graphs captured for {len(rows)} rows, one each expected")
+        for lb, sm in sharded.items():
+            for row in sm.rows:
+                loops = list(row._ar_loops.values())
+                check(len(loops) == 1 and loops[0].capturable and loops[0].graph is not None,
+                      f"tp {lb}: a row holds {len(loops)} AR loops, one with its graph expected")
+            ref_ids, ref_probs, tie = reference(sm.mesh.shape["dp"])[:3]
+            ids, probs = outs[lb]
+            check(ids.shape == ref_ids.shape and np.isfinite(probs).all(),
+                  f"tp {lb}: bf16 tokens of shape {ids.shape}, not finite or not the lines'")
+            same = int((ids == ref_ids).sum())
+            check(not ((ids != ref_ids) & ~tie).any(),
+                  f"tp {lb}: bf16 ids differ from the unsharded model's at "
+                  f"{int(((ids != ref_ids) & ~tie).sum())} positions with a top-2 gap >= 1e-4")
+            numbers["meshes"][lb].update(bf16_ids_equal=same, positions=ids.size,
+                                         near_ties=int(tie.sum()))
+            if TP_CLASSES % sm.mesh.shape["tp"]:
+                # the head whole, the embedding's lookups bit-equal: the
+                # same bits as the unsharded model
+                check(np.array_equal(ids, ref_ids) and np.array_equal(probs, ref_probs),
+                      f"tp {lb}: with the head whole the bf16 tokens are not bit-equal to the "
+                      "unsharded model's")
+            log(f"tp {lb} mesh {dict(sm.mesh.shape)}: shards {numbers['meshes'][lb]['shards']}; "
+                f"bf16 ids equal to the unsharded model's at {same}/{ids.size} positions "
+                f"({int(tie.sum())} near-tie positions, top-2 gap < 1e-4, exempt)"
+                + (" (bit-equal, probs too)" if TP_CLASSES % sm.mesh.shape["tp"] else "")
+                + "; one AR graph captured per row")
+        # a second batch replays each row's graph
+        again = {lb: sm.forward_tokens(crops) for lb, sm in sharded.items()}
+        check(all(np.array_equal(again[lb][0], outs[lb][0]) for lb in sharded),
+              "tp: a replayed decode differs from the capturing one")
+        made.clear()
+        # f32: ids equal, probs within 1e-5
+        for lb, m in meshes.items():
+            sm32 = shard_params(rec32.model, parseq_param_shardings(rec32.model, m))
+            ids, probs = sm32.forward_tokens(crops)
+            ref32 = reference(m.shape["dp"])[3:]
+            dp = float(np.abs(probs - ref32[1]).max())
+            check(np.array_equal(ids, ref32[0]) and dp <= 1e-5,
+                  f"tp {lb}: f32 ids differ at {int((ids != ref32[0]).sum())} positions or "
+                  f"probs by {dp:.3e} > 1e-5 from the unsharded model's")
+            numbers["meshes"][lb]["f32_max_d_prob"] = dp
+            log(f"tp {lb}: f32 ids equal to the unsharded model's on 128 lines, max|d prob| "
+                f"{dp:.3e} (limit 1e-5)")
+            del sm32
+    finally:
+        restore()
+    # bf16 with the head split: its GEMM on 3,655 columns rounds apart from
+    # the whole one's by at most one bf16 ulp; the AR decode then follows
+    # the unsharded one until a step whose top-2 gap that rounding can close
+    row = sharded["1x2"].rows[0]
+    numbers["head_rounding"] = tp_head_rounding(model.head, row.head, "tp 1x2")
+    for lb, sm in sharded.items():
+        if TP_CLASSES % sm.mesh.shape["tp"] == 0:
+            numbers["meshes"][lb]["ar_prefix"] = tp_ar_prefix(
+                model, sm, crops, reference(sm.mesh.shape["dp"], refine_iters=0), f"tp {lb}")
+    tp_sync_check(sharded["1x2"], x, "tp 1x2")
+    log("tp 1x2: the non-AR decode and refine, one AR step and one replay of its graph "
+        "enqueued with torch.cuda.set_sync_debug_mode('error'): no wait for the card "
+        "before the readback")
+
+    # the head's GEMM split in two (each shard padded to 3,656 columns)
+    # against whole (device time), at the AR step's 128 rows and the
+    # refine's 128 x 101; and one shard unpadded, whose 3,655-column output
+    # rows (7,310 bytes) are not 16-byte aligned
+    row = sharded["1x2"].rows[0]
+    head_ms = {}
+    for label, m_rows in (("step", 1), ("refine", STEPS)):
+        xh = torch.randn(128, m_rows, TP_D, device="cuda", dtype=model.dtype)
+        with torch.no_grad():
+            whole = loop_ms(lambda: model.head(xh))
+            split = loop_ms(lambda: row.head(xh))
+            padded = loop_ms(lambda: F.linear(xh, *row.head.gemms[0][:2]))
+            unpadded = loop_ms(lambda: F.linear(xh, row.head.weights[0], row.head.biases[0]))
+        head_ms[label] = dict(whole_ms=whole, split_ms=split, padded_shard_ms=padded,
+                              unpadded_shard_ms=unpadded)
+        log(f"tp: head GEMM at ({128 * m_rows}, {TP_D}) -> {TP_CLASSES} bf16 [{label}] (CUDA "
+            f"events over 50 calls, median of 5): whole {_ms(whole)}, split in two "
+            f"{_ms(split)}; one shard padded to "
+            f"{row.head.gemms[0][0].shape[0]} columns {_ms(padded)}, unpadded "
+            f"({TP_CLASSES // 2} columns, rows of {TP_CLASSES // 2 * 2} bytes) {_ms(unpadded)}; "
+            f"card {card}")
+    numbers["head_gemm"] = head_ms
+
+    # lines/s: the unsharded model beside (1, 2) and (2, 2), in turns
+    fns = {"unsharded": lambda: model.forward_tokens(crops),
+           **{lb: (lambda sm=sharded[lb]: sm.forward_tokens(crops)) for lb in TP_TIMED}}
+    times = interleaved(fns, runs=5)
+    numbers["lines_per_s"] = {k: 128 / v for k, v in times.items()}
+    numbers["ms_per_batch"] = {k: v * 1e3 for k, v in times.items()}
+    log("tp: bf16 batch of 128 lines end to end (median of 5, in turns): " + ", ".join(
+        f"{k} {128 / v:.1f} lines/s ({v * 1e3:.1f} ms)" for k, v in times.items())
+        + f"; card {card}")
+    took = numbers["phase_s"] = time.perf_counter() - t_phase
+    log(f"tp: phase 13 took {took:.1f} s")
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "tp.json").write_text(json.dumps(numbers, indent=1))
+    del rec, rec32, sharded, model
+    torch.cuda.empty_cache()
+    return {"recognizer_tp": launches}, numbers, kernels
+
+
+def tp_only(root):
+    """``--tp``: phase 13 (PARSeq with its vocabulary split over tp) alone,
+    on this checkout's package."""
+    from yomitoku_tpu_torch.ops import _build
+
+    if root != ROOT:
+        raise SmokeFailure("--tp runs on this checkout only")
+    card = card_line()
+    log(f"card: {card}")
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    paths, numbers, kernels = phase_tp(card, {})
+    log(card)
+    print(json.dumps({"launches_by_path": paths, "tp": numbers, "d512": kernels}), flush=True)
+    return 0
+
+
 def dp_only(root):
     """``--dp``: phase 12 (the page axis) alone, with phase 9's analyzer
     setup, on this checkout's package."""
@@ -5701,7 +6158,7 @@ def document_only(root):
 #: the modes that run one part on the package at ROOT
 MODES = {"--fused-kernels": fused_kernels_only, "--deform-kernels": deform_kernels_only,
          "--page": page_only, "--document": document_only, "--cli": cli_only,
-         "--semantic": semantic_only, "--dp": dp_only}
+         "--semantic": semantic_only, "--dp": dp_only, "--tp": tp_only}
 
 
 def main():
@@ -5728,7 +6185,7 @@ def main():
             return 1
     if args:
         log(f"FAIL: unknown arguments {args} (none, or --fused-kernels [ROOT], "
-            "--deform-kernels [ROOT], --page, --document, --cli, --semantic or --dp)")
+            "--deform-kernels [ROOT], --page, --document, --cli, --semantic, --dp or --tp)")
         return 1
     try:
         card = phase_card()
@@ -5752,6 +6209,8 @@ def main():
         paths.update(semantic_paths)
         dp_paths, dp_numbers = phase_dp(card, ctx)
         paths.update(dp_paths)
+        tp_paths, tp_numbers, tp_kernels = phase_tp(card, ctx)
+        paths.update(tp_paths)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1
@@ -5764,9 +6223,12 @@ def main():
     (OUT / "cli.json").write_text(json.dumps(cli_numbers, indent=1))
     (OUT / "semantic.json").write_text(json.dumps(semantic_numbers, indent=1))
     (OUT / "dp.json").write_text(json.dumps(dp_numbers, indent=1))
+    (OUT / "tp.json").write_text(json.dumps(tp_numbers, indent=1))
     log(card)  # as nvidia-smi prints it: name, power limit
     for name, at in layout_kernels.items():
         shaped.setdefault(name, {}).update(at)
+    for name, at in tp_kernels.items():  # kernels 1-4 at parseq's D 512 (phase 13)
+        shaped.setdefault(name, {})["d512"] = at
     for name, labels in GEMMS_OF.items():  # the GEMM kernel's shapes inside each row
         shaped.setdefault(name, {}).update({f"gemm_{lb}": gemm_shapes[lb] for lb in labels})
     for name, (labels, qlabels) in INT8_GEMMS_OF.items():  # and the int8 kernels'

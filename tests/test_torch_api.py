@@ -3,8 +3,8 @@ packages have, walked for its public functions and classes (and the
 public methods of its classes; a flax module's fields are its framework's,
 so only its name counts), finds nothing that JAX has and the port lacks
 but the listed JAX-only names, each with its reason (ROADMAP.md queue 2,
-"Not queued"), and the two tensor-parallel functions queued as the next
-slice.  The public callables both have take JAX's parameters in JAX's
+"Not queued"); ``NOT_YET``, the names queued for a later slice, is
+empty.  The public callables both have take JAX's parameters in JAX's
 order with JAX's defaults, up to what the frameworks make differ (the
 port's explicit ``device``, its ``dtype``, a kept ``executor``, an
 explicit device list), and the listed differences."""
@@ -63,8 +63,8 @@ JAX_ONLY = {
     "ops.separable_resize.mats_separable_mask": "the separable line program",
     "ops.separable_resize.sample_lines_separable": "the separable line program",
 }
-#: queued as the next bring-up slice (ROADMAP.md queue 2, item 1)
-NOT_YET = {"parallel.mesh.parseq_param_shardings", "parallel.mesh.shard_params"}
+#: queued for a later bring-up slice (ROADMAP.md queue 2): none left
+NOT_YET = set()
 
 #: parameters the port adds: its explicit devices, its compute dtype, its
 #: kept worker pools
@@ -85,6 +85,10 @@ SIGNATURE_DIFFS = {
     "parallel.runner.DataParallel.__init__": "as DataParallel",
     "parallel.runner.dp_pages": "forward names the model's method: JAX's raw jitted "
                                 "program is _fwd, the port's forward",
+    "parallel.mesh.parseq_param_shardings": "JAX takes the parameter pytree, the port "
+                                            "the model (its state_dict names the tensors)",
+    "parallel.mesh.shard_params": "JAX places a parameter pytree, the port the model "
+                                  "(one tensor-parallel row per dp row)",
 }
 
 

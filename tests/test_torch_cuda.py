@@ -1417,3 +1417,53 @@ def test_document_page_axis_on_one_card():
     finally:
         fused_page.FusedPageAnalysis.batch_call = real
         os.environ.pop("YOMITOKU_TPU_DP_CHUNK", None)
+
+
+@pytest.mark.cuda
+def test_tensor_parallel_rows_on_one_card(monkeypatch):
+    """PARSeq (``parseq``, D 512, 7,310 classes; a 2-block encoder, f32,
+    the full K/V cache) with its head and embedding split over tp = 2 on
+    the device list [cuda:0, cuda:0] (one card named twice): the greedy ids
+    equal the unsharded model's, bit for bit, and each row captures one AR
+    graph per shape and replays it; on [cuda:0] x 4 as a (2, 2) mesh the
+    two rows capture at once on their workers, which must take turns
+    (models/parseq.py _CAPTURE_LOCK) rather than abort."""
+    _require_cuda()
+    from yomitoku_tpu_torch.config import structured
+    from yomitoku_tpu_torch.configs import TextRecognizerPARSeqConfig
+    from yomitoku_tpu_torch.models import parseq
+    from yomitoku_tpu_torch.parallel import (DataParallel, make_mesh,
+                                             parseq_param_shardings, shard_params)
+
+    monkeypatch.setenv("YOMITOKU_TPU_INT8_KV", "0")
+    cfg = structured(TextRecognizerPARSeqConfig)
+    cfg.encoder.depth = 2
+    model = parseq.PARSeq(cfg, device="cuda", dtype=torch.float32)
+    captures = []
+    real = parseq._CachedARLoop._capture
+
+    def counted(loop):
+        captures.append(loop.model)
+        real(loop)
+
+    monkeypatch.setattr(parseq._CachedARLoop, "_capture", counted)
+    rng = np.random.default_rng(7)
+    h, w = model.img_size
+    crops = rng.integers(0, 255, (8, h, w, 3), np.uint8)
+    for devices in (["cuda:0"] * 2, ["cuda:0"] * 4):
+        mesh = make_mesh(devices=devices, tp=2)
+        sharded = shard_params(model, parseq_param_shardings(model, mesh))
+        dp = mesh.shape["dp"]
+        step = len(crops) // dp
+        want = [model.forward_tokens(crops[s:s + step]) for s in range(0, len(crops), step)]
+        captures.clear()
+        run = DataParallel(mesh, parseq.PARSeq._tokens, sharded)
+        for _ in range(2):  # capture, then replay
+            ids, probs = run(crops)
+            assert np.array_equal(ids, np.concatenate([i for i, _ in want]))
+            assert np.abs(probs - np.concatenate([p for _, p in want])).max() <= 1e-5
+        assert sorted(map(id, captures)) == sorted(map(id, sharded.rows))
+        for row in sharded.rows:
+            assert [tuple(s.shape) for s in row.head.weights] == [(3655, 512)] * 2
+            loops = list(row._ar_loops.values())
+            assert len(loops) == 1 and loops[0].capturable and loops[0].graph is not None

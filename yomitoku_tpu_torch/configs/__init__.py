@@ -18,6 +18,16 @@ from .text_recognizer import (
     TextRecognizerPARSeqV2Config,
 )
 
+#: the models of the default pipeline, whose checkpoints
+#: ``cli.download_model`` fetches into the weight store
+DEFAULT_CONFIGS = [
+    TextRecognizerPARSeqLargeV41Config,
+    TextDetectorDBNetV2_1Config,
+    LayoutParserRTDETRv2V2Config,
+    TableStructureRecognizerRTDETRv2Config,
+    TableCellParserRTDETRv2BetaConfig,
+]
+
 __all__ = [
     "TextDetectorDBNetConfig",
     "TextDetectorDBNetV2Config",
@@ -32,4 +42,5 @@ __all__ = [
     "LayoutParserRTDETRv2V2Config",
     "TableStructureRecognizerRTDETRv2Config",
     "TableCellParserRTDETRv2BetaConfig",
+    "DEFAULT_CONFIGS",
 ]

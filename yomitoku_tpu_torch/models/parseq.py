@@ -32,6 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.runner import one_card
 from ..utils.logger import set_logger
 from ..utils.stagetrace import segment
 from .base import TorchModel, trunc_normal_
@@ -80,10 +81,12 @@ class TokenEmbedding(nn.Module):
 
     def forward(self, tokens):
         # content embeddings are scaled by sqrt(D), the scale first rounded
-        # to the compute dtype as the JAX package rounds it
-        w = self.embedding.weight
-        scale = torch.tensor(self.scale, dtype=torch.float32).to(w.dtype).item()
-        return self.embedding(tokens) * scale
+        # to the compute dtype as the JAX package rounds it; once, after a
+        # lookup split over devices (parallel.tensor_parallel) has summed
+        # its shards
+        e = self.embedding(tokens)
+        scale = torch.tensor(self.scale, dtype=torch.float32).to(e.dtype).item()
+        return e * scale
 
 
 #: held while an AR loop's CUDA graph is captured, by one model at a time
@@ -147,6 +150,12 @@ class _CachedARLoop:
         self.step_i = torch.empty(1, dtype=torch.long, device=dev)
         self.done = torch.empty(1, dtype=torch.bool, device=dev)
         self.graph = None
+        #: whether the step is captured as a CUDA graph: only where it runs
+        #: on one card, with every parameter it reads (a tensor-parallel
+        #: row's shards of the head and the embedding too); a row over
+        #: several cards runs the step eagerly on them, since a capture
+        #: records only its own card's kernels
+        self.capturable = one_card([dev, *(p.device for p in model.parameters())])
 
     def _reset(self, memory):
         m = self.model
@@ -219,7 +228,7 @@ class _CachedARLoop:
         with self.model._ar_lock:
             self._reset(memory)
             first = 0
-            if self.tgt_in.is_cuda and self.graph is None:
+            if self.capturable and self.graph is None:
                 self._capture()  # ran step 0
                 first = 1
             run = self.step if self.graph is None else self.graph.replay
@@ -308,7 +317,9 @@ class PARSeq(TorchModel):
         key = (B, memory.shape[1])
         with self._ar_lock:
             loop = self._ar_loops.get(key)
-            if loop is None or loop.int8_kv != self.int8_kv:
+            # a loop keeps the per-step logits only where no refine follows
+            if (loop is None or loop.int8_kv != self.int8_kv
+                    or (loop.logits is None) != bool(self.refine_iters)):
                 loop = self._ar_loops[key] = _CachedARLoop(self, B, L, causal,
                                                            self.int8_kv)
         return loop(memory)
@@ -403,7 +414,12 @@ class PARSeq(TorchModel):
 
     @staticmethod
     def _tokens(model, images):
-        logits = model.forward_logits(images)
+        return PARSeq._tokens_of(model.forward_logits(images))
+
+    @staticmethod
+    def _tokens_of(logits):
+        """The greedy reduction of final logits -> ids (int32) and their
+        probabilities, via logsumexp."""
         ids = logits.argmax(-1)
         lse = torch.logsumexp(logits, dim=-1)
         top = logits.gather(-1, ids[..., None])[..., 0]

@@ -7,16 +7,19 @@ devices are explicit, a ``Mesh`` is a (dp, tp) grid of ``torch.device``s,
 and data parallelism is one replica of a model per dp device
 (``runner.Replicas``), each fed its slice of the batch.  ``replicated`` and
 ``batch_sharding`` name the two placements the pipeline uses, and place a
-tensor that way.  The tensor-parallel half of the JAX module (the
-vocab-sharded PARSeq head, ``parseq_param_shardings`` / ``shard_params``)
-is not ported yet: a mesh with tp > 1 can be built, but nothing runs one.
+tensor that way.  Tensor parallelism is the JAX module's other half:
+``parseq_param_shardings`` is its rule for PARSeq (the vocabulary-sized
+head and token embedding split over tp, everything else replicated), and
+``shard_params`` places a model by such a rule, one tensor-parallel row
+per dp row of the mesh (``tensor_parallel.ShardedModel``).
 """
 
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "batch_sharding", "dp_mesh", "local_devices", "make_mesh",
-           "replicated", "shard_batch", "to_device"]
+__all__ = ["Mesh", "Placement", "batch_sharding", "dp_mesh", "local_devices", "make_mesh",
+           "parseq_param_shardings", "replicated", "shard_batch", "shard_params",
+           "to_device"]
 
 
 def to_device(x, device):
@@ -114,6 +117,24 @@ class Placement:
             raise ValueError(f"batch {x.shape[0]} does not split over dp={len(devs)}")
         return [to_device(c, d) for c, d in zip(x.chunk(len(devs)), devs)]
 
+    def place_row(self, x, row):
+        """``x`` (a tensor) -> its copies on one dp row of the mesh (``row``:
+        the row's tp devices): one slice per device of the row, split
+        evenly along the axis the spec names "tp"; without "tp" in the
+        spec, the whole of it once, on the row's lead device.  Each is a
+        copy with storage of its own, as ``jax.device_put`` makes."""
+        row = [torch.device(d) for d in row]
+        if "tp" not in self.spec:
+            parts, row = [x], row[:1]
+        else:
+            axis = self.spec.index("tp")
+            if x.shape[axis] % len(row):
+                raise ValueError(f"axis {axis} of {tuple(x.shape)} does not split over "
+                                 f"tp={len(row)}")
+            parts = x.chunk(len(row), dim=axis)
+        return [p.to(d, non_blocking=d.type == "cuda", copy=True).contiguous()
+                for p, d in zip(parts, row)]
+
 
 def replicated(mesh: Mesh) -> Placement:
     return Placement(mesh, ())
@@ -135,3 +156,41 @@ def shard_batch(mesh: Mesh, batch):
     if rem:
         batch = torch.cat([batch, batch.new_zeros((rem,) + tuple(batch.shape[1:]))])
     return batch_sharding(mesh, batch.ndim).place(batch), n
+
+
+#: PARSeq's vocabulary-sized matrices by state_dict name, each split over
+#: tp along its first axis: the head's (V, D) weight, the transpose of
+#: JAX's (D, V) ``head/kernel``, and the token embedding (num_tokens, D)
+VOCAB_MATRICES = ("head.weight", "text_embed.embedding.weight")
+
+
+def parseq_param_shardings(model, mesh: Mesh):
+    """{state_dict name: Placement} for PARSeq, tensor parallel over the
+    vocabulary, by the JAX package's rule:
+
+    - the recognition head's weight (V, D): split V over tp (the largest
+      matmul, 7k+ classes);
+    - the token embedding (num_tokens, D): split its rows over tp;
+    - everything else replicated, the head's bias too (JAX's rule
+      replicates every 1-D array).
+
+    A dimension that tp does not divide falls back to replication."""
+    tp = mesh.shape["tp"]
+
+    def spec(name, x):
+        if x.ndim == 2 and name in VOCAB_MATRICES and x.shape[0] % tp == 0:
+            return ("tp", None)
+        return ()
+
+    return {name: Placement(mesh, spec(name, x)) for name, x in model.state_dict().items()}
+
+
+def shard_params(model, shardings):
+    """Place ``model`` on the mesh of ``shardings`` -> a
+    ``tensor_parallel.ShardedModel``: one row per dp row, each a copy of
+    the model on the row's lead device with the split matrices' shards on
+    the row's tp devices.  The copies do not follow a later weight load on
+    the model, as ``jax.device_put``'s do not."""
+    from .tensor_parallel import ShardedModel
+
+    return ShardedModel(model, shardings)

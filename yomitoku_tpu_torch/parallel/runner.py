@@ -19,7 +19,7 @@ import torch
 
 from .mesh import local_devices, make_mesh, shard_batch, to_device
 
-__all__ = ["DataParallel", "KeptPools", "Replicas", "dp_pages", "in_replica_worker"]
+__all__ = ["DataParallel", "KeptPools", "Replicas", "dp_pages", "in_replica_worker", "one_card"]
 
 _worker = threading.local()
 
@@ -47,6 +47,14 @@ def same_device(a, b) -> bool:
         return True
     cur = torch.cuda.current_device() if torch.cuda.is_available() else 0
     return (a.index if a.index is not None else cur) == (b.index if b.index is not None else cur)
+
+
+def one_card(devices) -> bool:
+    """Whether ``devices`` are all one card: the one case where a CUDA
+    graph captured there holds the work done on all of them (a capture
+    records only the kernels launched on its own card's stream)."""
+    devices = [torch.device(d) for d in devices]
+    return all(d.type == "cuda" and same_device(d, devices[0]) for d in devices)
 
 
 def replicate(model, device):
@@ -79,11 +87,12 @@ class Replicas:
     kept worker thread.  The model itself serves the device it lies on
     where that device comes first; every other entry is a copy, even on the
     same device (a device list that names one card twice holds two copies
-    there)."""
+    there).  ``models``, where given, are served instead, one per device
+    (the tensor-parallel rows of ``mesh.shard_params``)."""
 
-    def __init__(self, model, devices):
+    def __init__(self, model, devices, models=None):
         self.devices = [torch.device(d) for d in devices]
-        self.models = [
+        self.models = list(models) if models is not None else [
             model if i == 0 and same_device(d, model.device) else replicate(model, d)
             for i, d in enumerate(self.devices)]
         self.workers = [
@@ -147,11 +156,13 @@ class DataParallel:
 
     The replicas are the model's own (``TorchModel.replicas`` on the
     mesh's dp devices): made at the first call and kept while the weights
-    stand, as the JAX runner places the parameters once.  Each call pads
-    the batch with zeros to a multiple of dp, runs ``fn(replica, slice,
-    *static)`` on every replica, reads each device's output back once and
-    concatenates them on the host along ``batch_axis`` (the axis of the
-    OUTPUT that carries the batch), cut to the true size."""
+    stand, as the JAX runner places the parameters once; ``model`` may be
+    a ``tensor_parallel.ShardedModel`` on the same mesh, whose rows are the
+    replicas.  Each call pads the batch with zeros to a multiple of dp,
+    runs ``fn(replica, slice, *static)`` on every replica, reads each
+    device's output back once and concatenates them on the host along
+    ``batch_axis`` (the axis of the OUTPUT that carries the batch), cut to
+    the true size."""
 
     def __init__(self, mesh, fn, model, batch_axis: int = 0):
         self.mesh = mesh
