@@ -4,23 +4,29 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --fused-kernels [ROOT]
     python3 chip_smoke.py --deform-kernels [ROOT]
+    python3 chip_smoke.py --attention-kernels [ROOT]
     python3 chip_smoke.py --page
     python3 chip_smoke.py --document
     python3 chip_smoke.py --cli
     python3 chip_smoke.py --semantic
     python3 chip_smoke.py --dp
     python3 chip_smoke.py --tp
+    python3 chip_smoke.py --lite
 
 With no arguments it runs the phases below, each printed as it runs; any
 failure exits non-zero.  ``--page`` runs phase 8 alone, ``--document``
 phase 9, ``--cli`` phase 9's analyzer setup and then phase 10,
 ``--semantic`` phase 9's analyzer setup and then phase 11, ``--dp``
-phase 9's analyzer setup and then phase 12, ``--tp`` phase 13.  ``--fused-kernels [ROOT]`` runs only phase 7's
+phase 9's analyzer setup and then phase 12, ``--tp`` phase 13, ``--lite``
+phase 14 (with phase 9's analyzer setup).  ``--fused-kernels [ROOT]`` runs only phase 7's
 bottleneck kernels at their eleven shapes and the fused DBNet forward's
-device busy, and ``--deform-kernels [ROOT]`` only phase 2's
-ms_deformable_attention lines at its four shapes, on the package of this checkout or of another
-commit unpacked at ROOT (git archive), to compare two trees on one card;
-each ends with a JSON line of its times.
+device busy, ``--deform-kernels [ROOT]`` only phase 2's
+ms_deformable_attention lines at its four shapes, and ``--attention-kernels
+[ROOT]`` only the attention kernel's main-path rows (kernels 1 and 3 at the
+recognizer's shapes, 3 at RT-DETR's, 6 and 7 as phase 7 runs them), on the
+package of this checkout or of another commit unpacked at ROOT (git
+archive), to compare two trees on one card; each ends with a JSON line of
+its times.
 
 
 1. Card: name and power limit (nvidia-smi), and the kernel build time
@@ -337,6 +343,31 @@ each ends with a JSON line of its times.
    head's GEMM whole against split in two (CUDA events); lines/s of the
    unsharded model beside (1, 2) and (2, 2), in turns; numbers in
    build/chip_smoke/tp.json.
+14. ``yomitoku_torch --lite`` (parseq-tiny: D 368, 8 heads of 46, patch
+   (8, 16) on 32x400, 100 tokens, 51 positions; dbnetv2_1-lite at 640 /
+   960) and parseq-small (D 384, 8 heads of 48, 100 tokens, 101
+   positions), seed-0 weights, the full memory-K/V cache: kernels 1-4 at
+   tiny's shapes (x (128, 100, 368), hidden 1472; q (128, 51, 368) against
+   k/v (128, 100, 368); x (6,528, 368)) and 1 and 3 at small's, against
+   their plain versions and timed as in phase 2 (in the kernels line under
+   rows 1-4 as ``at.tiny`` / ``at.small``), with the attention core of 1
+   and 3 on its route and on "fma" (``launch_attention``, uncounted) and
+   one SDPA call; the attention output written into the first D columns
+   of wider rows holding a sentinel; kernels 6 and 7 at a head dim of 46
+   by phase 7's harness (with the SDPA chain and one
+   F.multi_head_attention_forward call), 8 by phase 5's (``at.dh46``); then ``TextRecognizer(model_name=...)`` for both on
+   phase 3's synthetic page (paths ``recognizer_tiny``,
+   ``recognizer_small``: kernels 1-4 each launched, no attention launch
+   on "fma"), lines/s and decode, f32 card against CPU on 16 lines (phase
+   3's gate) and bf16 against f32 on the card (logits within 2e-2 of the
+   largest f32 logit); then ``yomitoku_torch demo/sample.pdf --lite -f
+   json`` in this process (path ``cli_lite``: kernels 1-5; the analyzer
+   the CLI builds given phase 9's detector, layout and table weights, its
+   detector painted), each page's JSON equal to ``convert_json`` of that
+   analyzer's ``__call__``, pages/s with and without construction and per
+   stage, and the f32 lite analyzer on the card against the CPU on the top
+   400 rows of sample_table.png (phase 9's gate); numbers in
+   build/chip_smoke/lite.json.
 
 Phase 3 pins YOMITOKU_TPU_INT8_KV=0 (the full cache, which its f32
 card-vs-CPU check compares with the CPU's), phase 6 leaves it at its
@@ -626,13 +657,16 @@ def stock_attn_heads(q, k, v, h):
     return o.transpose(1, 2).reshape(b, lq, d)
 
 
-def _kernel_cases(rng, L=L, D=D, hidden=HIDDEN):
+def _kernel_cases(rng, L=L, D=D, hidden=HIDDEN, steps=STEPS):
     """name -> (plain version, stock bf16 torch ops, inputs): numpy args in
     the (in, out) layout, the indices of the weights among them, and the
     trailing non-tensor args.  ``L``: the ViT's tokens per line (400 on the
-    full canvas, 200 in the 400-wide width bucket), the refine's keys;
-    ``D`` and ``hidden``: the model's width and MLP hidden size (768 and 3072
-    for parseq-large-v4_1, 512 and 2048 for parseq)."""
+    full canvas, 200 in the 400-wide width bucket, 100 for parseq-tiny and
+    -small), the refine's keys; ``D`` and ``hidden``: the model's width and
+    MLP hidden size (768 and 3072 for parseq-large-v4_1, 512 and 2048 for
+    parseq, 368 and 1472 for parseq-tiny, 384 and 1536 for parseq-small);
+    ``steps``: the refine's queries (the labels' length + 1: 101, 51 for
+    parseq-tiny)."""
     import torch.nn.functional as F
 
     from yomitoku_tpu_torch import ops
@@ -657,11 +691,11 @@ def _kernel_cases(rng, L=L, D=D, hidden=HIDDEN):
         weights={3, 5}, tail=(),
     )
     heads = dict(
-        args=[nrm((B, STEPS, D)), nrm((B, L, D)), nrm((B, L, D))],
+        args=[nrm((B, steps, D)), nrm((B, L, D)), nrm((B, L, D))],
         weights=set(), tail=(HEADS,),
     )
     mlp = dict(
-        args=[nrm((B * STEPS, D)), nrm((D, hidden), ws), vec(hidden),
+        args=[nrm((B * steps, D)), nrm((D, hidden), ws), vec(hidden),
               nrm((hidden, D), hidden ** -0.5), vec(D)],
         weights={1, 3}, tail=(),
     )
@@ -941,11 +975,64 @@ def consumer_warpgroups(name, label, q, k, v, heads):
     return res
 
 
-def phase_kernels(D=D, hidden=HIDDEN, tag="", layouts=LAYOUTS, seed=0):
-    """Kernels 1-4 at the recognizer's shapes of width ``D`` (MLP hidden
-    ``hidden``) against their plain versions in ``layouts``, then timed in
-    the models' layout -> {kernel: numbers}.  ``tag`` marks the lines of a
-    second width (phase 13: "_d512")."""
+def attention_core_routes(name, tag, bf, tail):
+    """The attention kernel's core of kernel ``name`` at its bf16 inputs
+    ``bf`` (kernel 3: its q, k, v; kernel 1: q, k and v as column slices of
+    one (B, L, 3D) buffer, as the sublayer hands them over) on the route
+    ``attention_route`` picks and on "fma" (launch_attention, uncounted):
+    each held to the plain version (2e-2 of the largest value), its device
+    time (profiler), and one SDPA call's -> numbers."""
+    import torch
+
+    from yomitoku_tpu_torch import ops
+    from yomitoku_tpu_torch.ops._common import attention_route, launch_attention, _sm_count
+
+    (heads,) = tail
+    if name == "fused_attention_heads":
+        q, k, v = bf[:3]
+    else:
+        x = bf[0]
+        Bx, Lx, Dx = x.shape
+        gen = torch.Generator(device=x.device).manual_seed(0)
+        qkv = torch.randn(Bx, Lx, 3 * Dx, device=x.device, generator=gen).to(x.dtype)
+        q, k, v = qkv[..., :Dx], qkv[..., Dx:2 * Dx], qkv[..., 2 * Dx:]
+    Dx = q.shape[-1]
+    dh = Dx // heads
+    scale = dh ** -0.5
+    route, splits = attention_route(q.dtype, q.dtype, q.shape[0], heads, q.shape[1], dh, True,
+                                    _sm_count(q.device.index))
+    want = ops.fused_attention_heads_reference(q.float(), k.float(), v.float(), heads)
+    res = dict(route=route, splits=splits)
+    for r, n in ((route, splits), ("fma", 1)):
+        out = torch.empty_like(q)
+        fn = lambda: launch_attention(r, n, q, k, v, out, heads, scale)  # noqa: E731
+        fn()
+        torch.cuda.synchronize()
+        err = (out.float() - want).abs().max().item()
+        check(err <= 2e-2 * want.abs().max().item(),
+              f"{name}{tag} attention core on {r}: max|d| {err:.3e} against the plain version")
+        res[f"{'fma' if r == 'fma' else 'route'}_device_ms"] = device_ms(fn, "attention")
+        res[f"{'fma' if r == 'fma' else 'route'}_max_abs_err"] = err
+    res["library_device_ms"] = device_ms(sdpa_call(q, k, v, heads))
+    res["bound_ms"], res["bound_by"] = bound(
+        [q, k, v], [q], {"bf16": 4 * q.shape[0] * q.shape[1] * k.shape[1] * Dx})
+    log(f"attention core {name}{tag} q {tuple(q.shape)} k/v {tuple(k.shape)}, {heads} x {dh}: "
+        f"route {route} ({splits} splits) device {_ms(res['route_device_ms'])}, \"fma\" "
+        f"{_ms(res['fma_device_ms'])}, one SDPA call {_ms(res['library_device_ms'])}; bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']}); max|d| {res['route_max_abs_err']:.3e} / "
+        f"{res['fma_max_abs_err']:.3e}")
+    return res
+
+
+def phase_kernels(D=D, hidden=HIDDEN, tag="", layouts=LAYOUTS, seed=0, L=L, steps=STEPS,
+                  names=OCR_KERNELS, fma=False):
+    """Kernels ``names`` (1-4) at the recognizer's shapes of width ``D`` (MLP
+    hidden ``hidden``, ``L`` tokens, ``steps`` refine queries) against
+    their plain versions in ``layouts``, then timed in the models' layout
+    -> {kernel: numbers}.  ``tag`` marks the lines of another width (phase
+    13: "_d512"; phase 14: "_tiny", "_small").  With ``fma`` the attention
+    kernel's core of kernels 1 and 3 is also timed on its "fma" route at
+    the same shape (attention_core_routes)."""
     import numpy as np
     import torch
 
@@ -953,10 +1040,12 @@ def phase_kernels(D=D, hidden=HIDDEN, tag="", layouts=LAYOUTS, seed=0):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cases = _kernel_cases(np.random.default_rng(seed), D=D, hidden=hidden)
+    cases = _kernel_cases(np.random.default_rng(seed), D=D, hidden=hidden, L=L, steps=steps)
     results = {}
     all_layouts = layouts
     for name, (ref, stock, case) in cases.items():
+        if name not in names:
+            continue
         tail = case["tail"]
         res = {}
         layouts = all_layouts if case["weights"] else all_layouts[:1]
@@ -1004,6 +1093,8 @@ def phase_kernels(D=D, hidden=HIDDEN, tag="", layouts=LAYOUTS, seed=0):
                         res.update(consumer_warpgroups(name, "refine" + tag, *args16[:3],
                                                        *tail))
                     log_attention(name, "refine" + tag, res)
+                if fma and name in ("fused_attention_heads", "fused_attention_block_ln"):
+                    res["core"] = attention_core_routes(name, tag, bf, tail)
                 log(f"kernel {name}{tag}: bf16 {res['ms']:.3f} ms per call (device "
                     f"{_ms(res['device_ms'])}), plain {res['plain_ms']:.3f} ms, stock "
                     f"bf16 torch {res['stock_ms']:.3f} ms (device "
@@ -1872,10 +1963,10 @@ def _phase_layout(card):
 # ------------------------------------------------------------------ phase 5
 
 
-def _int8_cases(rng, L=L):
+def _int8_cases(rng, L=L, D=D):
     """name -> (numpy args as (value, kind), trailing args): kind "x" is the
     activation (the dtype under test), "w" a float weight to quantize, "v"
-    a float32 vector; ``L`` tokens per line."""
+    a float32 vector; ``L`` tokens per line of width ``D``."""
     ws = D ** -0.5
     nrm = lambda shape, std=1.0: (rng.standard_normal(shape) * std).astype("float32")  # noqa: E731
     vec = lambda n, c=0.0, std=0.02: (c + rng.standard_normal(n) * std).astype("float32")  # noqa: E731
@@ -2002,20 +2093,29 @@ def _ms(v):
     return "not measured" if v is None else f"{v:.4f} ms"
 
 
-def phase_int8_kernels():
-    """The int8 kernels at the recognizer's shapes -> {kernel: numbers}."""
+def phase_int8_kernels(seed=2, L=L, D=D, names=None, codes_rule=False):
+    """The int8 kernels (those in ``names``, all where None) at the
+    recognizer's shapes, or at ``L`` tokens of width ``D`` -> {kernel:
+    numbers}.  ``codes_rule``: the attention block's f32 held by
+    ``_held_int8_block`` (LayerNorm code ties moving whole lines), as phase
+    8 holds it."""
     import numpy as np
     import torch
 
     from yomitoku_tpu_torch import ops
 
     results = {}
-    for name, (case, tail) in _int8_cases(np.random.default_rng(2)).items():
+    for name, (case, tail) in _int8_cases(np.random.default_rng(seed), L, D).items():
+        if names is not None and name not in names:
+            continue
         kern = getattr(ops, name)
         ref = getattr(ops, name + "_reference")
         with torch.no_grad():
             f32 = _int8_args(case, torch.float32)
-            err32, share32, ok32, text32 = _held_int8(kern(*f32, *tail), ref(*f32, *tail))
+            if codes_rule and name == "fused_attention_block_ln_int8":
+                err32, share32, ok32, text32 = _held_int8_block(f32, tail, kern(*f32, *tail))
+            else:
+                err32, share32, ok32, text32 = _held_int8(kern(*f32, *tail), ref(*f32, *tail))
             del f32
             bf = _int8_args(case, torch.bfloat16)
             out16 = kern(*bf, *tail)
@@ -2023,18 +2123,21 @@ def phase_int8_kernels():
             err16, ok16, text16 = _held(out16, want, None, 2e-2, 0.0, 0.0)
             stock_err = (_stock_int8(name, bf, tail).float() - want).abs().max().item()
             del want
+            route = route_taken(lambda: kern(*bf, *tail))
         torch.cuda.synchronize()
-        log(f"kernel {name}: f32 {text32} {'ok' if ok32 else 'FAIL'}; bf16 "
-            f"{text16} {'ok' if ok16 else 'FAIL'}; stock composition vs plain "
-            f"(bf16) max|d| {stock_err:.3e}")
-        check(ok32 and ok16, f"{name} disagrees with its plain version")
+        log(f"kernel {name} {tuple(bf[0].shape)}: f32 {text32} {'ok' if ok32 else 'FAIL'}; "
+            f"bf16 {text16} {'ok' if ok16 else 'FAIL'}; stock composition vs plain "
+            f"(bf16) max|d| {stock_err:.3e}; attention route {route}")
+        check(ok32 and ok16, f"{name} at {tuple(bf[0].shape)} disagrees with its plain version")
+        check(route in (None, "wgmma", "wgmma_small"),
+              f"{name} at {tuple(bf[0].shape)} in bf16 took the attention route {route}")
         bound_ms, bound_by = bound(bf, [out16], kernel_ops(name, bf, tail))
         del out16
         with torch.no_grad():
             res = dict(
                 max_abs_err=err16, max_abs_err_f32=err32,
                 f32_rows_past_1e4=share32, stock_max_abs_err=stock_err,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                attention_route=route, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 ms=median_ms(lambda: kern(*bf, *tail)),
                 plain_ms=median_ms(lambda: ref(*bf, *tail), runs=3),
                 stock_ms=median_ms(lambda: _stock_int8(name, bf, tail)),
@@ -2610,9 +2713,12 @@ def bottleneck_share(device):
     return sum(v for k, v in device.items() if re.search(BOTTLENECK_DEVICE_NAMES, k))
 
 
-def _attention_kernels(rng):
-    """``fused_attention`` at the ViT's shape and ``fused_attention_block``
-    at the AIFI's -> {kernel: {label: numbers}}."""
+def _attention_kernels(rng, shape=ATTENTION_SHAPE, block_shape=ATTENTION_BLOCK_SHAPE,
+                       labels=("vit", "aifi")):
+    """``fused_attention`` at ``shape`` (B, H, L, Dh), the ViT's, and
+    ``fused_attention_block`` at ``block_shape`` (B, L, D), 8 heads, the
+    AIFI's; under ``labels`` -> {kernel: {label: numbers}}.  In bf16 each
+    must take a wgmma route."""
     import torch
     import torch.nn.functional as F
 
@@ -2621,7 +2727,7 @@ def _attention_kernels(rng):
     def dev(shape, std=1.0):
         return torch.from_numpy((rng.standard_normal(shape) * std).astype("float32")).cuda()
 
-    B, L, D = ATTENTION_BLOCK_SHAPE
+    B, L, D = block_shape
     block = [dev((B, L, D))]
     for _ in range(4):
         block += [dev((D, D), D ** -0.5), dev((D,), 0.05)]
@@ -2643,10 +2749,10 @@ def _attention_kernels(rng):
             training=False, need_weights=False)
 
     cases = {
-        ("fused_attention", "vit"): (
+        ("fused_attention", labels[0]): (
             ops.fused_attention_reference, F.scaled_dot_product_attention,
-            [dev(ATTENTION_SHAPE) for _ in range(3)], ()),
-        ("fused_attention_block", "aifi"): (
+            [dev(shape) for _ in range(3)], ()),
+        ("fused_attention_block", labels[1]): (
             ops.fused_attention_block_reference, stock_block, block, (HEADS,)),
     }
     results = {}
@@ -2659,25 +2765,29 @@ def _attention_kernels(rng):
             out16 = kern(*bf, *tail)
             err16, ok16, text16 = _held(out16, ref(*[a.float() for a in bf], *tail),
                                         None, 2e-2, 0.0, 0.0)
+            route = route_taken(lambda: kern(*bf, *tail))
         torch.cuda.synchronize()
-        log(f"kernel {name} [{label}]: f32 {text32} {'ok' if ok32 else 'FAIL'}; "
-            f"bf16 {text16} {'ok' if ok16 else 'FAIL'}")
+        log(f"kernel {name} [{label}] {tuple(bf[0].shape)}: f32 {text32} "
+            f"{'ok' if ok32 else 'FAIL'}; bf16 {text16} {'ok' if ok16 else 'FAIL'}; "
+            f"attention route {route}")
         check(ok32 and ok16, f"{name} [{label}] disagrees with its plain version")
+        check(route in ("wgmma", "wgmma_small"),
+              f"{name} [{label}] in bf16 took the attention route {route}")
         library = ((lambda: F.scaled_dot_product_attention(*bf))
                    if name == "fused_attention" else library_block(bf))
         with torch.no_grad():
             res = _timings(lambda: kern(*bf, *tail), lambda: ref(*bf, *tail),
                            lambda: stock(*bf), library)
-        res.update(max_abs_err=err16, max_abs_err_f32=err32)
+        res.update(max_abs_err=err16, max_abs_err_f32=err32, attention_route=route)
         res["bound_ms"], res["bound_by"] = bound(bf, [out16], kernel_ops(name, bf, tail))
         _log_timings(name, label, res)
         if name == "fused_attention":
             with torch.no_grad():
                 res.update(attention_numbers(lambda: kern(*bf), library,
                                              kernel_ops(name, bf, ())["bf16"]))
-                # fused_attention's (B*H, L, Dh) views, one head each
-                res.update(consumer_warpgroups(name, label, *(
-                    a.reshape(-1, *a.shape[2:]) for a in bf), 1))
+                if shape[-1] % 8 == 0:  # the (B*H, L, Dh) views, one head each
+                    res.update(consumer_warpgroups(name, label, *(
+                        a.reshape(-1, *a.shape[2:]) for a in bf), 1))
             log_attention(name, label, res)
         results[name] = {label: res}
         del f32, bf, out16
@@ -3564,10 +3674,12 @@ def _models(da):
             da.layout.layout_parser.model, da.layout.table_structure_recognizer.model)
 
 
-def same_weights(dst, src):
-    """Load ``src``'s four models' weights into ``dst``'s, in place."""
-    for d, s in zip(_models(dst), _models(src)):
-        d.load_state_dict(s.state_dict())
+def same_weights(dst, src, recognizer=True):
+    """Load ``src``'s four models' weights into ``dst``'s, in place (but
+    the recognizer's where ``recognizer`` is false: another model)."""
+    for i, (d, s) in enumerate(zip(_models(dst), _models(src))):
+        if recognizer or i != 1:
+            d.load_state_dict(s.state_dict())
 
 
 def _document_in_page(doc, w, h, what):
@@ -3806,13 +3918,14 @@ def check_four_tables(da, table, what):
         f"({len(fused.tables)} tables)")
 
 
-def f32_card_vs_cpu(da, img):
+def f32_card_vs_cpu(da, img, model_names=None, what="document"):
     """The analyzer in f32 on the card against the CPU, the same weights,
     the page route and the fused page program on both
     (YOMITOKU_TPU_DEVICE_CROPS=1 on the CPU), the
     full memory-K/V cache: equal counts, boxes within 1 px, strings equal
     where the CPU's greedy decode has every top-2 gap at least 1e-4 ->
-    numbers."""
+    numbers.  ``model_names``: the OCR modules' models where not the
+    defaults ({"text_detector": .., "text_recognizer": ..}, as ``da``'s)."""
     import numpy as np
     import torch
 
@@ -3821,12 +3934,14 @@ def f32_card_vs_cpu(da, img):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     f32 = {"dtype": torch.float32}
-    configs = {"ocr": {"text_detector": f32, "text_recognizer": f32},
+    names = {k: {"model_name": v} for k, v in (model_names or {}).items()}
+    configs = {"ocr": {k: {**f32, **names.get(k, {})} for k in ("text_detector",
+                                                              "text_recognizer")},
                "layout_analyzer": {"layout_parser": f32,
                                    "table_structure_recognizer": f32}}
     with _env(YOMITOKU_TPU_INT8_KV="0"):
         card = DocumentAnalyzer(configs=configs, device="cuda")
-        cpu = DocumentAnalyzer(device="cpu")
+        cpu = DocumentAnalyzer(configs={"ocr": names} if names else None, device="cpu")
     same_weights(card, da)  # bf16 values, in f32
     same_weights(cpu, card)
     paint_detector(card.text_detector)
@@ -3841,7 +3956,7 @@ def f32_card_vs_cpu(da, img):
           "f32 analyzer: the card or the CPU did not take the fused route")
     counts = lambda d: (len(d.words), len(d.paragraphs), len(d.figures),  # noqa: E731
                         [len(t.cells) for t in d.tables])
-    log(f"document: f32 analyzer on a {img.shape[1]}x{img.shape[0]} page: the CPU took "
+    log(f"{what}: f32 analyzer on a {img.shape[1]}x{img.shape[0]} page: the CPU took "
         f"{cpu_s:.1f} s; words, paragraphs, figures, cells per table: card "
         f"{counts(got)}, CPU {counts(want)}")
     check(counts(got) == counts(want), "f32 analyzer: card and CPU counts differ")
@@ -3859,7 +3974,7 @@ def f32_card_vs_cpu(da, img):
     if not differ:
         check(_structure(got) == _structure(want),
               "f32 analyzer: paragraphs, cells or figures differ in contents or order")
-    log(f"document: f32 card vs CPU: quads within {d_quad} px, boxes within {d_box} px "
+    log(f"{what}: f32 card vs CPU: quads within {d_quad} px, boxes within {d_box} px "
         f"(limit 1); strings equal on {len(got.words) - len(differ)} of "
         f"{len(got.words)} words, {len(differ)} exempt at a near-tie (top-2 gap < 1e-4)"
         + ("; paragraphs, tables, cells' contents, figures and order equal"
@@ -5743,6 +5858,20 @@ def tp_head_rounding(whole, split, what):
     return dict(share_apart=moved, max_ulps=ulps)
 
 
+def parted_before_close(ids, ref, close):
+    """Greedy decodes ``ids`` against ``ref`` (lines x steps) and the steps
+    whose reference decision is ``close`` (one the rounding may flip) ->
+    (the lines whose ids part from ``ref`` before their first close step,
+    each line's first close step, or the step count where none is)."""
+    import numpy as np
+    import torch
+
+    first = torch.where(close.any(-1), close.int().argmax(-1),
+                        torch.full((len(ref),), ref.shape[1])).numpy()
+    bad = [i for i in range(len(ref)) if not np.array_equal(ids[i, :first[i]], ref[i, :first[i]])]
+    return bad, first
+
+
 def tp_ar_prefix(model, sm, crops, logits, what):
     """With the refine pass off on both sides, the sharded rows' AR ids
     against the unsharded model's AR logits (``logits``, the same slices):
@@ -5750,7 +5879,6 @@ def tp_ar_prefix(model, sm, crops, logits, what):
     most two bf16 ulps of its top logit (one ulp each way closes it; from
     there the steps may part) -> numbers."""
     import numpy as np
-    import torch
 
     model.refine_iters = 0
     try:
@@ -5758,12 +5886,10 @@ def tp_ar_prefix(model, sm, crops, logits, what):
     finally:
         model.refine_iters = 1
     top2 = logits.topk(2, dim=-1).values
-    close = (top2[..., 0] - top2[..., 1]) <= 2 * bf16_ulp(top2[..., 0])
     ref = logits.argmax(-1).numpy()
     n_steps = ref.shape[1]
-    first = torch.where(close.any(-1), close.int().argmax(-1),
-                        torch.full((len(ref),), n_steps)).numpy()
-    bad = [i for i in range(len(ref)) if not np.array_equal(ids[i, :first[i]], ref[i, :first[i]])]
+    bad, first = parted_before_close(
+        ids, ref, (top2[..., 0] - top2[..., 1]) <= 2 * bf16_ulp(top2[..., 0]))
     check(not bad, f"{what}: the AR ids part from the unsharded model's before a closable "
           f"step on lines {bad[:8]}")
     whole = int((ids == ref).all(-1).sum())
@@ -5976,6 +6102,371 @@ def _phase_tp(card, ctx):
     return {"recognizer_tp": launches}, numbers, kernels
 
 
+# ----------------------------------------------------------------- phase 14
+
+#: yomitoku_torch --lite (parseq-tiny, dbnetv2_1-lite) and parseq-small:
+#: recognizer -> (D, MLP hidden, tokens per line, refine queries), 8 heads
+#: each (46 and 48 wide), batch 128
+LITE_RECOGNIZERS = {"parseq-tiny": (368, 1472, 100, 51), "parseq-small": (384, 1536, 100, 101)}
+#: the kernels held and timed at each recognizer's shapes, and their label
+LITE_KERNELS = {"parseq-tiny": ("tiny", OCR_KERNELS),
+                "parseq-small": ("small", ("fused_attention_block_ln", "fused_attention_heads"))}
+#: kernels 6 and 7 at parseq-tiny's head dim of 46: fused_attention's (B,
+#: H, L, Dh) and fused_attention_block's x (B, L, D), 8 heads
+DH46_ATTENTION = ((128, 8, 100, 46), (8, 100, 368))
+#: the OCR modules' models of the CLI's --lite
+LITE_MODEL_NAMES = {"text_detector": "dbnetv2_1-lite", "text_recognizer": "parseq-tiny"}
+
+
+def phase_lite(card, ctx):
+    """Phase 14 with the full memory-K/V cache (the f32 checks compare
+    with it) -> ({path: launches}, numbers, {kernel: {label: numbers}})."""
+    with _env(YOMITOKU_TPU_INT8_KV="0", YOMITOKU_TPU_INT8_ENCODER=None,
+              YOMITOKU_TPU_HOST_CROPS=None, YOMITOKU_TPU_DEVICE_CROPS=None,
+              YOMITOKU_TPU_REC_WIDTH_BUCKETS=None):
+        return _phase_lite(card, ctx)
+
+
+def sentinel_edge(D_, steps):
+    """The attention kernel writing its output into the first D_ columns of
+    wider rows (D_ + 8) holding a sentinel, at a refine's q (128, steps,
+    D_) over k, v (128, 100, D_), 8 heads: the sentinel survives and the
+    output holds to the plain version (2e-2 of the largest value) ->
+    max|d|."""
+    import torch
+
+    from yomitoku_tpu_torch import ops
+    from yomitoku_tpu_torch.ops._common import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn(B, steps, D_, device="cuda", generator=gen).bfloat16()
+    k, v = (torch.randn(B, 100, D_, device="cuda", generator=gen).bfloat16() for _ in range(2))
+    buf = torch.full((B, steps, D_ + 8), 7.0, dtype=torch.bfloat16, device="cuda")
+    route = route_taken(lambda: attention(q, k, v, buf[..., :D_], HEADS, (D_ // HEADS) ** -0.5))
+    want = ops.fused_attention_heads_reference(q.float(), k.float(), v.float(), HEADS)
+    err = (buf[..., :D_].float() - want).abs().max().item()
+    kept = bool((buf[..., D_:] == 7.0).all().item())
+    log(f"attention into a wider buffer (rows of {D_ + 8}, the output its first {D_} columns), "
+        f"q {tuple(q.shape)}: route {route}, max|d| {err:.3e} (limit "
+        f"{2e-2 * want.abs().max().item():.3e}), sentinel columns kept: {kept}")
+    check(kept and err <= 2e-2 * want.abs().max().item() and route in ("wgmma", "wgmma_small"),
+          f"attention into a wider buffer at D {D_}: sentinel kept {kept}, max|d| {err:.3e}, "
+          f"route {route}")
+    return err
+
+
+def lite_recognizer(name, page, quads, card):
+    """``TextRecognizer(model_name=name, device="cuda")`` (seed-0 weights,
+    bf16, the device-page route) on the synthetic page, counted; its
+    lines/s and decode; in f32 on the card against the CPU on 16 lines
+    (phase 3's gate) and bf16 against f32 on the card (bf16_vs_f32_prefix)
+    -> (launches, numbers)."""
+    import torch
+
+    from yomitoku_tpu_torch import ops
+    from yomitoku_tpu_torch.data.dataset import ParseqDataset
+    from yomitoku_tpu_torch.text_recognizer import TextRecognizer
+
+    D_, _, tokens, steps = LITE_RECOGNIZERS[name]
+    what = f"lite: {name}"
+    t0 = time.perf_counter()
+    rec = TextRecognizer(model_name=name, device="cuda")
+    model = rec.model
+    check(model.head.in_features == D_ and math.prod(model.encoder.grid) == tokens
+          and model.max_label_length + 1 == steps and not model.int8_kv,
+          f"{what}: not D {D_}, {tokens} tokens, {steps} positions with the full K/V cache")
+    log(f"{what}: TextRecognizer(model_name={name!r}, device='cuda') built in "
+        f"{time.perf_counter() - t0:.1f} s: PARSeq {model.param_count():,} params, "
+        f"{model.dtype}, canvas {model.img_size}, {tokens} tokens, {steps} positions")
+    ops.reset_launches()
+    lines, _ = rec(page, quads)
+    torch.cuda.synchronize()
+    launches = dict(ops.launches)
+    log(f"{what}: launches {launches}")
+    check(all(launches[k] > 0 for k in OCR_KERNELS),
+          f"{what}: a kernel of the path was never launched: {launches}")
+    check_attention_routes(what, "wgmma")
+    check_gemm_routes(what)
+    _finite_schema(lines, what)
+    check(len(lines.contents) == len(quads),
+          f"{what}: {len(lines.contents)} of {len(quads)} lines")
+    crops = ParseqDataset(rec._cfg, page, quads[:128]).as_u8_array()
+    x = torch.from_numpy(crops)
+    numbers = {}
+    rec_s = host_timed(lambda: rec(page, quads[:128]))
+    decode_s = host_timed(lambda: model.forward_tokens(crops))
+    busy, attn, gemm_ms, _ = decode_profile(model, crops)
+    numbers.update(lines_per_s=128 / rec_s, decode_lines_per_s=128 / decode_s,
+                   ms_per_batch=rec_s * 1e3, decode_ms=decode_s * 1e3, device_busy_ms=busy,
+                   attention_ms=attn, gemm_ms=gemm_ms)
+    log(f"{what}: bf16 batch 128 on the page route {128 / rec_s:.1f} lines/s end to end "
+        f"({rec_s * 1e3:.1f} ms), decode {128 / decode_s:.1f} lines/s "
+        f"({decode_s * 1e3:.1f} ms), device busy {busy:.2f} ms of which the attention kernel "
+        f"{attn:.3f} ms and the GEMM kernel with its LayerNorm pass {gemm_ms:.3f} ms; "
+        f"median of 3; card {card}")
+    check_attention_routes(what + " (timed runs)", "wgmma")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec32 = TextRecognizer(model_name=name, device="cuda", dtype=torch.float32,
+                           from_pretrained=False)
+    cpu32 = TextRecognizer(model_name=name, device="cpu", from_pretrained=False)
+    with torch.no_grad():
+        got = rec32.model.forward_logits(x[:16]).cpu()
+    line = f32_card_vs_cpu_logits(got, cpu32.model.forward_logits(x[:16]), f"{what} f32")
+    log(f"{what}: f32 card vs CPU on 16 lines: {line}")
+    numbers.update(f32_card_vs_cpu=line,
+                   bf16_vs_f32=bf16_vs_f32_prefix(model, rec32.model, x, what))
+    if name == "parseq-tiny":
+        numbers["width_bucket"] = lite_width_bucket(rec, what)
+    del rec, rec32, cpu32, model
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def lite_width_bucket(rec, what):
+    """The recognizer's half-width bucket forced (parseq-tiny: 192 px, 48
+    tokens of its (8, 16) patches): on a page of 128 short lines and 8 long
+    ones, the lines that fit decode at the narrow canvas, their strings
+    equal to the model's at out_w=192 called directly, and the AR loop
+    keeps a state for the 48-token memory beside the 100-token one ->
+    numbers."""
+    import unicodedata
+
+    import numpy as np
+    import torch
+
+    from yomitoku_tpu_torch import ops
+    from yomitoku_tpu_torch.ops import device_crop as dc
+
+    model = rec.model
+    (bucket,) = rec._default_width_buckets()
+    tokens = (model.img_size[0] // 8) * (bucket // 16)
+    page, quads = synthetic_lines_page(136, seed=1, chars=[(3, 8)] * 128 + [(30, 40)] * 8)
+    mats, wh = dc.line_homographies(quads, model.img_size)
+    fits = np.flatnonzero(wh[:, 0] <= bucket)
+    check(len(fits) >= 64 and len(fits) < len(quads),
+          f"{what}: {len(fits)} of the bucket page's {len(quads)} lines fit {bucket} px")
+    with _env(YOMITOKU_TPU_REC_WIDTH_BUCKETS=str(bucket)):
+        check(rec._width_buckets() == [bucket], f"{what}: the forced bucket")
+        ops.reset_launches()
+        routed = rec._call_device(page, quads)
+        torch.cuda.synchronize()
+    check_attention_routes(f"{what} width bucket")
+    ids, probs = model.forward_tokens_from_page(dc.DevicePage(page, "cuda").dev, mats[fits],
+                                                wh[fits], out_w=bucket)
+    want, want_s = rec.tokenizer.decode_ids(ids, probs)
+    want = [unicodedata.normalize("NFKC", p) for p in want]
+    got = [routed[0][i] for i in fits]
+    check(got == want and np.allclose([routed[1][i] for i in fits], want_s, rtol=1e-6),
+          f"{what}: the lines routed to the {bucket}-px bucket differ from the model at "
+          f"out_w={bucket}")
+    memories = sorted({m for _, m in model._ar_loops})
+    check(tokens in memories and math.prod(model.encoder.grid) in memories,
+          f"{what}: AR states for memory lengths {memories}, {tokens} and "
+          f"{math.prod(model.encoder.grid)} expected")
+    log(f"{what}: {bucket}-px width bucket forced: {len(fits)} lines routed narrow ({tokens} "
+        f"tokens) and {len(quads) - len(fits)} full; the narrow lines' strings equal the "
+        f"model's at out_w={bucket}; AR states (batch, memory) {sorted(model._ar_loops)}")
+    return dict(bucket=bucket, tokens=tokens, narrow_lines=len(fits),
+                ar_states=[list(k) for k in sorted(model._ar_loops)])
+
+
+def bf16_vs_f32_prefix(bf, f32, x, what):
+    """The bf16 model against the same weights in f32 on the card, 128
+    lines, the refine pass off on both (greedy AR decodes): on every line
+    the ids equal up to the first step whose f32 top-2 gap is within the
+    kernels' bf16 allowance, 2e-2 of the largest f32 logit (a decision that
+    bf16 rounding may flip; from there the decodes may part), and the
+    logits of the first position (no token fed back) within that allowance
+    -> numbers, with the share of ids equal throughout."""
+    import numpy as np
+    import torch
+
+    logits = {}
+    for key, m in (("bf16", bf), ("f32", f32)):
+        m.refine_iters = 0
+        try:
+            with torch.no_grad():
+                logits[key] = m.forward_logits(x).float().cpu()
+        finally:
+            m.refine_iters = 1
+    want, got = logits["f32"], logits["bf16"]
+    allowance = 2e-2 * want.abs().max().item()
+    top2 = want.topk(2, dim=-1).values
+    ref, ids = want.argmax(-1).numpy(), got.argmax(-1).numpy()
+    n_steps = ref.shape[1]
+    bad, first = parted_before_close(ids, ref, (top2[..., 0] - top2[..., 1]) <= allowance)
+    d0 = (got[:, 0] - want[:, 0]).abs().max().item()
+    res = dict(lines=len(ref), lines_equal=int((ids == ref).all(-1).sum()),
+               ids_equal=float((ids == ref).mean()), first_close_median=int(np.median(first)),
+               allowance=allowance, first_position_max_abs_logit=d0)
+    log(f"{what}: bf16 against f32 on the card, {len(ref)} lines, refine off: AR ids equal on "
+        f"every line up to its first step with an f32 top-2 gap within {allowance:.3e} (2e-2 "
+        f"of the largest f32 logit; median step {res['first_close_median']} of {n_steps}): "
+        f"{'yes' if not bad else 'no, lines ' + str(bad[:8])}; ids equal at "
+        f"{res['ids_equal']:.4f} of positions, {res['lines_equal']} lines throughout; the first "
+        f"position's logits max|d| {d0:.3e} (limit {allowance:.3e})")
+    check(not bad and d0 <= allowance,
+          f"{what}: bf16 AR ids part from f32 before a step bf16 may flip (lines {bad[:8]}), "
+          f"or the first position's logits by {d0:.3e} > {allowance:.3e}")
+    return res
+
+
+def lite_analyzer(src):
+    """``DocumentAnalyzer`` with the --lite models on the card, given
+    ``src``'s (phase 9's) detector, layout and table weights (the
+    recognizer keeps its seed-0 parseq-tiny), its detector painted."""
+    from yomitoku_tpu_torch.document_analyzer import DocumentAnalyzer
+
+    names = {k: {"model_name": v} for k, v in LITE_MODEL_NAMES.items()}
+    da = DocumentAnalyzer(configs={"ocr": names}, device="cuda")
+    same_weights(da, src, recognizer=False)
+    paint_detector(da.text_detector)
+    return da
+
+
+def lite_cli(card, ctx):
+    """``yomitoku_torch demo/sample.pdf --lite -f json`` in this process
+    (cli_harness on the lite analyzer), counted; each page's JSON equal to
+    convert_json of the CLI's analyzer's ``__call__``; pages/s with and
+    without construction and per stage; one page's f32 lite analyzer on
+    the card against the CPU -> (launches, numbers)."""
+    import cv2
+    import torch
+
+    from yomitoku_tpu_torch import ops
+    from yomitoku_tpu_torch.data import load_pdf
+    from yomitoku_tpu_torch.export import convert_json
+
+    src = ctx.get("document_analyzer")
+    if src is None:
+        src = ctx["document_analyzer"] = prepared_analyzer(
+            cv2.imread(str(ROOT / "demo" / "sample_table.png")))
+    lite = lite_analyzer(src)
+    sample, n = CLI_PDFS["sample"]
+    pages = list(load_pdf(ROOT / "demo" / sample, dpi=200))
+    numbers = {}
+    with cli_harness(lite) as (cli, clock):
+        ops.reset_launches()
+        took, spent, files = run_cli(cli, clock, "lite_json", sample, ["--lite", "-f", "json"])
+        torch.cuda.synchronize()
+        launches = dict(ops.launches)
+        log(f"lite: path cli_lite launches {launches}")
+        check(all(launches[k] > 0 for k in DOCUMENT_KERNELS),
+              f"a kernel of the --lite CLI path was never launched: {launches}")
+        check_attention_routes("cli_lite")
+        check_gemm_routes("cli_lite")
+        check_deform_routes("cli_lite", launches["ms_deformable_attention"])
+        kwargs, da = clock["built"][-1]
+        ocr_cfg = kwargs["configs"]["ocr"]
+        check(kwargs["device"] == "cuda" and all(
+            ocr_cfg[k]["model_name"] == v for k, v in LITE_MODEL_NAMES.items()),
+            f"lite: the CLI built its analyzer with {kwargs}")
+        check([p.name for p in files] == expected_cli_files("sample", n, "json"),
+              f"lite: files {[p.name for p in files]}")
+        words = []
+        for i, (page, path) in enumerate(zip(pages, files), 1):
+            doc = da(page)[0]
+            want = convert_json(doc, None, False, page, False).model_dump()
+            got = json.loads(path.read_text(encoding="utf-8"))
+            check(got == want, f"lite: --lite -f json page {i} against __call__: "
+                  f"{_first_difference(got, want)}")
+            check(doc.words, f"lite: --lite -f json page {i}: no words")
+            words.append(len(doc.words))
+        log(f"lite: yomitoku_torch demo/{sample} --lite -f json: each page's JSON equals "
+            f"convert_json of the analyzer's __call__ on the same rendered page ({words} "
+            f"words; first run {took:.2f} s)")
+        took, spent, _ = run_cli(cli, clock, "lite_json_warm", sample, ["--lite", "-f", "json"])
+    other = took - spent["construct_s"] - spent["render_s"] - spent["analyze_s"]
+    numbers.update(pages=n, words=words, pages_s=n / took,
+                   pages_s_without_construction=n / (took - spent["construct_s"]),
+                   per_page_ms=dict(construct=spent["construct_s"] * 1e3 / n,
+                                    render=spent["render_s"] * 1e3 / n,
+                                    analyzer=spent["analyze_s"] * 1e3 / n,
+                                    export_and_rest=other * 1e3 / n))
+    log(f"lite: yomitoku_torch demo/{sample} --lite -f json: {n / took:.3f} pages/s end to end "
+        f"({took:.2f} s for {n} pages, the analyzer's construction included; "
+        f"{numbers['pages_s_without_construction']:.3f} pages/s without it); per page: "
+        f"construction {numbers['per_page_ms']['construct']:.0f} ms, PDF render "
+        f"{numbers['per_page_ms']['render']:.0f} ms, analyzer (batch) "
+        f"{numbers['per_page_ms']['analyzer']:.0f} ms, export and the rest "
+        f"{numbers['per_page_ms']['export_and_rest']:.0f} ms; card {card}")
+    del da
+    table = cv2.imread(str(ROOT / "demo" / "sample_table.png"))
+    numbers["f32_card_vs_cpu"] = f32_card_vs_cpu(lite, table[:400], LITE_MODEL_NAMES, "lite")
+    del lite
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def _phase_lite(card, ctx):
+    import numpy as np
+    import torch
+
+    from yomitoku_tpu_torch import ops
+
+    t_phase = time.perf_counter()
+    numbers = {"card": card}
+    # (a) the kernels at parseq-tiny's and parseq-small's shapes
+    kernels = {}
+    for name, (D_, hidden, tokens, steps) in LITE_RECOGNIZERS.items():
+        label, names = LITE_KERNELS[name]
+        shaped = phase_kernels(D=D_, hidden=hidden, tag=f"_{label}", layouts=LAYOUTS[:1],
+                               seed=14, L=tokens, steps=steps, names=names, fma=True)
+        for k, at in shaped.items():
+            kernels.setdefault(k, {})[label] = at
+        kernels["fused_attention_heads"][label]["sentinel_max_abs_err"] = sentinel_edge(
+            D_, steps)
+    # 6 and 7 at head dim 46 (fused_attention on head-packed copies: rows
+    # of 92 bytes are no TMA rows), 8 at tiny's encoder shape
+    for k, at in _attention_kernels(np.random.default_rng(46), *DH46_ATTENTION,
+                                    labels=("dh46", "dh46")).items():
+        kernels.setdefault(k, {}).update(at)
+    D_, _, tokens, _ = LITE_RECOGNIZERS["parseq-tiny"]
+    for k, at in phase_int8_kernels(46, tokens, D_, ("fused_attention_block_ln_int8",),
+                                    codes_rule=True).items():
+        kernels.setdefault(k, {})["dh46"] = at
+    ops.reset_launches()
+
+    # (b) the recognizers at batch 128 on the synthetic page
+    if "page" not in ctx:
+        ctx["page"], ctx["quads"] = synthetic_lines_page()
+    paths = {}
+    for name in LITE_RECOGNIZERS:
+        label = LITE_KERNELS[name][0]
+        paths[f"recognizer_{label}"], numbers[name] = lite_recognizer(
+            name, ctx["page"], ctx["quads"], card)
+
+    # (c) the CLI with --lite
+    paths["cli_lite"], numbers["cli"] = lite_cli(card, ctx)
+    took = numbers["phase_s"] = time.perf_counter() - t_phase
+    log(f"lite: phase 14 took {took:.1f} s")
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "lite.json").write_text(json.dumps({"numbers": numbers, "kernels": kernels},
+                                              indent=1, default=str))
+    torch.cuda.empty_cache()
+    return paths, numbers, kernels
+
+
+def lite_only(root):
+    """``--lite``: phase 14 (yomitoku_torch --lite and parseq-small) alone,
+    with phase 9's analyzer setup, on this checkout's package."""
+    from yomitoku_tpu_torch.ops import _build
+
+    if root != ROOT:
+        raise SmokeFailure("--lite runs on this checkout only")
+    card = card_line()
+    log(f"card: {card}")
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    paths, numbers, kernels = phase_lite(card, {})
+    log(card)
+    print(json.dumps({"launches_by_path": paths, "lite": numbers, "kernels": kernels},
+                     default=str), flush=True)
+    return 0
+
+
 def tp_only(root):
     """``--tp``: phase 13 (PARSeq with its vocabulary split over tp) alone,
     on this checkout's package."""
@@ -6063,6 +6554,37 @@ def deform_kernels_only(root):
     at = phase_layout_kernels((name,), own=root == ROOT)[name]
     log(card)
     print(json.dumps({"package": str(root), "deform": at}), flush=True)
+    return 0
+
+
+def attention_kernels_only(root):
+    """``--attention-kernels [ROOT]``: the attention kernel's main-path
+    rows at their shapes: kernels 1 and 3 at the recognizer's (phase 2,
+    one layout), 3 at RT-DETR's eight (AIFI, decoder, the cell decoder's
+    2,500 queries, their batches), 6 and 7 at the ViT's and the AIFI's
+    (phase 7), each against its plain version and timed, on the package at
+    ROOT: this checkout's, or another commit's unpacked beside it, to
+    compare the two on one card in turns."""
+    import numpy as np
+
+    from yomitoku_tpu_torch.ops import _build
+
+    card = card_line()
+    log(f"card: {card}")
+    log(f"package: {root}")
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    shaped = {name: {"parseq": res} for name, res in phase_kernels(
+        layouts=LAYOUTS[:1], names=("fused_attention_block_ln", "fused_attention_heads")).items()}
+    for name, at in phase_layout_kernels(("fused_attention_heads",), own=root == ROOT).items():
+        shaped[name].update(at)
+    shaped.update(_attention_kernels(np.random.default_rng(7)))
+    log(card)
+    print(json.dumps({"package": str(root), "device_ms": {
+        name: {label: r["device_ms"] for label, r in at.items()} for name, at in shaped.items()},
+        "ms": {name: {label: r["ms"] for label, r in at.items()} for name, at in shaped.items()}}),
+        flush=True)
     return 0
 
 
@@ -6157,8 +6679,9 @@ def document_only(root):
 
 #: the modes that run one part on the package at ROOT
 MODES = {"--fused-kernels": fused_kernels_only, "--deform-kernels": deform_kernels_only,
+         "--attention-kernels": attention_kernels_only,
          "--page": page_only, "--document": document_only, "--cli": cli_only,
-         "--semantic": semantic_only, "--dp": dp_only, "--tp": tp_only}
+         "--semantic": semantic_only, "--dp": dp_only, "--tp": tp_only, "--lite": lite_only}
 
 
 def main():
@@ -6185,35 +6708,49 @@ def main():
             return 1
     if args:
         log(f"FAIL: unknown arguments {args} (none, or --fused-kernels [ROOT], "
-            "--deform-kernels [ROOT], --page, --document, --cli, --semantic, --dp or --tp)")
+            "--deform-kernels [ROOT], --attention-kernels [ROOT], --page, --document, --cli, "
+            "--semantic, --dp, --tp or --lite)")
         return 1
+    took, t_run = {}, time.perf_counter()
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            took[phase] = round(took.get(phase, 0) + time.perf_counter() - t0, 1)
+
     try:
-        card = phase_card()
-        kernels = phase_kernels()
-        gemm_shapes = phase_gemm()
-        layout_kernels = phase_layout_kernels()
-        kernels.update(phase_int8_kernels())
-        int8_gemms, quants = phase_gemm_int8()
-        shaped = phase_fused_kernels()  # {kernel: {label: numbers}}
-        ocr_launches, ctx = phase_slice(card)
-        paths = {"ocr": ocr_launches, "layout": phase_layout(card)}
-        paths["int8_recognizer"], int8_numbers = phase_int8_recognizer(card, ctx)
-        paths["fused_backbone"], fused_numbers = phase_fused_backbone(card)
-        page_paths, page_numbers = phase_page(card, ctx)
+        card = timed(1, phase_card)
+        kernels = timed(2, phase_kernels)
+        gemm_shapes = timed(2, phase_gemm)
+        layout_kernels = timed(2, phase_layout_kernels)
+        kernels.update(timed(5, phase_int8_kernels))
+        int8_gemms, quants = timed(5, phase_gemm_int8)
+        shaped = timed(7, phase_fused_kernels)  # {kernel: {label: numbers}}
+        ocr_launches, ctx = timed(3, phase_slice, card)
+        paths = {"ocr": ocr_launches, "layout": timed(4, phase_layout, card)}
+        paths["int8_recognizer"], int8_numbers = timed(6, phase_int8_recognizer, card, ctx)
+        paths["fused_backbone"], fused_numbers = timed(7, phase_fused_backbone, card)
+        page_paths, page_numbers = timed(8, phase_page, card, ctx)
         paths.update(page_paths)
-        document_paths, document_numbers = phase_document(card, ctx)
+        document_paths, document_numbers = timed(9, phase_document, card, ctx)
         paths.update(document_paths)
-        cli_paths, cli_numbers = phase_cli(card, ctx)
+        cli_paths, cli_numbers = timed(10, phase_cli, card, ctx)
         paths.update(cli_paths)
-        semantic_paths, semantic_numbers = phase_semantic(card, ctx)
+        semantic_paths, semantic_numbers = timed(11, phase_semantic, card, ctx)
         paths.update(semantic_paths)
-        dp_paths, dp_numbers = phase_dp(card, ctx)
+        dp_paths, dp_numbers = timed(12, phase_dp, card, ctx)
         paths.update(dp_paths)
-        tp_paths, tp_numbers, tp_kernels = phase_tp(card, ctx)
+        tp_paths, tp_numbers, tp_kernels = timed(13, phase_tp, card, ctx)
         paths.update(tp_paths)
+        lite_paths, lite_numbers, lite_kernels = timed(14, phase_lite, card, ctx)
+        paths.update(lite_paths)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1
+    log(f"phases took (s): {took}; the run "
+        f"{time.perf_counter() - t_run:.1f} s")
     log(f"profiler windows with launches not a whole number per call: "
         f"{len(_ragged_windows)} (kernel: launches in 10 calls) {_ragged_windows[:3]}")
     (OUT / "int8_recognizer.json").write_text(json.dumps(int8_numbers, indent=1))
@@ -6224,11 +6761,15 @@ def main():
     (OUT / "semantic.json").write_text(json.dumps(semantic_numbers, indent=1))
     (OUT / "dp.json").write_text(json.dumps(dp_numbers, indent=1))
     (OUT / "tp.json").write_text(json.dumps(tp_numbers, indent=1))
+    (OUT / "lite.json").write_text(json.dumps({"numbers": lite_numbers, "kernels": lite_kernels},
+                                              indent=1, default=str))
     log(card)  # as nvidia-smi prints it: name, power limit
     for name, at in layout_kernels.items():
         shaped.setdefault(name, {}).update(at)
     for name, at in tp_kernels.items():  # kernels 1-4 at parseq's D 512 (phase 13)
         shaped.setdefault(name, {})["d512"] = at
+    for name, at in lite_kernels.items():  # 1-4, 6-8 at parseq-tiny's / -small's (phase 14)
+        shaped.setdefault(name, {}).update(at)
     for name, labels in GEMMS_OF.items():  # the GEMM kernel's shapes inside each row
         shaped.setdefault(name, {}).update({f"gemm_{lb}": gemm_shapes[lb] for lb in labels})
     for name, (labels, qlabels) in INT8_GEMMS_OF.items():  # and the int8 kernels'

@@ -5,6 +5,7 @@ on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -34,6 +35,19 @@ H100_SMS = 132  # H100 SXM; the PCIe card has 114
     ("decoder", (BF16, BF16, 1, 8, 300, 32), ("wgmma_small", 4)),
     ("aifi_b4", (BF16, BF16, 4, 8, 400, 32), ("wgmma_small", 1)),
     ("decoder_b4", (BF16, BF16, 4, 8, 300, 32), ("wgmma_small", 1)),
+    # parseq-tiny (yomitoku_torch --lite): D 368 on 8 heads of 46, the ViT's
+    # 100 tokens (bf16 out, f32 for the int8 sublayer), the refine's 51
+    # queries; a batch of one line
+    ("tiny_vit", (BF16, BF16, 128, 8, 100, 46), ("wgmma", 1)),
+    ("tiny_vit_int8", (BF16, F32, 128, 8, 100, 46), ("wgmma", 1)),
+    ("tiny_refine", (BF16, BF16, 128, 8, 51, 46), ("wgmma", 1)),
+    ("tiny_vit_b1", (BF16, BF16, 1, 8, 100, 46), ("wgmma_small", 4)),
+    # parseq-small: D 384 on 8 heads of 48, 100 tokens, 101 queries
+    ("small_vit", (BF16, BF16, 128, 8, 100, 48), ("wgmma", 1)),
+    ("small_refine", (BF16, BF16, 128, 8, 101, 48), ("wgmma", 1)),
+    ("small_refine_b8", (BF16, BF16, 8, 8, 101, 48), ("wgmma_small", 2)),
+    # a multiple of 16 that had no instantiation before Dh 48 was built
+    ("dh48_small_grid", (BF16, BF16, 2, 4, 37, 48), ("wgmma_small", 4)),
 ])
 def test_main_path_shapes_take_wgmma(what, args, want):
     assert attention_route(*args, True, H100_SMS) == want, what
@@ -113,7 +127,10 @@ def test_page_route_shape_routes(what, args, want):
     (F32, F32, 1, 8, 300, 32),
     (BF16, BF16, 2, 4, 37, 24),      # Dh % 16 != 0
     (BF16, F32, 3, 4, 37, 24),
-    (BF16, BF16, 2, 4, 37, 48),      # a multiple of 16 not instantiated
+    (BF16, BF16, 2, 4, 37, 40),      # a multiple of 8 not instantiated
+    (BF16, BF16, 2, 4, 37, 44),
+    (F32, F32, 128, 8, 100, 46),     # f32 at parseq-tiny's and -small's dims
+    (F32, F32, 128, 8, 101, 48),
     (BF16, BF16, 1, 1, 10, 256),
     (BF16, torch.float16, 128, 8, 400, 96),
 ])
@@ -149,14 +166,25 @@ def test_tma_legality_of_strides(offset, pad, batch, ok):
     assert _legal(batch, t, t, t, t) == ok
 
 
-def test_packed_qkv_slices_are_tma_legal():
-    """The ViT's Q, K and V: column slices of one (B, L, 3D) buffer."""
-    qkv = torch.zeros(2, 7, 3 * 768, dtype=BF16)
-    q, k, v = qkv[..., :768], qkv[..., 768:1536], qkv[..., 1536:]
-    out = torch.zeros(2, 7, 768, dtype=F32)
-    assert _legal(2, q, k, v, out)
+@pytest.mark.parametrize("D,dh", [(768, 96), (368, 46), (384, 48)])
+def test_packed_qkv_slices_are_tma_legal(D, dh):
+    """The ViT's Q, K and V: column slices of one (B, L, 3D) buffer, at
+    parseq-large-v4_1's D 768, parseq-tiny's 368 (slices 736 bytes apart,
+    rows of 2,208) and parseq-small's 384."""
+    qkv = torch.zeros(2, 7, 3 * D, dtype=BF16)
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    out = torch.zeros(2, 7, D, dtype=F32)
     legal = _legal(2, q, k, v, out)
-    assert attention_route(BF16, F32, 128, 8, 400, 96, legal, H100_SMS) == ("wgmma", 1)
+    assert legal
+    assert attention_route(BF16, F32, 128, 8, 400, dh, legal, H100_SMS) == ("wgmma", 1)
+
+
+def test_head_views_of_46_are_not_tma_rows():
+    """fused_attention's (B*H, L, 46) views have rows of 92 bytes, which
+    TMA cannot map: its wrapper hands the kernel head-packed copies."""
+    t = torch.zeros(16, 37, 46, dtype=BF16)
+    assert not _legal(16, t, t, t, t)
+    assert _legal(2, *[torch.zeros(2, 37, 8 * 46, dtype=BF16)] * 4)
 
 
 def test_batch_stride_counts_only_above_batch_one():
@@ -171,8 +199,101 @@ def test_batch_stride_counts_only_above_batch_one():
 def test_wgmma_head_dims():
     """The head dims the kernel is instantiated for (a dim outside them
     makes the C entry refuse the route, on the card)."""
-    assert WGMMA_HEAD_DIMS == (16, 32, 64, 96, 128)
+    assert WGMMA_HEAD_DIMS == (16, 32, 46, 48, 64, 96, 128)
     assert set(ATTENTION_ROUTES) == {"fma", "wgmma", "wgmma_small"}
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk,dh,want", [
+    (2, 8, 51, 100, 46, ("wgmma_small", 4)),
+    (2, 8, 101, 100, 48, ("wgmma_small", 4)),
+    (1, 8, 100, 300, 46, ("wgmma_small", 4)),
+])
+def test_split_partials_are_rows_of_the_computed_width(monkeypatch, B, H, Lq, Lk, dh, want):
+    """``attention`` routes a small grid to "wgmma_small" with splits and
+    allocates the partials the C entry writes: per split and (batch, head,
+    row) a row of the width the C entry gives for the head's dh
+    (``yt_attention_width``, stubbed here with the kernel's 64 at 46) and a
+    (max, sum) pair; the C entry gets the head's own dh."""
+    seen, asked = [], []
+
+    class Lib:
+        def yt_attention(self, *args):
+            seen.append(args)
+            return 0
+
+        def yt_attention_width(self, d):
+            asked.append(d)
+            return {46: 64, 48: 48}[d]
+
+    class Built:
+        lib = Lib()
+
+    monkeypatch.setattr(_common, "_sm_count", lambda index: H100_SMS)
+    monkeypatch.setattr(_common, "library", lambda: Built())
+    monkeypatch.setattr(_common, "_launch", lambda device, fn, *args: fn(*args, 0))
+    monkeypatch.setattr(_common, "attention_route_launches", dict.fromkeys(ATTENTION_ROUTES, 0))
+    parts = []
+    real_empty = torch.empty
+
+    def empty(*shape, **kw):
+        t = real_empty(*shape, **kw)
+        parts.append(t)
+        return t
+
+    monkeypatch.setattr(_common.torch, "empty", empty)
+    q = torch.zeros(B, Lq, H * dh, dtype=BF16)
+    kv = torch.zeros(B, Lk, H * dh, dtype=BF16)
+    _common.attention(q, kv, kv, torch.empty_like(q), H, dh ** -0.5)
+    route, splits = want
+    assert seen[0][:2] == (ATTENTION_ROUTES[route], splits)
+    assert seen[0][-3] == dh  # the C entry's dh: the head's own width
+    assert asked == [dh]
+    assert [p.numel() for p in parts] == [splits * B * H * Lq * (Lib().yt_attention_width(dh) + 2)]
+
+
+def _padded_head_attention(q, k, v, H, dh, w, zero_q_pad=True):
+    """The padded-head route's arithmetic in plain torch: per head, a
+    window of ``w`` columns of the packed rows from the 16-byte boundary at
+    or below the head's first column (its neighbours' columns, zeros past
+    the last head), Q's columns outside the head zeroed, the products at
+    the window's width, the head's dh columns stored."""
+    B, Lq, D = q.shape
+    wide = lambda t: torch.cat([t, t.new_zeros(t.shape[0], t.shape[1], w)], -1)  # noqa: E731
+    qw, kw, vw = wide(q), wide(k), wide(v)
+    out = torch.full_like(q, float("nan"))
+    for h in range(H):
+        e = h * dh % 8
+        col0 = h * dh - e
+        assert col0 % 8 == 0 and e + dh <= w
+        cols = slice(col0, col0 + w)
+        qh, kh, vh = qw[..., cols].clone(), kw[..., cols], vw[..., cols]
+        if zero_q_pad:
+            qh[..., :e] = 0
+            qh[..., e + dh:] = 0
+        p = torch.softmax(qh @ kh.transpose(1, 2) * dh ** -0.5, -1)
+        out[..., h * dh:(h + 1) * dh] = (p @ vh)[..., e:e + dh]
+    return out
+
+
+@pytest.mark.parametrize("H,dh,w", [(8, 46, 64), (3, 46, 64), (8, 48, 48)])
+def test_padded_head_arithmetic_matches_attention(H, dh, w):
+    """What the kernel computes on the padded-head route (a 64-column
+    window from a 16-byte boundary, Q's columns outside the head zeroed,
+    the epilogue storing the head's 46) equals attention head by head;
+    with those Q columns left in, the logits would take K's neighbouring
+    columns and differ."""
+    from yomitoku_tpu_torch.ops.attention import _attention_f32
+
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, n, H * dh)).astype(np.float32))
+               for n in (51, 100, 100))
+    want = _attention_f32(q, k, v, H)
+    got = _padded_head_attention(q, k, v, H, dh, w)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    unzeroed = _padded_head_attention(q, k, v, H, dh, w, zero_q_pad=False)
+    if dh % 16:
+        assert (unzeroed - want).abs().max() > 1e-3
 
 
 @pytest.mark.parametrize("sms", [114, H100_SMS])

@@ -277,7 +277,7 @@ ATTENTION_CASES = [
     (2, 4, 400, 1024, 64, "lowvar", "bfloat16", "bfloat16", "wgmma_small"),
     (128, 8, 400, 400, 32, "lowvar", "bfloat16", "float32", "wgmma"),
     (2, 4, 37, 45, 24, "heads", "bfloat16", "bfloat16", "fma"),
-    (2, 4, 37, 45, 48, "heads", "bfloat16", "bfloat16", "fma"),
+    (2, 4, 37, 45, 48, "heads", "bfloat16", "bfloat16", "wgmma_small"),
     (2, 4, 37, 45, 32, "misaligned", "bfloat16", "bfloat16", "fma"),
     # RT-DETR at the table recognizer's page-route batches (region buckets)
     (2, 8, 400, 400, 32, "heads", "bfloat16", "bfloat16", "wgmma_small"),
@@ -298,6 +298,23 @@ ATTENTION_CASES = [
     (128, 8, 200, 200, 96, "packed", "bfloat16", "float32", "wgmma"),
     (1, 8, 200, 200, 96, "packed", "bfloat16", "bfloat16", "wgmma_small"),
     (128, 8, 101, 200, 96, "heads", "bfloat16", "bfloat16", "wgmma"),
+    # parseq-tiny (D 368, 8 heads of 46: the padded-head route, 48 inside)
+    # and parseq-small (D 384, 8 of 48): the ViT's 100 tokens on packed
+    # QKV slices (bf16 and f32 out), the refines' 51 and 101 queries over
+    # the 100-token memory; "wgmma_small" with splits over 100 and 300
+    # keys (the combine pass at width 48, 46 written); fused_attention's
+    # (B, H, L, 46) through head-packed copies; f32 on "fma"
+    (128, 8, 100, 100, 46, "packed", "bfloat16", "bfloat16", "wgmma"),
+    (128, 8, 100, 100, 46, "packed", "bfloat16", "float32", "wgmma"),
+    (128, 8, 51, 100, 46, "heads", "bfloat16", "bfloat16", "wgmma"),
+    (128, 8, 100, 100, 48, "packed", "bfloat16", "bfloat16", "wgmma"),
+    (128, 8, 101, 100, 48, "heads", "bfloat16", "bfloat16", "wgmma"),
+    (2, 8, 51, 100, 46, "heads", "bfloat16", "bfloat16", "wgmma_small"),
+    (1, 8, 100, 300, 46, "packed", "bfloat16", "float32", "wgmma_small"),
+    (2, 8, 101, 100, 48, "heads", "bfloat16", "bfloat16", "wgmma_small"),
+    (2, 4, 37, 45, 46, "bhld", "bfloat16", "bfloat16", "wgmma_small"),
+    (2, 8, 51, 100, 46, "heads", "float32", "float32", "fma"),
+    (2, 4, 37, 45, 46, "bhld", "float32", "float32", "fma"),
     (8, 8, 101, 200, 96, "heads", "bfloat16", "bfloat16", "wgmma_small"),
 ]
 
@@ -356,6 +373,91 @@ def test_attention_routes_match_plain_versions(B, H, Lq, Lk, Dh, layout, dtype, 
     rel, add = (1e-4, 1e-5) if dtype == "float32" else (2e-2, 0.0)
     err, top = (got.float() - want).abs().max().item(), want.abs().max().item()
     assert err <= rel * top + add, (err, top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Lq,Lk,Dh,route", [(128, 51, 100, 46, "wgmma"),
+                                              (2, 51, 100, 46, "wgmma_small"),
+                                              (128, 101, 100, 48, "wgmma"),
+                                              (2, 101, 100, 48, "wgmma_small")])
+def test_attention_at_the_map_edge_keeps_what_lies_past_it(B, Lq, Lk, Dh, route):
+    """q, k and v as the first H * Dh columns of wider rows whose other
+    columns hold inf, the output written into the first H * Dh columns of
+    a wider buffer holding a sentinel: the last head's atoms reach past
+    the map's edge, where TMA's zero fill (not the inf) must arrive, and
+    the sentinel columns must survive the epilogue and the combine pass."""
+    from yomitoku_tpu_torch.ops._common import attention, attention_route_launches
+
+    _require_cuda()
+    H, rng = 8, np.random.default_rng(35)
+    D = H * Dh
+
+    def wide(n):
+        t = _dev(rng.standard_normal((B, n, D + 8)), torch.bfloat16)
+        t[..., D:] = float("inf")
+        return t[..., :D]
+
+    q, k, v = wide(Lq), wide(Lk), wide(Lk)
+    buf = torch.full((B, Lq, D + 8), 7.0, dtype=torch.bfloat16, device="cuda")
+    routes0 = dict(attention_route_launches)
+    attention(q, k, v, buf[..., :D], H, Dh ** -0.5)
+    torch.cuda.synchronize()
+    assert attention_route_launches[route] == routes0[route] + 1
+    want = ops.fused_attention_heads_reference(q.float(), k.float(), v.float(), H)
+    got = buf[..., :D].float()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+    assert (buf[..., D:] == 7.0).all()
+
+
+@pytest.mark.cuda
+def test_attention_width_covers_every_wgmma_head_dim():
+    """The C entry's width of the split partials' rows: the head's own at
+    each head dim wgmma's k step divides, 64 for the padded head of 46, 0
+    (no wgmma route) elsewhere; every head dim the routes take is built."""
+    from yomitoku_tpu_torch.ops._build import library
+    from yomitoku_tpu_torch.ops._common import WGMMA_HEAD_DIMS
+
+    _require_cuda()
+    width = library().lib.yt_attention_width
+    assert [width(d) for d in WGMMA_HEAD_DIMS] == [16, 32, 64, 48, 64, 96, 128]
+    assert [width(d) for d in (8, 24, 40, 44, 45, 47, 80, 112)] == [0] * 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["parseq-tiny", "parseq-small"])
+def test_lite_recognizers_f32_match_cpu(monkeypatch, name):
+    """parseq-tiny (D 368, 8 heads of 46, patch (8, 16) on 32x400) and
+    parseq-small (D 384, 8 of 48) at full width, depth cut to 2, in f32 on
+    the card and on the CPU from the same seed: equal greedy ids, probs
+    within 1e-4; and in bf16 on the card, every attention launch on a
+    wgmma route."""
+    _require_cuda()
+    monkeypatch.setenv("YOMITOKU_TPU_INT8_KV", "0")
+    from yomitoku_tpu_torch.config import structured
+    from yomitoku_tpu_torch.configs import (TextRecognizerPARSeqSmallConfig,
+                                            TextRecognizerPARSeqTinyConfig)
+    from yomitoku_tpu_torch.models.parseq import PARSeq
+    from yomitoku_tpu_torch.ops._common import attention_route_launches
+
+    cfg = structured({"parseq-tiny": TextRecognizerPARSeqTinyConfig,
+                      "parseq-small": TextRecognizerPARSeqSmallConfig}[name])
+    cfg.encoder.depth = 2
+    torch.manual_seed(0)
+    gpu = PARSeq(cfg, device="cuda", dtype=torch.float32)
+    cpu = PARSeq(cfg, device="cpu", dtype=torch.float32)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    h, w = gpu.img_size
+    x = np.random.default_rng(7).integers(0, 256, (24, h, w, 3), dtype=np.uint8)
+    ids_g, p_g = gpu.forward_tokens(x)
+    ids_c, p_c = cpu.forward_tokens(x)
+    np.testing.assert_array_equal(ids_g, ids_c)
+    np.testing.assert_allclose(p_g, p_c, atol=1e-4)
+    bf = PARSeq(cfg, device="cuda", dtype=torch.bfloat16)
+    ops.reset_launches()
+    ids_b, p_b = bf.forward_tokens(x)
+    assert np.isfinite(p_b).all() and ids_b.shape == ids_g.shape
+    assert attention_route_launches["fma"] == 0 and attention_route_launches["wgmma"] > 0
 
 
 GEMM_EPILOGUES = ("ln", "bias", "gelu", "res", "none")

@@ -20,15 +20,16 @@
 // softmax stays online (running max and sum, f32) and the logits never
 // leave the registers.
 //
-// The bf16 route (Dh in {16, 32, 64, 96, 128}, rows 16-byte aligned) is
-// built from Hopper's parts:
+// The bf16 route (Dh in {16, 32, 46, 48, 64, 96, 128}, rows 16-byte
+// aligned) is built from Hopper's parts:
 //   * one producer warp issues TMA tile loads: the block's Q tiles (double
 //     buffered) and K and V tiles of 80 keys (80 divides L = 400, so the ViT
 //     and refine shapes carry no padded keys) into a 4-stage ring guarded by
-//     full / empty mbarriers.  A 4-D tensor map (Dh, H, L, B) with byte
-//     strides (2 Dh, 2 row stride, 2 batch stride) reads the packed column
-//     slices and the (B*H, L, Dh) views alike; rows past L arrive zero-filled
-//     and the keys among them are masked to -inf in the logits;
+//     full / empty mbarriers.  A 3-D tensor map (H Dh, L, B) with byte
+//     strides (2 row stride, 2 batch stride) reads the packed column slices
+//     and the (B*H, L, Dh) views alike, a head's atoms from column h Dh;
+//     rows past L arrive zero-filled and the keys among them are masked to
+//     -inf in the logits;
 //   * consumer warpgroups of 64 query rows each run both products on wgmma:
 //     S = Q K^T (A = Q, B = K, both K-major in shared memory) and O += P V
 //     (A = P from registers: the f32 logits turned into bf16 fragments in
@@ -44,6 +45,17 @@
 //   * blocks are persistent (one or two per SM) and walk the tiles in (b,
 //     h) order, so a (batch, head)'s K and V stay in L2 while its query
 //     blocks pass and the next tile's loads overlap this one's epilogue;
+//   * a head dim that is not a multiple of 16 (46: parseq-tiny, D 368 on 8
+//     heads) runs on a wider window (64): a head starts at column 46 h, not
+//     on a 16-byte boundary, and TMA faults on a box whose first column is
+//     not on one (on the card: an illegal instruction), so each head's box
+//     of 64 columns starts at 46 h rounded down to a multiple of 8, the
+//     head's columns at offset e = 46 h mod 8 (0, 2, 4 or 6) inside it and
+//     the rest its neighbours' columns (TMA's zero fill past the last head).
+//     Each warpgroup zeroes the other 18 columns of its Q rows once per
+//     tile, so S = Q K^T takes nothing from K's; V's reach only O's columns
+//     outside [e, e + 46), which the epilogue and the split partials never
+//     store;
 //   * "wgmma" takes 128 query rows per block (two consumer warpgroups share
 //     each K/V tile); where that grid would not fill the card (RT-DETR at
 //     batch 1 and 4), "wgmma_small" takes 64 rows per block and splits the
@@ -54,8 +66,9 @@
 // entry obeys it or returns an error; nothing falls back.
 //
 // Otherwise -- always for f32, where the parity checks need full f32
-// products, and for bf16 head dims outside that set -- f32 FMAs from shared
-// memory, 4 warps x 8 query rows, Q read as float4.
+// products, and for bf16 head dims outside that set or rows that TMA cannot
+// map -- f32 FMAs from shared memory, 4 warps x 8 query rows, Q read as
+// float4.
 //
 // Semantics of both routes: f32 logits, running max and sum; the
 // probabilities rounded to bf16 before P V, as the Pallas kernel rounds its
@@ -246,6 +259,11 @@ struct Atoms {
   static constexpr int NA = DH / AW;
   static constexpr uint32_t PITCH = AW * 2;                            // bytes per atom row
   static constexpr uint32_t SWZ = AW == 64 ? 1 : AW == 32 ? 2 : 3;     // descriptor code
+  // where TMA and wgmma keep the byte at shared address ``addr`` of an
+  // atom: its 16-byte chunk XOR the address bits of its 8-row group
+  static __device__ __forceinline__ uint32_t swizzled(uint32_t addr) {
+    return addr ^ (((addr >> 7) & (PITCH / 16 - 1)) << 4);
+  }
 };
 
 // Dynamic shared memory, from a 1024-byte aligned base: Q [2 buffers][NA
@@ -340,7 +358,15 @@ __device__ __forceinline__ void to_fragments(const float (&sc)[BN / 2], uint32_t
     for (int i = 0; i < 4; ++i) pf[kk][i] = pack2(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
 }
 
-template <int DH, int NWG>
+// DH: the width the products run at (a multiple of 16); DO: the head's own
+// width, DH or, for the padded route, less (46 in 64).  The head's columns
+// lie at offset head_offset() of a window that starts on a 16-byte boundary.
+template <int DO>
+__device__ __forceinline__ int head_offset(int h) {
+  return DO % 8 == 0 ? 0 : h * DO % 8;
+}
+
+template <int DH, int DO, int NWG>
 __device__ __forceinline__ void produce(const CUtensorMap* tq, const CUtensorMap* tk,
                                         const CUtensorMap* tv, const WgArgs& p,
                                         unsigned char* sm, uint64_t* qfull, uint64_t* qempty,
@@ -353,13 +379,14 @@ __device__ __forceinline__ void produce(const CUtensorMap* tq, const CUtensorMap
   int it = 0, tn = 0;
   for (int t = blockIdx.x; t < p.ntiles; t += gridDim.x, ++tn) {
     const Tile x = decode_tile(p, t);
+    const int col0 = x.h * DO - head_offset<DO>(x.h);  // the window's first column
     const int qs = tn & 1;
     if (tn >= 2) mbar_wait(qempty + qs, ((tn >> 1) - 1) & 1);
     mbar_expect_tx(qfull + qs, L::QBYTES);
     unsigned char* qdst = sm + qs * L::QBYTES;
 #pragma unroll
     for (int a = 0; a < A::NA; ++a)
-      tma_load_4d(qdst + a * (NWG * QROWS * A::PITCH), tq, qfull + qs, a * A::AW, x.h,
+      tma_load_3d(qdst + a * (NWG * QROWS * A::PITCH), tq, qfull + qs, col0 + a * A::AW,
                   x.qb * NWG * QROWS, x.b);
     for (int kt = x.t0; kt < x.t1; ++kt, ++it) {
       const int s = it % NST, use = it / NST;
@@ -369,18 +396,43 @@ __device__ __forceinline__ void produce(const CUtensorMap* tq, const CUtensorMap
       mbar_expect_tx(kfull + s, L::KVBYTES);
 #pragma unroll
       for (int a = 0; a < A::NA; ++a)
-        tma_load_4d(kdst + a * (BN * A::PITCH), tk, kfull + s, a * A::AW, x.h, kt * BN, x.b);
+        tma_load_3d(kdst + a * (BN * A::PITCH), tk, kfull + s, col0 + a * A::AW, kt * BN,
+                    x.b);
       mbar_expect_tx(vfull + s, L::KVBYTES);
 #pragma unroll
       for (int a = 0; a < A::NA; ++a)
-        tma_load_4d(vdst + a * (BN * A::PITCH), tv, vfull + s, a * A::AW, x.h, kt * BN, x.b);
+        tma_load_3d(vdst + a * (BN * A::PITCH), tv, vfull + s, col0 + a * A::AW, kt * BN,
+                    x.b);
     }
   }
 }
 
+// The padded route: the columns of this warpgroup's 64 Q rows outside the
+// head's [e, e + DO) set to zero (one thread a row, two columns a store),
+// fenced for the async proxy that wgmma reads shared memory through,
+// before any thread of the warpgroup issues S.
+template <int DH, int DO, int NWG>
+__device__ __forceinline__ void zero_q_pad(unsigned char* qtile, int e, int w) {
+  static_assert(DO % 2 == 0, "the padded route stores column pairs");
+  using A = Atoms<DH>;
+  constexpr uint32_t QATOM = NWG * QROWS * A::PITCH;
+  const int r = threadIdx.x % 128;
+  if (r < QROWS) {
+    const uint32_t base = smem_addr(qtile);
+#pragma unroll
+    for (int i = 0; i < DH - DO; i += 2) {
+      const int c = i < e ? i : i + DO;
+      const uint32_t at = A::swizzled(base + (c / A::AW) * QATOM + r * A::PITCH + (c % A::AW) * 2);
+      *reinterpret_cast<uint32_t*>(qtile + (at - base)) = 0u;
+    }
+  }
+  fence_proxy_async();
+  named_bar_sync(3 + w, 128);
+}
+
 // w: this consumer warpgroup, 0..NWG-1 (warp-uniform).
-template <int DH, int NWG, typename TO>
-__device__ __forceinline__ void consume(const WgArgs& p, const unsigned char* sm, uint64_t* qfull,
+template <int DH, int DO, int NWG, typename TO>
+__device__ __forceinline__ void consume(const WgArgs& p, unsigned char* sm, uint64_t* qfull,
                                         uint64_t* qempty, uint64_t* kfull, uint64_t* vfull,
                                         uint64_t* kvempty, int w) {
   using A = Atoms<DH>;
@@ -416,7 +468,9 @@ __device__ __forceinline__ void consume(const WgArgs& p, const unsigned char* sm
       if (lane == 0) mbar_arrive(qempty + qs);
       continue;
     }
-    const unsigned char* qtile = sm + qs * L::QBYTES + w * QROWS * A::PITCH;
+    unsigned char* qtile = sm + qs * L::QBYTES + w * QROWS * A::PITCH;
+    const int e = head_offset<DO>(x.h);  // the head's first column in the window
+    if constexpr (DO < DH) zero_q_pad<DH, DO, NWG>(qtile, e, w);
 
     float o[DH / 2], sc[BN / 2];
     uint32_t pf[BN / 16][4];
@@ -500,16 +554,20 @@ __device__ __forceinline__ void consume(const WgArgs& p, const unsigned char* sm
       l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     }
     const long long bh = (long long)x.b * p.heads + x.h;
+    // on the padded route, accumulator columns 8 j + 2 qd (+1) outside the head
+    auto off_head = [&](int j) { return DO < DH && (j * 8 + qd * 2 < e || j * 8 + qd * 2 >= e + DO); };
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int row = r0 + warp * 16 + g + hr * 8;
       if (row >= p.lq) continue;
       if (p.splits > 1) {  // unnormalised partial output and its (max, sum)
         const long long idx = ((long long)x.sp * p.batch * p.heads + bh) * p.lq + row;
-        float* dst = p.part + idx * DH + qd * 2;
+        float* dst = p.part + idx * DH + qd * 2 - e;  // the head's columns first
 #pragma unroll
-        for (int j = 0; j < DH / 8; ++j)
+        for (int j = 0; j < DH / 8; ++j) {
+          if (off_head(j)) continue;
           *reinterpret_cast<float2*>(dst + j * 8) = make_float2(o[4 * j + 2 * hr], o[4 * j + 2 * hr + 1]);
+        }
         if (qd == 0) {
           float* ml = p.part + (long long)p.splits * p.batch * p.heads * p.lq * DH + idx * 2;
           *reinterpret_cast<float2*>(ml) = make_float2(m_run[hr], l_run[hr]);
@@ -517,9 +575,10 @@ __device__ __forceinline__ void consume(const WgArgs& p, const unsigned char* sm
         continue;
       }
       const float inv = 1.f / l_run[hr];
-      TO* dst = static_cast<TO*>(p.o) + x.b * p.o_bs + row * p.o_rs + x.h * DH + qd * 2;
+      TO* dst = static_cast<TO*>(p.o) + x.b * p.o_bs + row * p.o_rs + x.h * DO - e + qd * 2;
 #pragma unroll
       for (int j = 0; j < DH / 8; ++j) {
+        if (off_head(j)) continue;
         const float a0 = o[4 * j + 2 * hr] * inv, a1 = o[4 * j + 2 * hr + 1] * inv;
         if constexpr (sizeof(TO) == 4)
           *reinterpret_cast<float2*>(dst + j * 8) = make_float2(a0, a1);
@@ -533,7 +592,7 @@ __device__ __forceinline__ void consume(const WgArgs& p, const unsigned char* sm
 // Warpgroup 0 is the producer (one thread issues every TMA load), warpgroups
 // 1..NWG the consumers.  The roles part once and never meet again, so
 // setmaxnreg can hand the producer's registers to the consumers.
-template <int DH, int NWG, typename TO>
+template <int DH, int DO, int NWG, typename TO>
 __global__ void __launch_bounds__((NWG + 1) * 128, (NWG == 1 && DH <= 32) ? 2 : 1)
     attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -561,18 +620,19 @@ __global__ void __launch_bounds__((NWG + 1) * 128, (NWG == 1 && DH <= 32) ? 2 : 
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (wg == 0) {
     if constexpr (NWG == 2) warpgroup_reg_dealloc<24>();
-    if (threadIdx.x == 0) produce<DH, NWG>(&tq, &tk, &tv, p, sm, qfull, qempty, kfull, vfull, kvempty);
+    if (threadIdx.x == 0)
+      produce<DH, DO, NWG>(&tq, &tk, &tv, p, sm, qfull, qempty, kfull, vfull, kvempty);
   } else {
     if constexpr (NWG == 2) warpgroup_reg_alloc<240>();
-    consume<DH, NWG, TO>(p, sm, qfull, qempty, kfull, vfull, kvempty, wg - 1);
+    consume<DH, DO, NWG, TO>(p, sm, qfull, qempty, kfull, vfull, kvempty, wg - 1);
   }
 }
 
 struct CombineArgs {
-  const float* part;
+  const float* part;  // partial rows of dp floats (the kernel's DH), the head's dh first
   void* o;
   long long o_bs, o_rs;
-  int batch, heads, lq, dh, splits;
+  int batch, heads, lq, dh, dp, splits;
 };
 
 // One warp per (batch, head, row): O = sum_s w_s O_s / sum_s w_s l_s with
@@ -583,14 +643,14 @@ __global__ void __launch_bounds__(128) attention_combine_kernel(CombineArgs c) {
   const long long idx = (long long)blockIdx.x * 4 + threadIdx.x / 32;
   if (idx >= rows) return;
   const int lane = threadIdx.x % 32;
-  const float* ml = c.part + (long long)c.splits * rows * c.dh;
+  const float* ml = c.part + (long long)c.splits * rows * c.dp;
   float mx = -INFINITY;
   for (int s = 0; s < c.splits; ++s) mx = fmaxf(mx, ml[(s * rows + idx) * 2]);
   float l = 0.f, acc[DMAX / 32] = {0.f, 0.f, 0.f, 0.f};
   for (int s = 0; s < c.splits; ++s) {
     const float wgt = exp2f(ml[(s * rows + idx) * 2] - mx);
     l += wgt * ml[(s * rows + idx) * 2 + 1];
-    const float* src = c.part + (s * rows + idx) * c.dh;
+    const float* src = c.part + (s * rows + idx) * c.dp;
 #pragma unroll
     for (int i = 0; i < DMAX / 32; ++i)
       if (lane + 32 * i < c.dh) acc[i] += wgt * src[lane + 32 * i];
@@ -605,23 +665,24 @@ __global__ void __launch_bounds__(128) attention_combine_kernel(CombineArgs c) {
 
 // ------------------------------------------------------ host side
 
-// A 4-D map (Dh, H, L, B) of bf16 head-packed rows; boxes of one atom of
-// one head, ``rows`` rows, one batch item.
-template <int DH>
+// A 3-D map (H DO, L, B) of bf16 head-packed rows; boxes of one atom (AW
+// columns from a column on a 16-byte boundary), ``rows`` rows, one batch
+// item.
+template <int DH, int DO>
 int make_map(CUtensorMap* map, const void* base, int heads, int len, int batch, long long rs,
              long long bs, int rows) {
   using A = Atoms<DH>;
   if (batch == 1) bs = rs * len;  // unused; any valid stride
   const EncodeTiled fn = encoder();
   if (!fn) return YT_ERR_TENSOR_MAP;
-  const cuuint64_t dims[4] = {(cuuint64_t)DH, (cuuint64_t)heads, (cuuint64_t)len, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)DH * 2, (cuuint64_t)rs * 2, (cuuint64_t)bs * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)A::AW, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const cuuint64_t dims[3] = {(cuuint64_t)heads * DO, (cuuint64_t)len, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)rs * 2, (cuuint64_t)bs * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)A::AW, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
   const CUtensorMapSwizzle swz = A::AW == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
                                  : A::AW == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : YT_ERR_TENSOR_MAP;
@@ -633,13 +694,13 @@ bool tma_ok(const AttnArgs& p) {
          (p.q_bs | p.q_rs | p.k_bs | p.k_rs | p.v_bs | p.v_rs | p.o_bs | p.o_rs) % 8 == 0;
 }
 
-template <int DH, int NWG, typename TO>
+template <int DH, int DO, int NWG, typename TO>
 int launch_wgmma(const AttnArgs& a, int batch, int splits, float* part, cudaStream_t s) {
   using L = Layout<DH, NWG>;
   CUtensorMap tq, tk, tv;
-  int rc = make_map<DH>(&tq, a.q, a.heads, a.lq, batch, a.q_rs, a.q_bs, NWG * QROWS);
-  if (!rc) rc = make_map<DH>(&tk, a.k, a.heads, a.lk, batch, a.k_rs, a.k_bs, BN);
-  if (!rc) rc = make_map<DH>(&tv, a.v, a.heads, a.lk, batch, a.v_rs, a.v_bs, BN);
+  int rc = make_map<DH, DO>(&tq, a.q, a.heads, a.lq, batch, a.q_rs, a.q_bs, NWG * QROWS);
+  if (!rc) rc = make_map<DH, DO>(&tk, a.k, a.heads, a.lk, batch, a.k_rs, a.k_bs, BN);
+  if (!rc) rc = make_map<DH, DO>(&tv, a.v, a.heads, a.lk, batch, a.v_rs, a.v_bs, BN);
   if (rc) return rc;
   WgArgs p{};
   p.o = a.o;
@@ -660,7 +721,7 @@ int launch_wgmma(const AttnArgs& a, int batch, int splits, float* part, cudaStre
   p.ntiles = p.nqb * p.splits * a.heads * batch;
   p.sl2 = a.scale * 1.4426950408889634f;
 
-  auto kern = attention_wgmma_kernel<DH, NWG, TO>;
+  auto kern = attention_wgmma_kernel<DH, DO, NWG, TO>;
   constexpr int threads = (NWG + 1) * 128;
   // per device, once: the shared-memory attribute, SMs, blocks per SM
   static int per_sm[MAX_DEVICES] = {}, sms[MAX_DEVICES] = {};
@@ -681,20 +742,32 @@ int launch_wgmma(const AttnArgs& a, int batch, int splits, float* part, cudaStre
   kern<<<grid, threads, L::ALLOC, s>>>(tq, tk, tv, p);
   e = cudaGetLastError();
   if (e != cudaSuccess || p.splits == 1) return (int)e;
-  CombineArgs c{part, a.o, a.o_bs, a.o_rs, batch, a.heads, a.lq, DH, p.splits};
+  CombineArgs c{part, a.o, a.o_bs, a.o_rs, batch, a.heads, a.lq, DO, DH, p.splits};
   const long long rows = (long long)batch * a.heads * a.lq;
   attention_combine_kernel<TO><<<(unsigned)((rows + 3) / 4), 128, 0, s>>>(c);
   return (int)cudaGetLastError();
 }
 
+// The width the wgmma routes compute a head of ``dh`` columns at, 0 where
+// none is built: dh where wgmma's k step (16) divides it, 64 for the
+// padded head of 46 (its window from the 16-byte boundary at or below the
+// head's first column).  The split partials are rows of this width.
+constexpr int head_width(int dh) {
+  return dh == 46 ? 64
+         : (dh == 16 || dh == 32 || dh == 48 || dh == 64 || dh == 96 || dh == 128) ? dh
+                                                                                     : 0;
+}
+
 template <int NWG, typename TO>
 int route_wgmma(const AttnArgs& a, int batch, int splits, float* part, cudaStream_t s) {
   switch (a.dh) {
-    case 16: return launch_wgmma<16, NWG, TO>(a, batch, splits, part, s);
-    case 32: return launch_wgmma<32, NWG, TO>(a, batch, splits, part, s);
-    case 64: return launch_wgmma<64, NWG, TO>(a, batch, splits, part, s);
-    case 96: return launch_wgmma<96, NWG, TO>(a, batch, splits, part, s);
-    case 128: return launch_wgmma<128, NWG, TO>(a, batch, splits, part, s);
+    case 16: return launch_wgmma<head_width(16), 16, NWG, TO>(a, batch, splits, part, s);
+    case 32: return launch_wgmma<head_width(32), 32, NWG, TO>(a, batch, splits, part, s);
+    case 46: return launch_wgmma<head_width(46), 46, NWG, TO>(a, batch, splits, part, s);
+    case 48: return launch_wgmma<head_width(48), 48, NWG, TO>(a, batch, splits, part, s);
+    case 64: return launch_wgmma<head_width(64), 64, NWG, TO>(a, batch, splits, part, s);
+    case 96: return launch_wgmma<head_width(96), 96, NWG, TO>(a, batch, splits, part, s);
+    case 128: return launch_wgmma<head_width(128), 128, NWG, TO>(a, batch, splits, part, s);
   }
   return YT_ERR_ROUTE;
 }
@@ -705,7 +778,7 @@ int route_wgmma(const AttnArgs& a, int batch, int splits, float* part, cudaStrea
 // kernel, 128 query rows per block; 2 the wgmma kernel, 64 rows per block,
 // the keys split over at most ``splits`` blocks, each of whole 80-key tiles,
 // and ``part`` holding their partials (room for splits * batch * heads * lq
-// * (dh + 2) floats) when splits > 1.
+// * (yt_attention_width(dh) + 2) floats) when splits > 1.
 // out_dtype: dtype, or YT_F32 for bf16 inputs (f32 output).
 extern "C" int yt_attention(int route, int splits, int dtype, int out_dtype, const void* q,
                             long long q_bs, long long q_rs, const void* k, long long k_bs,
@@ -737,3 +810,7 @@ extern "C" int yt_attention(int route, int splits, int dtype, int out_dtype, con
                       : route_wgmma<1, float>(p, batch, splits, pf, s);
   return YT_ERR_ROUTE;
 }
+
+// The width of the split partials' rows for a head of ``dh`` columns (the
+// width the wgmma routes compute it at), 0 where no wgmma route is built.
+extern "C" int yt_attention_width(int dh) { return head_width(dh); }

@@ -302,6 +302,19 @@ __device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
+__device__ __forceinline__ void wgmma_rs_n48(float* d, const uint32_t* a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
 __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t b, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -352,9 +365,11 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint6
 
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b, int acc) {
-  static_assert(N == 16 || N == 32 || N == 64 || N == 96 || N == 128, "wgmma_rs width");
+  static_assert(N == 16 || N == 32 || N == 48 || N == 64 || N == 96 || N == 128,
+                "wgmma_rs width");
   if constexpr (N == 16) wgmma_rs_n16(d, a, b, acc);
   if constexpr (N == 32) wgmma_rs_n32(d, a, b, acc);
+  if constexpr (N == 48) wgmma_rs_n48(d, a, b, acc);
   if constexpr (N == 64) wgmma_rs_n64(d, a, b, acc);
   if constexpr (N == 96) wgmma_rs_n96(d, a, b, acc);
   if constexpr (N == 128) wgmma_rs_n128(d, a, b, acc);

@@ -61,6 +61,8 @@ class _Library:
             vp, i64, i64, vp, i32, i32, i32, i32, i32, ctypes.c_float, vp,
         ]
         lib.yt_attention.restype = i32
+        lib.yt_attention_width.argtypes = [i32]
+        lib.yt_attention_width.restype = i32
         ip = ctypes.POINTER(ctypes.c_int)
         lib.yt_ms_deformable_attention.argtypes = [
             i32, i32, vp, vp, vp, vp, i32, i64, i32, i32, i32, i32, ip, ip, vp,

@@ -238,13 +238,16 @@ def gemm(a, w, bias, out, res=None, ln=None, gelu=False):
 
 #: Routes of the attention kernel (csrc/attention.cu ``yt_attention``):
 #: "fma" f32 FMAs from shared memory (f32, and bf16 head dims the wgmma
-#: route is not built for); "wgmma" TMA + wgmma, 128 query rows per block;
+#: route is not built for or rows TMA cannot map); "wgmma" TMA + wgmma, 128
+#: query rows per block;
 #: "wgmma_small" the same kernel with 64 rows per block and the key range
 #: split over up to ``_MAX_SPLITS`` blocks plus a combine pass, for grids
 #: that 128-row blocks would leave under one wave.
 ATTENTION_ROUTES = {"fma": 0, "wgmma": 1, "wgmma_small": 2}
-#: head dims the wgmma routes are instantiated for
-WGMMA_HEAD_DIMS = (16, 32, 64, 96, 128)
+#: head dims the wgmma routes are instantiated for; 46 (parseq-tiny, D 368
+#: on 8 heads) runs on a window of 64 columns inside (the C entry's
+#: ``yt_attention_width`` gives the width each computes at)
+WGMMA_HEAD_DIMS = (16, 32, 46, 48, 64, 96, 128)
 #: launches of the attention kernel by route, counted like ``launches``
 attention_route_launches = dict.fromkeys(ATTENTION_ROUTES, 0)
 _MAX_SPLITS = 4
@@ -289,11 +292,12 @@ def launch_attention(route, splits, q, k, v, out, num_heads, scale):
     B, Lq, D = q.shape
     dh = D // num_heads
     (qs, ks, vs, os_) = [t.stride() for t in (q, k, v, out)]
-    part = None
-    if splits > 1:  # room for the splits' partial outputs and (max, sum) pairs
-        part = torch.empty(splits * B * num_heads * Lq * (dh + 2),
-                           dtype=torch.float32, device=q.device)
     lib = library()
+    part = None
+    if splits > 1:  # room for the splits' partial rows and (max, sum) pairs
+        width = lib.lib.yt_attention_width(dh)
+        part = torch.empty(splits * B * num_heads * Lq * (width + 2),
+                           dtype=torch.float32, device=q.device)
     rc = _launch(
         q.device, lib.lib.yt_attention,
         ATTENTION_ROUTES[route], splits, _code(q), _code(out),

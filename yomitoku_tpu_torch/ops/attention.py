@@ -16,7 +16,8 @@
 
 * ``fused_attention``: unmasked softmax(q k^T s) v on (B, H, L, Dh)
   tensors, one launch of the attention kernel on the (B*H, L, Dh) views
-  with one head each.
+  with one head each; in bf16 at a wgmma head dim whose rows TMA cannot
+  map (46: 92 bytes), on head-packed (B, L, H*Dh) copies instead.
 * ``fused_attention_block``: attn(x Wq + bq, x Wk + bk, x Wv + bv) Wo + bo,
   the LN sublayer's chain without the LayerNorm prologue and without the
   residual: three launches (packed QKV GEMM, attention, out-projection
@@ -44,6 +45,7 @@ f32 logits and accumulation, projections rounded to the input dtype.
 import torch
 
 from ._common import (
+    WGMMA_HEAD_DIMS,
     attention,
     gemm,
     gemm_int8,
@@ -119,6 +121,13 @@ def fused_attention(q, k, v, scale=None):
     if k.shape != (B, H, Lk, Dh) or v.shape != k.shape:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
+    if q.dtype == torch.bfloat16 and Dh in WGMMA_HEAD_DIMS and Dh % 8:
+        # rows of Dh elements are no TMA rows: the wgmma route on head-packed copies
+        packed = lambda t: t.transpose(1, 2).reshape(B, t.shape[2], H * Dh)  # noqa: E731
+        out = torch.empty((B, Lq, H * Dh), dtype=q.dtype, device=q.device)
+        attention(packed(q), packed(k), packed(v), out, H, scale)
+        launches[name] += 1
+        return out.view(B, Lq, H, Dh).transpose(1, 2).contiguous()
     out = torch.empty((B, H, Lq, Dh), dtype=q.dtype, device=q.device)
     attention(q.reshape(B * H, Lq, Dh), k.reshape(B * H, Lk, Dh),
               v.reshape(B * H, Lk, Dh), out.view(B * H, Lq, Dh), 1, scale)
