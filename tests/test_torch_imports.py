@@ -119,6 +119,16 @@ def test_source_imports_nothing_of_jax(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_port_imports_no_lxml(probe):
+    """The HTML exporter prints with the port's own printer: no file of the
+    port, nor ``chip_smoke.py``, imports lxml, and importing every module
+    of the port (where lxml is installed) loads none of it."""
+    bad = {path: names for path in _sources()
+           if (names := [n for n in _imported_names(path) if _top(n) == "lxml"])}
+    assert not bad, bad
+    assert not [m for m in probe["loaded"] if _top(m) == "lxml"]
+
+
 def _string_imports(source, filename="<source>"):
     """The literal module names given to ``__import__`` or
     ``import_module`` (``importlib.import_module``, or imported by name),
@@ -196,9 +206,10 @@ def test_port_keeps_its_own_resources():
 
 
 def test_document_analyzer_imports_without_lxml(tmp_path):
-    """The HTML exporter imports lxml where it prints the document, so the
-    analyzer and the other exporters import and run on a machine without
-    it; only ``to_html`` needs it."""
+    """The analyzer and every exporter import and run on a machine without
+    lxml: ``to_html`` prints with the port's own printer
+    (``export/html_tree.py``), byte for byte the JAX package's lxml print
+    of the same document, and lxml is never loaded."""
     script = f"""
 import sys
 sys.modules["lxml"] = None  # import lxml raises ImportError
@@ -206,20 +217,28 @@ sys.path.insert(0, {str(ROOT)!r})
 import yomitoku_tpu_torch.document_analyzer
 from yomitoku_tpu_torch.schemas import DocumentAnalyzerSchema, ParagraphSchema
 doc = DocumentAnalyzerSchema(paragraphs=[ParagraphSchema(
-    box=[0, 0, 10, 10], contents="a", direction="horizontal", order=0, role=None)],
+    box=[0, 0, 10, 10], contents="a", direction="horizontal", order=0, role=None),
+    ParagraphSchema(box=[0, 20, 10, 30], contents="<b>&\\n", direction="horizontal",
+                    order=1, role="section_headings")],
     tables=[], words=[], figures=[])
 doc.to_markdown({str(tmp_path / "d.md")!r})
 doc.to_csv({str(tmp_path / "d.csv")!r})
 doc.to_json({str(tmp_path / "d.json")!r})
-try:
-    doc.to_html({str(tmp_path / "d.html")!r})
-except ImportError:
-    print("ok")
+doc.to_html({str(tmp_path / "d.html")!r})
+loaded = [m for m, v in sys.modules.items() if m.split(".")[0] == "lxml" and v is not None]
+print("ok" if not loaded else loaded)
 """
     out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                          cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
     assert out.stdout.strip().endswith("ok")
+    from yomitoku_tpu.schemas import DocumentAnalyzerSchema
+
+    doc = DocumentAnalyzerSchema.model_validate_json(
+        (tmp_path / "d.json").read_text(encoding="utf-8"))
+    doc.to_html(str(tmp_path / "jax.html"))
+    assert (tmp_path / "d.html").read_bytes() == (tmp_path / "jax.html").read_bytes()
+    assert b"<h1>&lt;b&gt;&amp;<br/></h1>" in (tmp_path / "d.html").read_bytes()
 
 
 def test_extractors_import_without_openai(tmp_path):

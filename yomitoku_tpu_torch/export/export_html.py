@@ -1,20 +1,21 @@
 """HTML exporter (the port's copy of yomitoku_tpu/export/export_html.py):
 escaped contents, ``<table border="1">`` with row/colspan, ``<h1>`` section
-headings, lxml pretty-printing of the final document fragment.  Elements
-render to ``{"order", "html", ...}`` fragments with inline f-string markup;
-table rows come from grouping the (already row-sorted) cell list by
-consecutive row numbers.
+headings, the final document fragment pretty-printed.  Elements render to
+``{"order", "html", ...}`` fragments with inline f-string markup; table
+rows come from grouping the (already row-sorted) cell list by consecutive
+row numbers.
 
-lxml is imported where the document is pretty-printed, so the package
-imports on a machine without it; only the HTML export needs it.
+The JAX package prints the document with lxml; the port reads and prints
+its own markup with ``html_tree.pretty_print``, which gives lxml's bytes
+for it without lxml.
 """
 
 import re
 from html import escape
 from itertools import groupby
 
-
 from .figures import crop_figures
+from .html_tree import pretty_print
 
 _URL_RE = re.compile(r"https?://[^\s<>]")
 
@@ -60,9 +61,9 @@ def paragraph_to_html(paragraph, ignore_line_break):
     text = _html_text(paragraph.contents, ignore_line_break)
     if paragraph.role == "section_headings":
         text = f"<h1>{text}</h1>"
-    # always <p>-wrapped — for headings lxml splits the (invalid)
-    # <p><h1> nesting into an empty <p/> sibling, and that quirk is part
-    # of the reference's byte-level output
+    # always <p>-wrapped — for headings the HTML parser splits the
+    # (invalid) <p><h1> nesting into an empty <p/> sibling, and that quirk
+    # is part of the reference's byte-level output (html_tree)
     return {
         "box": paragraph.box,
         "order": paragraph.order,
@@ -128,13 +129,7 @@ def convert_html(
     joined = "".join(f["html"] for f in fragments)
     if not joined:
         return "", fragments
-    from lxml import etree, html as lxml_html
-
-    parsed = lxml_html.fromstring(joined)
-    return (
-        etree.tostring(parsed, pretty_print=True, encoding="unicode"),
-        fragments,
-    )
+    return pretty_print(joined), fragments
 
 
 def export_html(

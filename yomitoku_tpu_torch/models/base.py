@@ -5,8 +5,9 @@ A model is an ``nn.Module`` whose parameter names follow the reference
 torch checkpoints' ``state_dict`` layout, so a reference checkpoint loads
 as it is.  It lives on one explicit device in one compute dtype: bf16 on
 CUDA (as the JAX package computes in bf16 on its accelerator), f32 on the
-CPU.  Random initialisation draws from an explicit ``torch.Generator`` on
-the CPU, so a seed gives the same weights on every device.
+CPU, unless ``YOMITOKU_TPU_DTYPE`` names one, as in the JAX package.
+Random initialisation draws from an explicit ``torch.Generator`` on the
+CPU, so a seed gives the same weights on every device.
 
 ``use_mesh`` attaches a dp mesh (``parallel.mesh``): the model then keeps
 one replica per dp device (``replicas``), rebuilt when its weights
@@ -16,6 +17,7 @@ divides evenly (``place_batch``, ``run_placed``), as the JAX package's
 """
 
 import math
+import os
 import threading
 
 import numpy as np
@@ -26,7 +28,23 @@ from ..parallel.mesh import batch_sharding
 from ..parallel.runner import Replicas, gather, in_replica_worker
 
 
+#: the names ``YOMITOKU_TPU_DTYPE`` takes, in any case (the JAX package's)
+DTYPE_NAMES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+               "f32": torch.float32, "float32": torch.float32}
+
+
 def default_dtype(device) -> torch.dtype:
+    """The compute dtype of a model built without one: the one
+    ``YOMITOKU_TPU_DTYPE`` names where it is set (an unknown name raises
+    KeyError, as in the JAX package), else bf16 on CUDA and f32 on the
+    CPU."""
+    env = os.environ.get("YOMITOKU_TPU_DTYPE")
+    if env:
+        try:
+            return DTYPE_NAMES[env.lower()]
+        except KeyError:
+            raise KeyError(f"YOMITOKU_TPU_DTYPE={env!r}: not one of "
+                           f"{', '.join(DTYPE_NAMES)}") from None
     return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
 
 

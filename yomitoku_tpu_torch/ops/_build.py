@@ -3,10 +3,16 @@
 Each ``.cu`` source compiles with its own ``nvcc`` process, all started
 together, and the objects link into one shared library with a plain C
 interface, loaded through ``ctypes`` (no PyTorch headers, so the build
-takes seconds).  The library lands in ``build/yomitoku_tpu_torch/``
-at the repository root, named by a hash of the sources and flags: a
-changed source rebuilds, an unchanged one reuses the library.  A failed
-build raises with nvcc's output; nothing falls back to the plain version.
+takes seconds).  The library lands in ``build_dir()``, named by a hash of
+the sources and flags: a changed source rebuilds, an unchanged one reuses
+the library.  A failed build raises with nvcc's output; nothing falls back
+to the plain version.
+
+``build_dir()`` reads ``YOMITOKU_TPU_NATIVE_DIR`` as the JAX package's
+native code does: the directory it names where it is set, else
+``build/yomitoku_tpu_torch/`` beside the package where that can be made,
+else a directory under the system's temporary directory (an installed,
+read-only copy).  It is resolved at each build, not at import.
 
 The host C++ of the port (``csrc/*.cpp``: the DBNet contours, and the PDF
 engine's rasterizer, CCITT and JBIG2 decoders) builds the same way with
@@ -21,11 +27,13 @@ import os
 import re
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+#: the default build directory, at the repository root
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "yomitoku_tpu_torch"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
@@ -120,6 +128,25 @@ def _nvcc() -> str:
     )
 
 
+def build_dir() -> Path:
+    """Where the libraries are built and loaded from, made if missing:
+    ``$YOMITOKU_TPU_NATIVE_DIR``, else ``BUILD_DIR`` where it can be made,
+    else ``yomitoku_tpu_torch`` under ``tempfile.gettempdir()``."""
+    named = os.environ.get("YOMITOKU_TPU_NATIVE_DIR")
+    if named:
+        out = Path(named)
+    else:
+        try:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        except OSError:
+            pass
+        if os.access(BUILD_DIR, os.W_OK | os.X_OK):
+            return BUILD_DIR
+        out = Path(tempfile.gettempdir()) / "yomitoku_tpu_torch"
+    out.mkdir(parents=True, exist_ok=True)
+    return out
+
+
 def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
@@ -146,10 +173,9 @@ def build() -> _Library:
     cu, _ = _sources()
     if not cu:
         raise KernelBuildError(f"no CUDA sources under {CSRC}")
-    out = BUILD_DIR / f"libyt_kernels_{source_hash()}.so"
+    out = build_dir() / f"libyt_kernels_{source_hash()}.so"
     if out.exists():
         return _Library(out, 0.0, "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
     objs = [tmp.with_name(f"{tmp.stem}.{f.stem}.o") for f in cu]
     nvcc = _nvcc()
@@ -195,7 +221,7 @@ _INCLUDE = re.compile(r'^#include "([^"]+)"', re.M)
 
 def host_library(stem: str) -> ctypes.CDLL:
     """The host C++ library ``csrc/<stem>.cpp`` (no CUDA), compiled at
-    first use with the host's g++ into ``BUILD_DIR`` (named by a hash of
+    first use with the host's g++ into ``build_dir()`` (named by a hash of
     the source and flags) and loaded; raises KernelBuildError when it
     cannot be built."""
     if stem not in _HOST:
@@ -213,9 +239,8 @@ def _build_host(stem):
     # rebuilds when either changes
     for name in _INCLUDE.findall(text.decode("utf-8", "replace")):
         h.update((CSRC / name).read_bytes())
-    out = BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
+    out = build_dir() / f"lib{stem}_{h.hexdigest()[:16]}.so"
     if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         cxx = shutil.which("g++") or shutil.which("c++")
         if cxx is None:
