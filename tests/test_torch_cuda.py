@@ -149,6 +149,56 @@ def test_small_recognizer_f32_matches_cpu(monkeypatch):
         np.testing.assert_allclose(p_g, p_c, atol=1e-4)
 
 
+@pytest.mark.cuda
+def test_ar_loop_records_capture_once_and_links_replay_kernels(monkeypatch):
+    """The small PARSeq on the card with a stage collector installed: a
+    ``parseq/capture`` record inside the first ``parseq/ar`` of each loop
+    shape (batches 40 and 8) and in no later one; under a CUDA profiler,
+    every ``parseq/replay`` range has the graph's kernels linked to it, the
+    same number each replay."""
+    _require_cuda()
+    monkeypatch.setenv("YOMITOKU_TPU_INT8_KV", "0")
+    from pathlib import Path
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from yomitoku_tpu_torch.text_recognizer import TextRecognizer
+    from yomitoku_tpu_torch.utils import stagetrace
+
+    cfg = str(Path(__file__).parent / "yaml" / "rec_small.yaml")
+    model = TextRecognizer(path_cfg=cfg, device="cuda", dtype=torch.float32,
+                           from_pretrained=False).model
+    rng = np.random.default_rng(7)
+    batches = (40, 40, 8, 40, 8)
+    with stagetrace.collect() as stats:
+        for b in batches:
+            model.forward_tokens(rng.integers(0, 256, (b, 32, 32, 3), dtype=np.uint8))
+    loops = sorted((r for r in stats.records if r.name == "parseq/ar"),
+                   key=lambda r: r.start_ns)
+    captures = [r for r in stats.records if r.name == "parseq/capture"]
+    assert len(loops) == len(batches) and len(captures) == 2
+    assert [any(c.parent == r.id for c in captures) for r in loops] == [
+        True, False, True, False, False]
+
+    with stagetrace.collect() as traced, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model.forward_tokens(rng.integers(0, 256, (40, 32, 32, 3), dtype=np.uint8))
+        torch.cuda.synchronize()
+    ranges = {r.name for r in traced.records}  # also a range's device-side annotation
+    events = prof.profiler.kineto_results.events()
+    replays = {e.correlation_id() for e in events
+               if e.name() == "parseq/replay" and e.device_type() == DeviceType.CPU}
+    linked = {c: 0 for c in replays}
+    for e in events:
+        if (e.device_type() == DeviceType.CUDA and e.name() not in ranges
+                and e.linked_correlation_id() in linked):
+            linked[e.linked_correlation_id()] += 1
+    L = model.max_label_length + 1
+    assert len(replays) == L  # random weights: no early exit
+    assert min(linked.values()) > 0 and len(set(linked.values())) == 1, linked
+
+
 #: (batch, Lq, heads, c, pyramid, points, value layout): RT-DETR's 640x640
 #: pyramid (80, 40, 20) at 8 heads of 32 (the layout decoder's 300 queries,
 #: the cell detector's 2500, the table recognizer's batch of 4, uneven points

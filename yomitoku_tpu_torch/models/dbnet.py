@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..data.functions import IMAGENET_MEAN, IMAGENET_STD
-
+from ..utils.stagetrace import count, segment
 from .base import TorchModel
 from .layers.resnet import FrozenBatchNorm, ResNetFeatures
 
@@ -217,11 +217,22 @@ class DBNet(TorchModel):
 
     def forward_binary_from_page(self, page, src_hw, out_hw) -> np.ndarray:
         """Host entry of ``forward_from_page`` -> (1, oh, ow) uint8 map."""
-        return self.forward_from_page(page, src_hw, out_hw).cpu().numpy()
+        with segment(self.trace_stage, "dispatch"):
+            wire = self.forward_from_page(page, src_hw, out_hw)
+        return self._read_back(wire)
 
     def forward_binary_u8(self, images_u8: np.ndarray) -> np.ndarray:
         """Host entry: (B, H, W, 3) uint8 ndarray -> (B, H, W) uint8 map."""
-        return self.forward_u8(torch.from_numpy(np.ascontiguousarray(images_u8))).cpu().numpy()
+        with segment(self.trace_stage, "dispatch", nbytes=images_u8.nbytes):
+            wire = self.forward_u8(torch.from_numpy(np.ascontiguousarray(images_u8)))
+        return self._read_back(wire)
+
+    def _read_back(self, wire):
+        """The wire map's readback, one device-to-host copy."""
+        with segment(self.trace_stage, "sync", nbytes=wire.nbytes):
+            out = wire.cpu().numpy()
+        count("d2h", "copies", 1, wire.nbytes)
+        return out
 
     def forward_binary(self, images: np.ndarray) -> np.ndarray:
         """Host entry: (B, H, W, 3) standardized float32 -> (B, H, W) map."""

@@ -34,7 +34,7 @@ from torch import nn
 
 from ..parallel.runner import one_card
 from ..utils.logger import set_logger
-from ..utils.stagetrace import segment
+from ..utils.stagetrace import count, segment
 from .base import TorchModel, trunc_normal_
 from .layers.two_stream import TwoStreamDecoder
 from .layers.vit import ViTEncoder
@@ -213,31 +213,52 @@ class _CachedARLoop:
     def _capture(self):
         """Run step 0 on a side stream (the warm-up graph capture needs),
         then capture the step in a CUDA graph."""
-        dev = self.tgt_in.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self.step()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with _CAPTURE_LOCK, torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            self.step()
+        with segment("parseq", "capture"):
+            dev = self.tgt_in.device
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self.step()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with _CAPTURE_LOCK, torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                self.step()
 
     def __call__(self, memory):
-        """memory (B, M, D) -> (tgt_in, logits or None), fresh tensors."""
-        with self.model._ar_lock:
-            self._reset(memory)
-            first = 0
-            if self.capturable and self.graph is None:
-                self._capture()  # ran step 0
-                first = 1
-            run = self.step if self.graph is None else self.graph.replay
-            for i in range(first, self.L):
-                if i and bool(self.done):
-                    break
-                run()
-            logits = None if self.logits is None else self.logits.clone()
-            return self.tgt_in.clone(), logits
+        """memory (B, M, D) -> (tgt_in, logits or None), fresh tensors.
+        Stage segments: ``parseq/ar_wait`` (taking the lock),
+        ``parseq/ar`` (the lock held), in it ``parseq/reset``, a first
+        batch's ``parseq/capture``, and per step ``parseq/replay`` (the
+        launch) and ``parseq/done_wait`` (the flag's readback, a
+        device-to-host copy); ``parseq/steps`` counts the steps run."""
+        lock = self.model._ar_lock
+        with segment("parseq", "ar_wait"):
+            lock.__enter__()
+        try:
+            with segment("parseq", "ar"):
+                with segment("parseq", "reset"):
+                    self._reset(memory)
+                first = 0
+                if self.capturable and self.graph is None:
+                    self._capture()  # ran step 0
+                    first = 1
+                run = self.step if self.graph is None else self.graph.replay
+                steps = self.L
+                for i in range(first, self.L):
+                    if i:
+                        with segment("parseq", "done_wait", nbytes=self.done.nbytes):
+                            done = bool(self.done)
+                        count("d2h", "copies", 1, self.done.nbytes)
+                        if done:
+                            steps = i
+                            break
+                    with segment("parseq", "replay"):
+                        run()
+                count("parseq", "steps", steps)
+                logits = None if self.logits is None else self.logits.clone()
+                return self.tgt_in.clone(), logits
+        finally:
+            lock.__exit__(None, None, None)
 
 
 class PARSeq(TorchModel):
@@ -349,7 +370,9 @@ class PARSeq(TorchModel):
     def forward_logits(self, images):
         """(B, H, W, 3) standardized float (or uint8, normalised on the
         device) -> final logits (B, L, num_tokens - 2) float32."""
-        return self.logits_from_memory(self.encode(images))
+        with segment(self.trace_stage, "encode"):
+            memory = self.encode(images)
+        return self.logits_from_memory(memory)
 
     @torch.no_grad()
     def encode(self, images):
@@ -378,25 +401,26 @@ class PARSeq(TorchModel):
             logits = self.decode(self.position_queries(B, L),
                                  self.content_embeddings(bos), memory).float()
         if self.refine_iters:
-            # Cloze mask: query i may not see content i+1 (its own target).
-            # The reference aliases the content mask to the same tensor, so
-            # the cloze mask applies to BOTH streams during refinement.
-            ones = torch.ones(L, L, dtype=torch.bool, device=dev)
-            cloze = torch.triu(ones, 1) & ~torch.triu(ones, 2)
-            bos = torch.full((B, 1), self.bos_id, dtype=torch.long, device=dev)
-            for it in range(self.refine_iters):
-                if it == 0 and self.decode_ar:
-                    # [BOS | AR argmax ids]; tails past each row's first
-                    # EOS hold PAD where the reference has argmax ids, but
-                    # the padding mask below hides them
-                    tgt_in = tgt_in_final
-                else:
-                    tgt_in = torch.cat([bos, logits[:, :-1].argmax(-1)], dim=1)
-                padding_mask = (tgt_in == self.eos_id).int().cumsum(-1) > 0
-                logits = self.decode(
-                    self.position_queries(B, L), self.content_embeddings(tgt_in),
-                    memory, cloze, cloze, padding_mask,
-                ).float()
+            with segment(self.trace_stage, "refine"):
+                # Cloze mask: query i may not see content i+1 (its own target).
+                # The reference aliases the content mask to the same tensor, so
+                # the cloze mask applies to BOTH streams during refinement.
+                ones = torch.ones(L, L, dtype=torch.bool, device=dev)
+                cloze = torch.triu(ones, 1) & ~torch.triu(ones, 2)
+                bos = torch.full((B, 1), self.bos_id, dtype=torch.long, device=dev)
+                for it in range(self.refine_iters):
+                    if it == 0 and self.decode_ar:
+                        # [BOS | AR argmax ids]; tails past each row's first
+                        # EOS hold PAD where the reference has argmax ids, but
+                        # the padding mask below hides them
+                        tgt_in = tgt_in_final
+                    else:
+                        tgt_in = torch.cat([bos, logits[:, :-1].argmax(-1)], dim=1)
+                    padding_mask = (tgt_in == self.eos_id).int().cumsum(-1) > 0
+                    logits = self.decode(
+                        self.position_queries(B, L), self.content_embeddings(tgt_in),
+                        memory, cloze, cloze, padding_mask,
+                    ).float()
         return logits
 
     @torch.no_grad()
@@ -431,8 +455,7 @@ class PARSeq(TorchModel):
             ids, probs = self.forward_tokens_device(
                 torch.from_numpy(np.ascontiguousarray(images))
             )
-        with segment(self.trace_stage, "sync"):
-            return ids.cpu().numpy(), probs.cpu().numpy()
+        return self._read_back(ids, probs)
 
     @torch.no_grad()
     def forward_tokens_from_page_device(self, page, mats, valid_wh, out_w=None):
@@ -456,10 +479,11 @@ class PARSeq(TorchModel):
         from ..parallel.mesh import to_device
 
         mats, valid_wh = maps
-        page = to_device(page, model.device)
-        out_hw = (model.img_size[0], int(out_w or model.img_size[1]))
-        crops = sample_lines(page, mats, valid_wh, out_hw=out_hw)
-        return PARSeq._tokens(model, crops * (1.0 / 127.5) - 1.0)
+        with segment(model.trace_stage, "crops"):
+            page = to_device(page, model.device)
+            out_hw = (model.img_size[0], int(out_w or model.img_size[1]))
+            crops = sample_lines(page, mats, valid_wh, out_hw=out_hw) * (1.0 / 127.5) - 1.0
+        return PARSeq._tokens(model, crops)
 
     def forward_tokens_from_page(self, page, mats, valid_wh, out_w=None):
         """Host entry of ``forward_tokens_from_page_device`` -> (ids, probs)
@@ -467,8 +491,15 @@ class PARSeq(TorchModel):
         with segment(self.trace_stage, "dispatch"):
             ids, probs = self.forward_tokens_from_page_device(
                 page, mats, valid_wh, out_w)
-        with segment(self.trace_stage, "sync"):
-            return ids.cpu().numpy(), probs.cpu().numpy()
+        return self._read_back(ids, probs)
+
+    def _read_back(self, ids, probs):
+        """The greedy result's readback: two device-to-host copies."""
+        nbytes = ids.nbytes + probs.nbytes
+        with segment(self.trace_stage, "sync", nbytes=nbytes):
+            out = ids.cpu().numpy(), probs.cpu().numpy()
+        count("d2h", "copies", 2, nbytes)
+        return out
 
     def audit_int8_kv(self, batch=None) -> bool:
         """One batch's greedy ids with the int8 memory-K/V cache against

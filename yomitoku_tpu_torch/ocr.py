@@ -8,6 +8,8 @@ from .ops.device_crop import DevicePage, device_crops_enabled, lies_on
 from .schemas import OCRSchema
 from .text_detector import TextDetector
 from .text_recognizer import TextRecognizer
+from .utils import stagetrace
+from .utils.stagetrace import segment
 
 
 def ocr_aggregate(det_outputs, rec_outputs):
@@ -44,11 +46,15 @@ class OCR:
         self.recognizer = TextRecognizer(**{**common, **configs.get("text_recognizer", {})})
 
     def __call__(self, img):
-        """Run OCR on a BGR image -> (OCRSchema, vis)."""
-        device = self.detector.device
-        page = DevicePage(img, device) if device_crops_enabled(device) else None
-        det_outputs, vis = self.detector(img, page=page)
-        if page is not None and not lies_on(page, self.recognizer.device):
-            page = None
-        rec_outputs, vis = self.recognizer(img, det_outputs.points, vis=vis, page=page)
-        return OCRSchema(words=ocr_aggregate(det_outputs, rec_outputs)), vis
+        """Run OCR on a BGR image -> (OCRSchema, vis).  Its stage records
+        carry a page id of their own (``stagetrace.page``)."""
+        with stagetrace.page(), segment("page", "call"):
+            device = self.detector.device
+            page = DevicePage(img, device) if device_crops_enabled(device) else None
+            det_outputs, vis = self.detector(img, page=page)
+            if page is not None and not lies_on(page, self.recognizer.device):
+                page = None
+            rec_outputs, vis = self.recognizer(img, det_outputs.points, vis=vis, page=page)
+            with segment("page", "aggregate"):
+                result = OCRSchema(words=ocr_aggregate(det_outputs, rec_outputs))
+            return result, vis

@@ -88,26 +88,27 @@ class TextDetector(BaseModule):
         """Detect text quads in a BGR image -> (TextDetectorSchema, vis).
         With ``page`` (a DevicePage of ``img``) the resize and the
         standardisation run on the device."""
-        ori_h, ori_w = img.shape[:2]
-        if page is not None:
-            out_hw = shortest_edge_size(
-                ori_h, ori_w, self._cfg.data.shortest_size, self._cfg.data.limit_size)
-            binary = self.model.forward_binary_from_page(
-                page_on(page, self.device), page.hw, out_hw)
-        else:
-            binary = self.model.forward_binary_u8(self.preprocess_u8(img))
-        with segment("det", "contours"):
-            quads, scores = self.postprocess({"binary": binary}, (ori_h, ori_w))
-        results = TextDetectorSchema(points=quads, scores=scores)
-        vis = None
-        if self.visualize:
-            from .utils.visualizer import det_visualizer
+        with segment("det", "call"):
+            ori_h, ori_w = img.shape[:2]
+            if page is not None:
+                out_hw = shortest_edge_size(
+                    ori_h, ori_w, self._cfg.data.shortest_size, self._cfg.data.limit_size)
+                binary = self.model.forward_binary_from_page(
+                    page_on(page, self.device), page.hw, out_hw)
+            else:
+                binary = self.model.forward_binary_u8(self.preprocess_u8(img))
+            with segment("det", "contours"):
+                quads, scores = self.postprocess({"binary": binary}, (ori_h, ori_w))
+            results = TextDetectorSchema(points=quads, scores=scores)
+            vis = None
+            if self.visualize:
+                from .utils.visualizer import det_visualizer
 
-            vis = det_visualizer(
-                img,
-                quads,
-                preds=binary[0],
-                vis_heatmap=self._cfg.visualize.heatmap,
-                line_color=tuple(self._cfg.visualize.color[::-1]),
-            )
-        return results, vis
+                vis = det_visualizer(
+                    img,
+                    quads,
+                    preds=binary[0],
+                    vis_heatmap=self._cfg.visualize.heatmap,
+                    line_color=tuple(self._cfg.visualize.color[::-1]),
+                )
+            return results, vis

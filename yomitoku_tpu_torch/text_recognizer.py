@@ -397,28 +397,30 @@ class TextRecognizer(BaseModule):
         (TextRecognizerSchema, vis); ``vis`` is drawn on when given.
         ``page``: a DevicePage of ``img`` (shared with the detector) for
         the device route; where device crops are off it is not used."""
-        if self._use_device_crops():
-            preds, scores, directions, valid_points = self._call_device(img, points, page)
-        else:
-            dataset, _ = self.preprocess(img, points)
-            valid_points = dataset.valid_quads
-            preds, scores, directions = self._run_batch_inference(
-                dataset.as_u8_array(), valid_points
+        with segment("rec", "call"):
+            if self._use_device_crops():
+                preds, scores, directions, valid_points = self._call_device(img, points, page)
+            else:
+                dataset, _ = self.preprocess(img, points)
+                valid_points = dataset.valid_quads
+                preds, scores, directions = self._run_batch_inference(
+                    dataset.as_u8_array(), valid_points
+                )
+                if self.rec_orientation_fallback:
+                    self._apply_orientation_fallback(
+                        dataset, valid_points, preds, scores, directions)
+            results = TextRecognizerSchema(
+                contents=preds, scores=scores, points=valid_points,
+                directions=directions,
             )
-            if self.rec_orientation_fallback:
-                self._apply_orientation_fallback(dataset, valid_points, preds, scores, directions)
-        results = TextRecognizerSchema(
-            contents=preds, scores=scores, points=valid_points,
-            directions=directions,
-        )
-        if self.visualize:
-            from .utils.visualizer import rec_visualizer
+            if self.visualize:
+                from .utils.visualizer import rec_visualizer
 
-            vis = rec_visualizer(
-                img.copy() if vis is None else vis,
-                results,
-                font_size=self._cfg.visualize.font_size,
-                font_color=tuple(self._cfg.visualize.color[::-1]),
-                font_path=self._cfg.visualize.font,
-            )
-        return results, vis
+                vis = rec_visualizer(
+                    img.copy() if vis is None else vis,
+                    results,
+                    font_size=self._cfg.visualize.font_size,
+                    font_color=tuple(self._cfg.visualize.color[::-1]),
+                    font_path=self._cfg.visualize.font,
+                )
+            return results, vis
